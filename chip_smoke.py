@@ -2,15 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-holds each against its plain-torch twin on the card (bitwise), drives the
-main path -- ``overlay.build("dgro")`` at N=4096 and ``selection.adapt``
-at N=256 -- with the kernels' launch counters reset before and read after
-each, checks the diameters against scipy's Dijkstra, times the kernels at
-the main path's shapes, and prints one JSON object per line for the
-kernels and, last, the device.  Exits non-zero, printing no result, when
-there is no CUDA device, when the port cannot be imported, or when any
-phase fails.  Needs one card; imports nothing of JAX.
+Builds the port's four CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+(one ``nvcc`` per source, all at once) and holds each against its
+plain-torch twin on the card: the min-plus kernels K1/K2 bitwise, RMSNorm
+K3 and flash attention K4 within stated tolerances.  Then it drives the
+port's two paths, each with the kernels' launch counters reset just before
+and read just after:
+
+* DGRO -- ``overlay.build("dgro")`` at N=4096 and ``selection.adapt`` at
+  N=256 (diameters against scipy's Dijkstra), and fig20's scoring cell;
+* LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
+  (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3/K4
+  launch counts the config implies and the prefill logits held against the
+  plain versions run on the card.
+
+It times every kernel at its path's shapes, and prints one JSON object per
+line for the kernels and, last, the device.  Exits non-zero, printing no
+result, when there is no CUDA device, when the port cannot be imported, or
+when any phase fails.  Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores is
 # 67 TFLOP/s counting an FMA as two, so 33.5e12 instructions/s; HBM3 at
 # 3.35 TB/s.  A relaxation is two instructions (add, min).
-INSTR_PER_S = 33.5e12
+FLOP_PER_S = 67e12
 BYTES_PER_S = 3.35e12
 
 
@@ -36,17 +45,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(relaxations: float, nbytes: float) -> tuple:
-    """(bound_ms, bound_by): the larger of the instruction and byte
-    floors for the same work on the whole card."""
-    ops_ms = 2.0 * relaxations / INSTR_PER_S * 1e3
+def flop_bound(flops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the fp32 operation floor (an FMA
+    counts as two) and the byte floor for the same work on the whole card."""
+    ops_ms = flops / FLOP_PER_S * 1e3
     bytes_ms = nbytes / BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
 
 
+def bound(relaxations: float, nbytes: float) -> tuple:
+    """``flop_bound`` for min-plus work: a relaxation is two instructions
+    (add, min), each at an FMA's rate, so four FLOP's worth."""
+    return flop_bound(4.0 * relaxations, nbytes)
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device ms per call of ``fn`` by CUDA events."""
+    """Mean device ms per call of ``fn`` by CUDA events.  A sleep kernel
+    (~50 ms) is queued ahead of the timed calls, so the host has enqueued
+    them before the card reaches them: the events time back-to-back device
+    work, not the rate at which the host launches small kernels."""
     import torch
 
     for _ in range(warmup):
@@ -54,12 +72,23 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_all_launches() -> None:
+    """Every kernel's launch count to 0 (before a path is driven)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.kernels.rmsnorm import kernel as rn
+
+    for fam in (mp.FAMILY, rn.FAMILY, fa.FAMILY):
+        fam.reset_launches()
 
 
 def check_equal(what: str, got, want) -> float:
@@ -159,7 +188,7 @@ def phase_build(counts: dict) -> None:
     from repro_torch.kernels.minplus import kernel
 
     w = make_latency("fabric", 4096, seed=0)
-    kernel.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     ov = overlay.build("dgro", w, seed=0)
     wall = time.perf_counter() - t0
@@ -188,7 +217,7 @@ def phase_adapt(counts: dict) -> None:
 
     base = overlay.build("chord", make_latency("bitnode", 256, seed=0),
                          seed=0)
-    kernel.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     new, kind, rho = selection.adapt(base, seed=0)
     wall = time.perf_counter() - t0
@@ -291,7 +320,7 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     from repro_torch.kernels.minplus import kernel, ops, ref
 
     dev = torch.device("cuda")
-    launches = {name: sum(c[name] for c in counts.values())
+    launches = {name: sum(c.get(name, 0) for c in counts.values())
                 for name in kernel.SOURCES}
     # the operands of one outer update of the tiled APSP at N=4096, T=256
     n, t = 4096, ops.default_tile(4096)
@@ -335,6 +364,17 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     sq_b, sq_by = bound(4.0 * 256 ** 3, 4.0 * 3 * 4 * 256 ** 2)
     log(f"  K1 squaring step B=4 N=256: {sq_ms:.4f} ms (twin "
         f"{sq_plain:.3f} ms, bound {sq_b:.5f} ms by {sq_by})")
+    # B2: the unbatched product, one squaring step of diameter.apsp at N=256
+    one = sq[0]
+    b2 = {"ms": time_ms(lambda: ops.minplus(one, one), reps=50),
+          "plain_ms": time_ms(lambda: ref.minplus_ref(one, one), reps=3)}
+    errs["minplus_acc"] = max(errs["minplus_acc"], check_equal(
+        "K1 unbatched (B2) squaring step N=256", ops.minplus(one, one),
+        ref.minplus_ref(one, one)))
+    b2["bound_ms"], b2["bound_by"] = bound(256.0 ** 3, 4.0 * 3 * 256 ** 2)
+    log(f"  K1 unbatched (B2) N=256: {b2['ms']:.4f} ms (twin "
+        f"{b2['plain_ms']:.3f} ms, bound {b2['bound_ms']:.5f} ms by "
+        f"{b2['bound_by']})")
 
     relax = float(n) * n * t
     nbytes = 4.0 * (2 * n * t + 2 * n * n)
@@ -348,7 +388,8 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
         "shape": f"outer update (1,{n},{t})x(1,{t},{n}) fp32 +init",
         "launches": launches["minplus_acc"],
         "max_abs_err": errs["minplus_acc"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "unbatched_n256": b2}]
     log(f"  K1 outer update N={n} T={t}: {ms:.4f} ms (twin {plain:.2f} ms, "
         f"bound {b_ms:.4f} ms by {b_by})")
 
@@ -371,6 +412,288 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     return entries
 
 
+def check_close(what: str, got, want, tol: float, rel: bool = False) -> float:
+    """Fail unless max |got - want| <= tol (times max(1, |want|) elementwise
+    when ``rel``); returns max |diff|."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(g.shape)} {got.dtype} != "
+                             f"{tuple(w.shape)} {want.dtype}")
+    diff = (g - w).abs()
+    err = float(diff.max())
+    limit = tol * w.abs().clamp_min(1.0) if rel else tol
+    if not bool(torch.isfinite(g).all()) or not bool((diff <= limit).all()):
+        scaled = " x max(1, |want|)" if rel else ""
+        raise AssertionError(f"{what}: kernel vs twin max |diff| {err} "
+                             f"(tolerance {tol}{scaled})")
+    log(f"  {what}: max |diff| {err:.3g}")
+    return err
+
+
+def bf16_ulp_close(what: str, got, want) -> float:
+    """Fail unless every element is within one bf16 ulp of the twin's."""
+    import torch
+
+    torch.cuda.synchronize()
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    diff = (got.float() - w).abs()
+    err = float(diff.max())
+    if got.shape != want.shape or not bool((diff <= ulp).all()):
+        raise AssertionError(f"{what}: kernel vs twin max |diff| {err}, "
+                             f"beyond one bf16 ulp")
+    log(f"  {what}: max |diff| {err:.3g} (within one bf16 ulp)")
+    return err
+
+
+FLASH_CASES = [   # the JAX package's kernel test cases, then the served shapes
+    dict(b=1, hq=2, hkv=2, tq=128, tk=128, d=128, causal=True, window=None),
+    dict(b=2, hq=4, hkv=2, tq=256, tk=256, d=64, causal=True, window=None),
+    dict(b=1, hq=4, hkv=1, tq=200, tk=200, d=80, causal=True, window=96),
+    dict(b=1, hq=2, hkv=2, tq=128, tk=384, d=128, causal=False, window=None),
+    dict(b=1, hq=8, hkv=2, tq=64, tk=64, d=32, causal=True, window=32),
+    dict(b=8, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=512),
+    dict(b=8, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
+]
+
+
+def phase_lm_kernels(rng, errs: dict) -> None:
+    """K4 and K3 against their plain versions on the card, fp32 and bf16.
+    K4: fp32 within 2e-5, bf16 within 3e-2 (the JAX kernel tests' own
+    tolerances: online against dense softmax).  K3: fp32 within
+    1e-6 x max(1, |want|) (1/sqrtf against torch's CUDA rsqrt, summed in
+    another order), bf16 within one bf16 ulp."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    dev = torch.device("cuda")
+
+    def rand(shape, dt, sd=1.0):
+        return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)) \
+            .to(dev, dt)
+
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        name = str(dt)[6:]
+        key = "flash_attention" + ("" if dt == torch.float32 else "_bf16")
+        for c in FLASH_CASES:
+            q = rand((c["b"], c["hq"], c["tq"], c["d"]), dt)
+            k = rand((c["b"], c["hkv"], c["tk"], c["d"]), dt)
+            v = rand((c["b"], c["hkv"], c["tk"], c["d"]), dt)
+            tag = (f"K4 b{c['b']} hq{c['hq']} hkv{c['hkv']} tq{c['tq']} "
+                   f"tk{c['tk']} d{c['d']} causal={c['causal']} "
+                   f"window={c['window']} {name}")
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                tag, fa_ops.flash_attention(q, k, v, causal=c["causal"],
+                                            window=c["window"]),
+                attention_ref(q, k, v, causal=c["causal"],
+                              window=c["window"]), tol))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        key = "rmsnorm" + ("" if dt == torch.float32 else "_bf16")
+        for rows, d in ((8 * 1024, 1152), (8 * 1024 * 4, 256), (1, 1152),
+                        (7, 1152), (300, 256), (5, 8192)):
+            x, s = rand((rows, d), dt, 2.0), rand((d,), dt, 0.1)
+            got, want = rn_ops.rmsnorm(x, s, 1e-6), rmsnorm_ref(x, s, 1e-6)
+            tag = f"K3 ({rows}, {d}) {name}"
+            err = check_close(tag, got, want, 1e-6, rel=True) \
+                if dt == torch.float32 else bf16_ulp_close(tag, got, want)
+            errs[key] = max(errs.get(key, 0.0), err)
+
+
+SERVE = dict(arch="gemma3-1b", batch=8, prompt_len=1024, max_new=32,
+             max_len=1056)
+
+
+def expected_lm_launches(cfg, max_new: int) -> dict:
+    """K3 / K4 launches of one ``generate``.  Per layer, prefill runs ln1
+    and ln2 and, with qk_norm, q_norm, k_norm and ``_prefill_kv``'s
+    k_norm; decode runs ln1, ln2 (+ q_norm, k_norm); every forward ends in
+    the final norm.  K4 runs once per layer in prefill only: decode attends
+    over the cache with the plain masked softmax."""
+    qk = 2 if cfg.qk_norm else 0
+    prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
+    decode = cfg.n_layers * (2 + qk) + 1
+    return {"rmsnorm": prefill + (max_new - 1) * decode,
+            "flash_attention": cfg.n_layers}
+
+
+def phase_serve(counts: dict, errs: dict) -> dict:
+    """The LM serving path: gemma3-1b at full width, random weights from a
+    torch.Generator seeded 0, 8 prompts of 1024 tokens from numpy
+    default_rng(0), 32 new tokens, greedy.  Then the same prefill once
+    through the kernels and once through the plain versions, on the card:
+    the last-position logits must agree within rtol = atol = 1e-4 (the
+    CPU parity tests' tolerance; fp32 throughout, TF32 off)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as Mdl
+
+    cfg = get_arch(SERVE["arch"])
+    b, plen, new, max_len = (SERVE[k] for k in
+                             ("batch", "prompt_len", "max_new", "max_len"))
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Mdl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {Mdl.param_count(params)} parameters (fp32) made on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(b, plen))
+    t0 = time.perf_counter()
+    generate(cfg, params, prompts, 3, max_len)     # warm-up, not counted
+    log(f"  warm-up generate (prefill + 2 decode steps): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_all_launches()
+    tokens, t = generate(cfg, params, prompts, new, max_len)
+    counts["serve"] = {**rn.launches, **fa.launches}
+    want = expected_lm_launches(cfg, new)
+    log(f"  generate: prefill {t['prefill_s']:.4f} s "
+        f"({b * plen / t['prefill_s']:.1f} tok/s), decode {t['decode_s']:.4f}"
+        f" s for {new - 1} steps ({b * (new - 1) / t['decode_s']:.1f} tok/s);"
+        f" launches {counts['serve']} (expected {want}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    if counts["serve"] != want:
+        raise AssertionError(f"serve launches {counts['serve']} != {want}")
+    tok = tokens.cpu().numpy()
+    if tok.shape != (b, new) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"bad tokens: {tok.shape} {tok.min()} "
+                             f"{tok.max()}")
+    log(f"  first request continuation: {tok[0][:16].tolist()}")
+
+    def prefill(impl):
+        caches = Mdl.init_caches(cfg, b, max_len, device=dev)
+        logits, _, _ = Mdl.forward(cfg, params, torch.as_tensor(
+            prompts, device=dev), mode="prefill", caches=caches, impl=impl)
+        return logits
+
+    kern, plain = prefill("flash"), prefill("ref")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("prefill logits are not finite")
+    err = float((kern - plain).abs().max())
+    log(f"  prefill logits, kernels vs plain on the card: max |diff| {err:.3g}"
+        f" (max |logit| {float(plain.abs().max()):.4g})")
+    if not torch.allclose(kern, plain, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"prefill logits: kernels vs plain max |diff| "
+                             f"{err} beyond rtol = atol = 1e-4")
+    if not torch.equal(kern.argmax(-1).cpu(), tokens[:, 0].cpu()):
+        raise AssertionError("generate's first tokens are not the argmax "
+                             "of the kernel path's prefill logits")
+    errs["serve_logits"] = err
+    return {"cfg": cfg, "params": params, "prompts": prompts}
+
+
+def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
+    """K4 and K3 at the served shapes: ms per launch by CUDA events, the
+    plain version's ms, the bound (fp32 FLOPs of the unmasked score pairs
+    only; each input read once, each output written once) and one PyTorch
+    call computing the same function (``library_ms``, timed here and used
+    nowhere in the port).  Returns the kernels line's entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    dev = torch.device("cuda")
+    b, hq, hkv, t, d = SERVE["batch"], 4, 1, SERVE["prompt_len"], 256
+
+    def rand(*shape, sd=1.0):
+        return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)) \
+            .to(dev)
+
+    q, k, v = rand(b, hq, t, d), rand(b, hkv, t, d), rand(b, hkv, t, d)
+    pos = torch.arange(t, device=dev)
+    k4 = {}
+    for label, window in (("global", None), ("local", 512)):
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, window=window),
+                     reps=20)
+        plain = time_ms(lambda: attention_ref(q, k, v, window=window),
+                        reps=3, warmup=1)
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[:, None] - pos[None, :] < window
+
+        def lib():
+            if window is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_ms = time_ms(lib, reps=20)
+        want = attention_ref(q, k, v, window=window)
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            f"K4 timed input, {label}", fa_ops.flash_attention(
+                q, k, v, window=window), want, 2e-5))
+        lib_err = float((lib() - want).abs().max())
+        pairs = float(mask.sum()) * b * hq
+        b_ms, b_by = flop_bound(4.0 * pairs * d,
+                                4.0 * (2 * q.numel() + k.numel() + v.numel()))
+        k4[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log(f"  K4 {label} layer ({b},{hq},{t},{d}) Hkv {hkv} fp32: "
+            f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms with "
+            f"max |diff| {lib_err:.3g} to plain, bound {b_ms:.4f} ms by "
+            f"{b_by})")
+
+    k3 = {}
+    for label, rows, dd in (("residual", b * t, 1152),
+                            ("q_norm", b * t * hq, d)):
+        x, s = rand(rows, dd), rand(dd, sd=0.1)
+        w = 1.0 + s
+        ms = time_ms(lambda: rn_ops.rmsnorm(x, s, 1e-6), reps=50)
+        plain = time_ms(lambda: rmsnorm_ref(x, s, 1e-6), reps=10)
+        lib_ms = time_ms(lambda: F.rms_norm(x, (dd,), w, 1e-6), reps=50)
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+            f"K3 timed input, {label}", rn_ops.rmsnorm(x, s, 1e-6),
+            rmsnorm_ref(x, s, 1e-6), 1e-6, rel=True))
+        b_ms, b_by = flop_bound(4.0 * x.numel(),
+                                4.0 * (2 * x.numel() + dd))
+        k3[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log(f"  K3 {label} ({rows}, {dd}) fp32: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.5f} "
+            f"ms by {b_by})")
+
+    def entry(name, source, replaces, shape, main, other_label, other):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "shape": shape,
+                "launches": counts["serve"][name],
+                "max_abs_err": errs[name],
+                "max_abs_err_bf16": errs[name + "_bf16"], **main,
+                other_label: other}
+
+    return [
+        entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:35",
+              f"({b * t}, 1152) fp32, the residual", k3["residual"],
+              "q_norm", k3["q_norm"]),
+        entry("flash_attention",
+              "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:120",
+              f"({b},{hq},{t},{d}) Hkv {hkv} fp32, causal (global layer)",
+              k4["global"], "local_window_512", k4["local"])
+        | {"also_replaces": ["src/repro/kernels/flash_attention/ops.py:76"]},
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -381,7 +704,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.minplus import kernel
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.minplus import kernel as mp
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.launch.serve import generate
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -393,28 +720,41 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    secs = kernel.build()
-    log(f"kernel build: {secs:.1f} s")
-    for name, out in kernel.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  nvcc {name}: {line.strip()}")
+    t_start = time.perf_counter()
+    secs = _build.build(mp.FAMILY, rn.FAMILY, fa.FAMILY)
+    log(f"kernel build (4 sources, one nvcc each, in parallel): {secs:.1f} s")
+    for fam in (mp.FAMILY, rn.FAMILY, fa.FAMILY):
+        for name, out in fam.build_log.items():
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  nvcc {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
     errs: dict = {}
     counts: dict = {}
-    log("phase: kernels vs twins on the card")
+    log("phase: min-plus kernels vs twins on the card")
     phase_kernels(rng, errs)
+    log("phase: LM kernels (K3, K4) vs plain versions on the card")
+    phase_lm_kernels(rng, errs)
     log("phase: main path, overlay.build('dgro') at N=4096")
     phase_build(counts)
     log("phase: ring selection, selection.adapt at N=256")
     phase_adapt(counts)
     log("phase: fig20 cell, diameters_of_rings B=64 N=4096")
     phase_fig20(rng)
+    log("phase: LM serving, gemma3-1b at full width")
+    served = phase_serve(counts, errs)
     log("phase: device time by profiler")
     phase_profile(rng)
-    log("phase: kernel timing at the main path's shapes")
+    profiled("serve gemma3-1b: prefill 8 x 1024 + 4 decode steps",
+             lambda: generate(served["cfg"], served["params"],
+                              served["prompts"], 5, SERVE["max_len"]))
+    del served
+    log("phase: kernel timing at the paths' shapes")
     entries = phase_timing(rng, counts, errs)
+    entries += phase_lm_timing(rng, counts, errs)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card "
+        f"was found")
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -9,10 +9,9 @@ Two kernels, sources in ``csrc/`` (each file carries its design note):
 * ``fw_tile`` (K2) -- Floyd-Warshall closure of one T x T diagonal tile,
   T <= 256, in one thread block.
 
-At first use each source is compiled by its own ``nvcc`` process (all
-started together) into a shared library with a plain C interface under
-``build/kernels/`` of the checkout, named by the hash of its source, and
-loaded with ``ctypes``.  Nothing is built or loaded at import.
+Both are built and bound by the port's shared builder
+(``repro_torch.kernels._build``): one ``nvcc`` per source into
+``build/kernels/``, loaded with ``ctypes`` at first use, never at import.
 
 The wrappers take the plain version in ``ref.py`` for a CPU tensor, and
 launch the kernel for a CUDA tensor -- or raise: there is no fallback.
@@ -24,97 +23,31 @@ raise on a non-zero ``cudaGetLastError``, and count launches in
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from .._build import KernelFamily
 from .ref import fw_tile_ref, minplus_acc_ref
 
 __all__ = ["SOURCES", "build", "build_log", "launches", "reset_launches",
            "minplus_acc", "fw_tile", "FW_TILE_MAX"]
 
-CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = {"minplus_acc": "minplus_acc.cu", "fw_tile": "fw_tile.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 FW_TILE_MAX = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
-    "minplus_acc": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _L, _I, _L, _I, _L, _I, _L, _I, _P],
-    "fw_tile": [_I, _P, _I, _P, _I, _I, _P],
-}
-
-launches = {name: 0 for name in SOURCES}
-build_log: dict = {}     # name -> nvcc's output (register / spill report)
-_libs: dict = {}
-_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the min-plus CUDA kernels cannot be built")
-    return found
-
-
-def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-
-
-def build(names=None) -> float:
-    """Compile (when not already built) and load the named kernels, one
-    ``nvcc`` process per source, all running at once.  Returns seconds."""
-    t0 = time.perf_counter()
-    with _lock:
-        todo = [n for n in (names or SOURCES) if n not in _libs]
-        procs = {}
-        for name in todo:
-            so = _target(name)
-            if so.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (so, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, (so, tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            build_log[name] = out
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{out}")
-            os.replace(tmp, so)
-        for name in todo:
-            lib = ctypes.CDLL(str(_target(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return time.perf_counter() - t0
-
-
-def _fn(name: str):
-    if name not in _libs:
-        build([name])
-    return getattr(_libs[name], name)
+FAMILY = KernelFamily(
+    Path(__file__).resolve().with_name("csrc"), SOURCES, {
+        "minplus_acc": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _L, _I, _L, _I, _L, _I, _L, _I, _P],
+        "fw_tile": [_I, _P, _I, _P, _I, _I, _P],
+    })
+launches = FAMILY.launches
+build_log = FAMILY.build_log       # name -> nvcc's register / spill report
+build = FAMILY.build
+reset_launches = FAMILY.reset_launches
 
 
 def _check_operand(what: str, x: torch.Tensor, dtype, device) -> None:
@@ -128,13 +61,6 @@ def _check_operand(what: str, x: torch.Tensor, dtype, device) -> None:
 
 def _shares_storage(x: torch.Tensor, y: torch.Tensor) -> bool:
     return x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
-
-
-def _launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
-    launches[name] += 1
 
 
 def minplus_acc(a: torch.Tensor, b: torch.Tensor,
@@ -176,7 +102,7 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
     _check_operand("a", a, a.dtype, a.device)
     if out is None:
         out = torch.empty((bsz, m, n), dtype=a.dtype, device=a.device)
-    fn = _fn("minplus_acc")
+    fn = FAMILY.fn("minplus_acc")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         ip = init.data_ptr() if init is not None else None
@@ -186,7 +112,7 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
                  out.data_ptr(), bsz, m, k, n,
                  a.stride(0), a.stride(1), b.stride(0), b.stride(1),
                  si, ldi, out.stride(0), out.stride(1), stream)
-    _launch("minplus_acc", err)
+    FAMILY.launched("minplus_acc", err)
     return out
 
 
@@ -205,10 +131,10 @@ def fw_tile(d: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fw_tile supports T <= {FW_TILE_MAX}, got {t}")
     _check_operand("d", d, d.dtype, d.device)
     out = torch.empty((t, t), dtype=d.dtype, device=d.device)
-    fn = _fn("fw_tile")
+    fn = FAMILY.fn("fw_tile")
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         err = fn(_DTYPE_CODE[d.dtype], d.data_ptr(), d.stride(0),
                  out.data_ptr(), t, t, stream)
-    _launch("fw_tile", err)
+    FAMILY.launched("fw_tile", err)
     return out

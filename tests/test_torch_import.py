@@ -23,7 +23,11 @@ PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.overlay, "
             "repro_torch.core.batcheval, repro_torch.core.selection, "
-            "repro_torch.core.ga, repro_torch.kernels.minplus.ops; "
+            "repro_torch.core.ga, repro_torch.kernels.minplus.ops, "
+            "repro_torch.configs, repro_torch.models.model, "
+            "repro_torch.models.convert, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.rmsnorm.ops; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -45,6 +49,13 @@ def _imports(path: Path):
 def test_ast_scan_finds_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 15, files
+    scanned = {str(p.relative_to(PORT)) for p in files}
+    for mod in ("models/layers.py", "models/model.py", "models/convert.py",
+                "launch/serve.py", "configs/base.py", "kernels/_build.py",
+                "kernels/flash_attention/kernel.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/rmsnorm/kernel.py", "kernels/rmsnorm/ops.py"):
+        assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
            if mod == "jax" or mod.startswith("jax.")
