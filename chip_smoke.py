@@ -16,8 +16,10 @@ and read just after:
   launch counts the config implies and the prefill logits held against the
   plain versions run on the card.
 
-It times every kernel at its path's shapes, and prints one JSON object per
-line for the kernels and, last, the device.  Exits non-zero, printing no
+It times every kernel at its path's shapes (K2 in every cluster size and
+pivots per barrier it is built for, beside a probe of the cluster
+barrier), and prints one JSON object per line for the kernels and, last,
+the device.  Exits non-zero, printing no
 result, when there is no CUDA device, when the port cannot be imported, or
 when any phase fails.  Needs one card; imports nothing of JAX.
 """
@@ -155,11 +157,17 @@ def phase_kernels(rng, errs: dict) -> None:
                           ops.minplus_batched(d, d),
                           ref.minplus_batched_ref(d, d)))
     k2 = []
-    for t in (256, 152, 8):
+    for t in (256, 200, 152, 33, 8, 1):
         for dt in (torch.float32, torch.bfloat16):
             x = cuda(tile_input(rng, t)).to(dt)
             k2.append(check_equal(f"K2 T={t} {str(dt)[6:]}",
                                   kernel.fw_tile(x), ref.fw_tile_ref(x)))
+    for c, p in kernel.FW_TILE_VARIANTS:
+        for t in (255, 200):
+            x = cuda(rng.uniform(1.0, 100.0, (t, t)).astype(np.float32))
+            k2.append(check_equal(
+                f"K2 T={t} asymmetric, cluster of {c}, {p} pivots a barrier",
+                kernel.fw_tile_variant(x, c, p), ref.fw_tile_ref(x)))
     # whole tiled APSPs: N=1000 pads to 1024; N=4096 is the build's grid
     # (16 x 16 tiles of T=256), every K1 / K2 launch at the build's shapes
     for n, dist, k_rings in ((1000, "bitnode", 4), (4096, "fabric", 12)):
@@ -396,19 +404,53 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     x = torch.from_numpy(tile_input(rng, t)).to(dev)
     k2_ms = time_ms(lambda: kernel.fw_tile(x), reps=20)
     k2_plain = time_ms(lambda: ref.fw_tile_ref(x), reps=2, warmup=1)
+    want = ref.fw_tile_ref(x)
     errs["fw_tile"] = max(errs["fw_tile"], check_equal(
-        f"K2 T={t} timed input", kernel.fw_tile(x), ref.fw_tile_ref(x)))
+        f"K2 T={t} timed input", kernel.fw_tile(x), want))
     k2_b, k2_by = bound(float(t) ** 3, 4.0 * 2 * t * t)
+    # every (cluster size C, pivots per barrier P) K2 is built for, timed
+    # on the same tile (the path runs FW_TILE_CLUSTER x FW_TILE_PIVOTS),
+    # each with its chain floor: T / P cluster barriers (their round trip,
+    # measured) + T x 2 R T / 128 cycles of relaxation per CTA (R = 256 / C)
+    barrier = {}
+    for c in sorted({c for c, _ in kernel.FW_TILE_VARIANTS}):
+        cycles, ns = kernel.cluster_barrier_cycles(c)
+        barrier[c] = {
+            "cycles": cycles, "ns": ns,
+            "with_row_read_cycles": kernel.cluster_barrier_cycles(
+                c, remote=True)[0]}
+        log(f"  cluster of {c}: barrier {cycles:.1f} cycles ({ns:.1f} ns), "
+            f"with K2's pivot-row read "
+            f"{barrier[c]['with_row_read_cycles']:.1f} cycles")
+    sweep = {}
+    for c, p in kernel.FW_TILE_VARIANTS:
+        v_ms = time_ms(lambda: kernel.fw_tile_variant(x, c, p), reps=20)
+        errs["fw_tile"] = max(errs["fw_tile"], check_equal(
+            f"K2 T={t} timed input, cluster of {c}, {p} pivots a barrier",
+            kernel.fw_tile_variant(x, c, p), want))
+        cycles, ns = barrier[c]["cycles"], barrier[c]["ns"]
+        relax_cycles = 2.0 * (kernel.FW_TILE_MAX // c) * t / 128
+        floor_ms = (t / p * cycles + t * relax_cycles) * (ns / cycles) / 1e6
+        sweep[f"{c}x{p}"] = {"ms": v_ms, "chain_floor_ms": floor_ms}
+        log(f"  K2 T={t} cluster of {c}, {p} pivots a barrier: {v_ms:.4f} "
+            f"ms; chain floor {floor_ms:.4f} ms")
+    chosen = sweep[f"{kernel.FW_TILE_CLUSTER}x{kernel.FW_TILE_PIVOTS}"]
     entries.append({
         "name": "fw_tile", "route": "cuda",
         "source": "src/repro_torch/kernels/minplus/csrc/fw_tile.cu",
         "replaces": "src/repro/kernels/minplus/kernel.py:188",
-        "shape": f"diagonal tile ({t},{t}) fp32",
+        "shape": f"diagonal tile ({t},{t}) fp32, cluster of "
+                 f"{kernel.FW_TILE_CLUSTER}, {kernel.FW_TILE_PIVOTS} pivots "
+                 f"a barrier",
         "launches": launches["fw_tile"], "max_abs_err": errs["fw_tile"],
         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b,
-        "bound_by": k2_by, "library_ms": None})
+        "bound_by": k2_by, "library_ms": None,
+        "chain_floor_ms": chosen["chain_floor_ms"],
+        "variants": sweep,
+        "cluster_barrier": {str(c): v for c, v in barrier.items()}})
     log(f"  K2 T={t}: {k2_ms:.4f} ms (twin {k2_plain:.2f} ms, bound "
-        f"{k2_b:.5f} ms by {k2_by})")
+        f"{k2_b:.5f} ms by {k2_by}, chain floor "
+        f"{chosen['chain_floor_ms']:.4f} ms)")
     return entries
 
 
@@ -471,6 +513,7 @@ def phase_lm_kernels(rng, errs: dict) -> None:
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -498,11 +541,15 @@ def phase_lm_kernels(rng, errs: dict) -> None:
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
         key = "rmsnorm" + ("" if dt == torch.float32 else "_bf16")
-        for rows, d in ((8 * 1024, 1152), (8 * 1024 * 4, 256), (1, 1152),
-                        (7, 1152), (300, 256), (5, 8192)):
-            x, s = rand((rows, d), dt, 2.0), rand((d,), dt, 0.1)
+        for rows, d, off in ((8 * 1024, 1152, 0), (8 * 1024 * 4, 256, 0),
+                             (1, 1152, 0), (7, 1152, 0), (300, 256, 0),
+                             (5, 8192, 0), (7, 1150, 0), (300, 256, 1)):
+            # off = 1: rows one element off a 16-byte boundary
+            x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
+            s = rand((d,), dt, 0.1)
             got, want = rn_ops.rmsnorm(x, s, 1e-6), rmsnorm_ref(x, s, 1e-6)
-            tag = f"K3 ({rows}, {d}) {name}"
+            tag = (f"K3 ({rows}, {d}){' offset 1' if off else ''} {name}, "
+                   f"variant {rn_kernel.variant(x, s)[0]}")
             err = check_close(tag, got, want, 1e-6, rel=True) \
                 if dt == torch.float32 else bf16_ulp_close(tag, got, want)
             errs[key] = max(errs.get(key, 0.0), err)
@@ -654,7 +701,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
 
     k3 = {}
     for label, rows, dd in (("residual", b * t, 1152),
-                            ("q_norm", b * t * hq, d)):
+                            ("q_norm", b * t * hq, d),
+                            ("decode_residual", b, 1152),
+                            ("decode_q_norm", b * hq, d)):
         x, s = rand(rows, dd), rand(dd, sd=0.1)
         w = 1.0 + s
         ms = time_ms(lambda: rn_ops.rmsnorm(x, s, 1e-6), reps=50)
@@ -683,7 +732,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:35",
               f"({b * t}, 1152) fp32, the residual", k3["residual"],
-              "q_norm", k3["q_norm"]),
+              "q_norm", k3["q_norm"])
+        | {"decode_residual": k3["decode_residual"],
+           "decode_q_norm": k3["decode_q_norm"]},
         entry("flash_attention",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention.cu",
@@ -725,9 +776,14 @@ def main() -> int:
     log(f"kernel build (4 sources, one nvcc each, in parallel): {secs:.1f} s")
     for fam in (mp.FAMILY, rn.FAMILY, fa.FAMILY):
         for name, out in fam.build_log.items():
+            function = "?"
             for line in out.splitlines():
+                if "Function properties for" in line:
+                    function = line.split(" for ", 1)[1].strip()
                 if "registers" in line or "spill" in line:
                     log(f"  nvcc {name}: {line.strip()}")
+                if "spill" in line and " 0 bytes spill stores" not in line:
+                    log(f"  nvcc {name}: the spill above is in {function}")
 
     rng = np.random.default_rng(0)
     errs: dict = {}

@@ -82,6 +82,15 @@ class KernelFamily:
             self.build([name])
         return getattr(self._libs[name], name)
 
+    def symbol(self, name: str, symbol: str, argtypes: list):
+        """Another C entry point ``symbol`` of kernel ``name``'s library
+        (built on first use), with its ``ctypes`` argument types."""
+        self.fn(name)
+        fn = getattr(self._libs[name], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def launched(self, name: str, err: int) -> None:
         """Raise on a refused or failed launch; count a good one."""
         if err != 0:

@@ -7,7 +7,10 @@ Two kernels, sources in ``csrc/`` (each file carries its design note):
   min-plus bodies (row panel, column panel, outer update) of the Pallas
   blocked Floyd-Warshall.
 * ``fw_tile`` (K2) -- Floyd-Warshall closure of one T x T diagonal tile,
-  T <= 256, in one thread block.
+  T <= 256, by one thread-block cluster of :data:`FW_TILE_CLUSTER` CTAs
+  that holds the tile in registers, reads the pivot rows through
+  distributed shared memory and crosses one cluster barrier per
+  :data:`FW_TILE_PIVOTS` pivots.
 
 Both are built and bound by the port's shared builder
 (``repro_torch.kernels._build``): one ``nvcc`` per source into
@@ -31,10 +34,18 @@ from .._build import KernelFamily
 from .ref import fw_tile_ref, minplus_acc_ref
 
 __all__ = ["SOURCES", "build", "build_log", "launches", "reset_launches",
-           "minplus_acc", "fw_tile", "FW_TILE_MAX"]
+           "minplus_acc", "fw_tile", "fw_tile_variant",
+           "cluster_barrier_cycles", "FW_TILE_MAX", "FW_TILE_CLUSTER",
+           "FW_TILE_PIVOTS", "FW_TILE_VARIANTS"]
 
 SOURCES = {"minplus_acc": "minplus_acc.cu", "fw_tile": "fw_tile.cu"}
 FW_TILE_MAX = 256
+# The (cluster size, pivots per barrier) pairs fw_tile.cu is built for, and
+# the pair K2 runs: the fastest on the H100 (PERF.md section 6).
+FW_TILE_VARIANTS = tuple((c, p) for c in (2, 4, 8, 16) for p in (1, 2, 4)
+                         if (c, p) != (2, 4))
+FW_TILE_CLUSTER = 8
+FW_TILE_PIVOTS = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -42,7 +53,7 @@ FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES, {
         "minplus_acc": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
                         _L, _I, _L, _I, _L, _I, _L, _I, _P],
-        "fw_tile": [_I, _P, _I, _P, _I, _I, _P],
+        "fw_tile": [_I, _I, _I, _P, _I, _P, _I, _I, _P],
     })
 launches = FAMILY.launches
 build_log = FAMILY.build_log       # name -> nvcc's register / spill report
@@ -119,8 +130,21 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
 def fw_tile(d: torch.Tensor) -> torch.Tensor:
     """K2: Floyd-Warshall closure of one (T, T) tile, T <= 256, fp32 or
     bf16, into a new contiguous tensor (``d`` is left as it was)."""
+    return fw_tile_variant(d, FW_TILE_CLUSTER, FW_TILE_PIVOTS)
+
+
+def fw_tile_variant(d: torch.Tensor, cluster: int,
+                    pivots: int) -> torch.Tensor:
+    """K2 as :func:`fw_tile`, on a cluster of ``cluster`` CTAs crossing one
+    barrier per ``pivots`` pivots (a pair of :data:`FW_TILE_VARIANTS`):
+    what ``chip_smoke.py`` times to choose :data:`FW_TILE_CLUSTER` and
+    :data:`FW_TILE_PIVOTS`.  A cluster the card cannot schedule raises."""
     if d.dim() != 2 or d.shape[0] != d.shape[1] or d.shape[0] < 1:
         raise ValueError(f"fw_tile needs a square tile, got {tuple(d.shape)}")
+    if (cluster, pivots) not in FW_TILE_VARIANTS:
+        raise ValueError(f"fw_tile is built for (clusters, pivots per "
+                         f"barrier) in {FW_TILE_VARIANTS}, got "
+                         f"{(cluster, pivots)}")
     t = d.shape[0]
     if d.device.type == "cpu":
         return fw_tile_ref(d)
@@ -134,7 +158,28 @@ def fw_tile(d: torch.Tensor) -> torch.Tensor:
     fn = FAMILY.fn("fw_tile")
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(_DTYPE_CODE[d.dtype], d.data_ptr(), d.stride(0),
-                 out.data_ptr(), t, t, stream)
+        err = fn(_DTYPE_CODE[d.dtype], cluster, pivots, d.data_ptr(),
+                 d.stride(0), out.data_ptr(), t, t, stream)
     FAMILY.launched("fw_tile", err)
     return out
+
+
+def cluster_barrier_cycles(cluster: int, iters: int = 100_000,
+                           remote: bool = False, device=None) -> tuple:
+    """(SM cycles, ns) per cluster barrier of a ``cluster``-CTA cluster of
+    K2's shape, from ``iters`` back-to-back barriers on the card (the
+    barrier term of K2's chain floor).  ``remote``: each barrier is
+    followed by K2's read of a pivot row from another CTA's shared memory.
+    Not a kernel of any path: counts no launch."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    res = torch.zeros(3, dtype=torch.int64, device=dev)
+    fn = FAMILY.symbol("fw_tile", "fw_tile_barrier_probe",
+                       [_I, _I, _I, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(cluster, iters, int(remote), res.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster barrier probe ({cluster} CTAs) failed "
+                           f"to launch: cudaError {err}")
+    cycles, ns, _ = res.tolist()
+    return cycles / iters, ns / iters

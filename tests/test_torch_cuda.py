@@ -86,23 +86,68 @@ def test_minplus_acc_strided_views(cuda):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [8, 152, 256])
-def test_fw_tile_bitwise(cuda, dtype, t):
-    rng = np.random.default_rng(t)
+FW_TILE_TS = [1, 7, 8, 31, 33, 152, 200, 255, 256]
+
+
+def _tile(t, seed, symmetric=True):
+    rng = np.random.default_rng(seed)
     m = rng.uniform(1, 100, (t, t)).astype(np.float32)
-    m = np.triu(m, 1) + np.triu(m, 1).T
-    x = torch.from_numpy(m).to(cuda, dtype)
+    if symmetric:
+        m = np.triu(m, 1) + np.triu(m, 1).T
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", FW_TILE_TS)
+def test_fw_tile_bitwise(cuda, dtype, t):
+    x = torch.from_numpy(_tile(t, t)).to(cuda, dtype)
+    before = kernel.launches["fw_tile"]
     assert torch.equal(kernel.fw_tile(x), ref.fw_tile_ref(x))
+    assert kernel.launches["fw_tile"] == before + 1
+    y = torch.from_numpy(_tile(t, t + 1, symmetric=False)).to(cuda, dtype)
+    assert torch.equal(kernel.fw_tile(y), ref.fw_tile_ref(y))
 
 
+@pytest.mark.parametrize("variant", kernel.FW_TILE_VARIANTS)
+@pytest.mark.parametrize("t", [7, 8, 33, 200, 255, 256])
+def test_fw_tile_every_variant_bitwise(cuda, variant, t):
+    x = torch.from_numpy(_tile(t, 3 * t, symmetric=False)).to(cuda)
+    assert torch.equal(kernel.fw_tile_variant(x, *variant),
+                       ref.fw_tile_ref(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [152, 200, 256])
+def test_fw_tile_strided_view_and_inf(cuda, dtype, t):
+    """A diagonal tile read in place from a larger matrix (row stride 300),
+    with padding rows and columns (ops.INF) and a disconnected node (inf)."""
+    d = torch.from_numpy(_ring_adj("fabric", 300, t, 2)).to(cuda, dtype)
+    d[t - 5:, :] = ops.INF
+    d[:, t - 5:] = ops.INF
+    d[3, :] = float("inf")
+    d[:, 3] = float("inf")
+    d.fill_diagonal_(0.0)
+    view = d[:t, :t]
+    assert view.stride(0) == 300
+    assert torch.equal(kernel.fw_tile(view), ref.fw_tile_ref(view))
+
+
+@pytest.mark.parametrize("n", [300, 600])
 @pytest.mark.parametrize("symmetric", [False, True])
-def test_apsp_tiled_bitwise(cuda, symmetric):
-    adj = torch.from_numpy(_ring_adj("uniform", 300, 1, 3)).to(cuda)
-    tile = ops.default_tile(300)
+def test_apsp_tiled_bitwise(cuda, symmetric, n):
+    adj = torch.from_numpy(_ring_adj("uniform", n, 1, 3)).to(cuda)
+    if not symmetric:
+        adj[::7, 1::5] = 1.0           # some one-way shortcuts
+    tile = ops.default_tile(n)
     want = ref.apsp_tiled_ref(ops._pad_to(adj, tile, ops.INF), tile,
-                              symmetric=symmetric)[:300, :300]
+                              symmetric=symmetric)[:n, :n]
     assert torch.equal(ops.apsp_tiled(adj, symmetric=symmetric), want)
+
+
+def test_cluster_barrier_probe(cuda):
+    for cluster in (2, 4, 8, 16):
+        cycles, ns = kernel.cluster_barrier_cycles(cluster, iters=1000)
+        assert 0 < cycles < 1e5 and 0 < ns < 1e5
 
 
 @pytest.mark.parametrize("method", ["squaring", "tiled"])
@@ -126,6 +171,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernel.minplus_acc(a, a.transpose(1, 2))
     with pytest.raises(ValueError, match="T <= 256"):
         kernel.fw_tile(torch.zeros(264, 264, device=cuda))
+    with pytest.raises(ValueError, match="built for"):
+        kernel.fw_tile_variant(torch.zeros(8, 8, device=cuda), 32, 1)
 
 
 # --- K3 rmsnorm -------------------------------------------------------------
@@ -166,6 +213,46 @@ def test_rmsnorm_kernel_strided_rows(cuda):
     x = torch.randn(64, 300, device=cuda)[:, :256]      # row stride 300
     s = torch.randn(256, device=cuda) * 0.1
     assert rmsnorm_close(rn_kernel.rmsnorm_rows(x, s), rmsnorm_ref(x, s))
+
+
+RMS_DS = [1, 3, 96, 256, 1150, 1152, rn_kernel.D_MAX, rn_kernel.D_MAX + 1,
+          8192]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 32768])
+@pytest.mark.parametrize("d", RMS_DS)
+def test_rmsnorm_kernel_every_width(cuda, dtype, rows, d):
+    """Every width, at row counts that fill, overfill and underfill a block
+    of 8 rows: rows that start on a 16-byte boundary, and the same rows one
+    element off it (which take the scalar variant)."""
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    buf = (torch.randn(rows * d + 1, device=cuda, generator=g) * 2).to(dtype)
+    s = (torch.randn(d, device=cuda, generator=g) * 0.1).to(dtype)
+    for x in (buf[:-1].view(rows, d), buf[1:].view(rows, d)):
+        before = rn_kernel.launches["rmsnorm"]
+        got = rn_kernel.rmsnorm_rows(x, s)
+        assert rn_kernel.launches["rmsnorm"] == before + 1
+        assert got.shape == x.shape and got.dtype == dtype
+        assert rmsnorm_close(got, rmsnorm_ref(x, s)), rn_kernel.variant(x, s)
+
+
+def test_rmsnorm_kernel_takes_each_variant(cuda):
+    """The three variants of K3 are chosen as documented, and each holds."""
+    x = torch.randn(64, 301, device=cuda)               # row stride 301
+    s = torch.randn(301, device=cuda) * 0.1
+    cases = {
+        "warp": (x[:, :256].contiguous(), s[:256].contiguous()),
+        "loop": (torch.randn(9, 4096, device=cuda),
+                 torch.randn(4096, device=cuda) * 0.1),
+        "scalar": (x[:, :256], s[:256].contiguous()),
+    }
+    for kind, (xx, ss) in cases.items():
+        assert rn_kernel.variant(xx, ss)[0] == kind
+        before = rn_kernel.launches["rmsnorm"]
+        assert rmsnorm_close(rn_kernel.rmsnorm_rows(xx, ss),
+                             rmsnorm_ref(xx, ss))
+        assert rn_kernel.launches["rmsnorm"] == before + 1
 
 
 # --- K4 flash attention -----------------------------------------------------

@@ -38,6 +38,7 @@ from repro.models import model as JM
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.launch.serve import generate
 from repro_torch.models import convert
@@ -91,7 +92,7 @@ def _bf16_ulp(x):
 
 
 @pytest.mark.parametrize("rows", [1, 7, 300])
-@pytest.mark.parametrize("d", [64, 256, 1152])
+@pytest.mark.parametrize("d", [1, 3, 64, 96, 256, 1150, 1152, 2049])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_matches_jax(rows, d, dtype):
     rng = np.random.default_rng(rows * d)
@@ -106,6 +107,33 @@ def test_rmsnorm_matches_jax(rows, d, dtype):
             assert err.max() <= 1e-6, err.max()
         else:
             assert np.all(err <= _bf16_ulp(want)), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_variant_choice(dtype):
+    """Which K3 variant a shape and an alignment take (decided on the host
+    before the launch, so it is checked here on CPU tensors)."""
+    epv = 16 // torch.empty((), dtype=dtype).element_size()
+    dmax = rn_kernel.D_MAX
+
+    def pick(rows, d, offset=0, ld=None):
+        ld = d if ld is None else ld
+        buf = torch.zeros(rows * ld + offset, dtype=dtype)
+        s = torch.zeros(d, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0
+        x = buf[offset:].view(rows, ld)[:, :d]
+        return rn_kernel.variant(x, s)
+
+    assert pick(8192, 1152) == ("warp", -(-1152 // (32 * epv)))
+    assert pick(32768, 256) == ("warp", -(-256 // (32 * epv)))
+    assert pick(3, epv) == ("warp", 1)
+    assert pick(3, dmax) == ("warp", dmax // (32 * epv))
+    assert pick(3, dmax + epv) == ("loop", 0)
+    assert pick(3, 8192) == ("loop", 0)
+    assert pick(3, 1152, offset=1) == ("scalar", 0)
+    assert pick(3, 256, ld=301) == ("scalar", 0)
+    assert pick(3, 1150) == ("scalar", 0)
+    assert pick(3, dmax + 1) == ("scalar", 0)
 
 
 def test_rmsnorm_any_leading_shape():

@@ -5,11 +5,14 @@ CUDA kernels are held to these twins in ``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from repro.core.diameter import adjacency_from_rings as j_adjacency
 from repro.core.topology import make_latency
 from repro.kernels.minplus import ops as jops
+from repro.kernels.minplus.kernel import _fw_diag_kernel
 from repro.kernels.minplus import ref as jref
 from repro_torch.kernels.minplus import kernel, ops, ref
 
@@ -96,10 +99,31 @@ def test_apsp_tiled_bf16_within_reference_tolerance(n, tile):
     np.testing.assert_allclose(got, exact, rtol=0.05)
 
 
-def test_fw_tile_twin_matches_reference():
-    rng = np.random.default_rng(5)
-    x = rng.uniform(1, 50, (24, 24)).astype(np.float32)   # asymmetric
+def _fw_diag_interpret(x: np.ndarray) -> np.ndarray:
+    """The reference's Pallas diagonal-tile kernel, alone, in interpret
+    mode (the whole tile is its one block)."""
+    call = pl.pallas_call(
+        _fw_diag_kernel, interpret=True,
+        out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32))
+    return np.asarray(call(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("t", [1, 7, 8, 24, 31, 33, 152, 200])
+def test_fw_tile_twin_matches_reference(t):
+    """The plain version the card holds K2 to, against the reference's
+    twin and its Pallas kernel, at the tile sizes K2 is tested at on the
+    card: asymmetric, with padding rows and columns (ops.INF) and a
+    disconnected node (inf)."""
+    rng = np.random.default_rng(5 + t)
+    x = rng.uniform(1, 50, (t, t)).astype(np.float32)   # asymmetric
+    if t > 4:
+        x[t - 2:, :] = ops.INF
+        x[:, t - 2:] = ops.INF
+        x[1, :] = np.inf
+        x[:, 1] = np.inf
+        np.fill_diagonal(x, 0.0)
     want = np.asarray(jref.fw_tile_ref(jnp.asarray(x)))
+    assert np.array_equal(_fw_diag_interpret(x), want)
     assert np.array_equal(ref.fw_tile_ref(_t(x)).numpy(), want)
     sym = np.minimum(x, x.T)
     assert np.array_equal(
@@ -135,3 +159,21 @@ def test_wrapper_checks():
         kernel.minplus_acc(a, a.clone(), init=torch.zeros(1, 4, 5))
     with pytest.raises(ValueError, match="square"):
         kernel.fw_tile(torch.zeros(3, 4))
+
+
+@pytest.mark.parametrize("variant", kernel.FW_TILE_VARIANTS)
+def test_fw_tile_every_variant_takes_the_twin_on_cpu(variant):
+    """Each (cluster size, pivots per barrier) K2 is built for is a valid
+    argument, the one the path uses among them; on the CPU each takes the
+    twin."""
+    assert (kernel.FW_TILE_CLUSTER, kernel.FW_TILE_PIVOTS) in \
+        kernel.FW_TILE_VARIANTS
+    cluster, pivots = variant
+    x = _t(np.random.default_rng(cluster * pivots).uniform(1, 9, (12, 12))
+           .astype(np.float32))
+    assert torch.equal(kernel.fw_tile_variant(x, cluster, pivots),
+                       ref.fw_tile_ref(x))
+    with pytest.raises(ValueError, match="built for"):
+        kernel.fw_tile_variant(x, cluster + 1, pivots)
+    with pytest.raises(ValueError, match="built for"):
+        kernel.fw_tile_variant(x, cluster, 3)
