@@ -330,76 +330,83 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     dev = torch.device("cuda")
     launches = {name: sum(c.get(name, 0) for c in counts.values())
                 for name in kernel.SOURCES}
-    # the operands of one outer update of the tiled APSP at N=4096, T=256
+    # the operands of one diagonal step of the tiled APSP at N=4096, T=256
     n, t = 4096, ops.default_tile(4096)
     w = make_latency("fabric", n, seed=0)
     d = torch.from_numpy(adjacency_from_rings(
         w, [rng.permutation(n) for _ in range(12)])).to(dev)
     diag = kernel.fw_tile(d[:t, :t])
-    rowp = kernel.minplus_acc(diag[None], d[None, :t, :],
-                              init=d[None, :t, :])
-    colp = rowp.transpose(1, 2).contiguous()
-    outer = torch.empty_like(d)[None]
-    ms = time_ms(lambda: kernel.minplus_acc(colp, rowp, init=d[None],
-                                            out=outer), reps=20)
-    plain = time_ms(lambda: ref.minplus_acc_ref(colp, rowp, d[None]),
-                    reps=2, warmup=1)
-    # the timed launches against their twins: diagonal tile, row panel,
-    # outer update out of place and in place (init = out = d, as the
-    # tiled schedule runs it)
-    inplace = d[None].clone()
-    kernel.minplus_acc(colp, rowp, init=inplace, out=inplace)
-    want = ref.minplus_acc_ref(colp, rowp, d[None])
     errs["fw_tile"] = max(errs["fw_tile"], check_equal(
         f"K2 diagonal tile T={t} of N={n}", diag, ref.fw_tile_ref(d[:t, :t])))
-    errs["minplus_acc"] = max(errs["minplus_acc"], check_equal(
-        f"K1 row panel (1,{t},{t})x(1,{t},{n}) +init", rowp,
-        ref.minplus_acc_ref(diag[None], d[None, :t, :], d[None, :t, :])),
-        check_equal(f"K1 outer update (1,{n},{t})x(1,{t},{n}) +init",
-                    outer, want),
-        check_equal(f"K1 outer update (1,{n},{t})x(1,{t},{n}) in place",
-                    inplace, want))
-
-    # one squaring step of adapt's candidate scoring at N=256 (B=4)
+    rowp = kernel.minplus_acc(diag[None], d[None, :t, :], init=d[None, :t, :])
+    colp = rowp.transpose(1, 2).contiguous()
+    # adapt's squaring step at N=256 (B=4), and its unbatched (B2) twin
     sq = torch.from_numpy(np.stack([adjacency_from_rings(
         make_latency("bitnode", 256, seed=0),
         [rng.permutation(256) for _ in range(8)]) for _ in range(4)])).to(dev)
-    sq_ms = time_ms(lambda: kernel.minplus_acc(sq, sq), reps=50)
-    errs["minplus_acc"] = max(errs["minplus_acc"], check_equal(
-        "K1 squaring step B=4 N=256", kernel.minplus_acc(sq, sq),
-        ref.minplus_acc_ref(sq, sq)))
-    sq_plain = time_ms(lambda: ref.minplus_acc_ref(sq, sq), reps=3)
-    sq_b, sq_by = bound(4.0 * 256 ** 3, 4.0 * 3 * 4 * 256 ** 2)
-    log(f"  K1 squaring step B=4 N=256: {sq_ms:.4f} ms (twin "
-        f"{sq_plain:.3f} ms, bound {sq_b:.5f} ms by {sq_by})")
-    # B2: the unbatched product, one squaring step of diameter.apsp at N=256
-    one = sq[0]
-    b2 = {"ms": time_ms(lambda: ops.minplus(one, one), reps=50),
-          "plain_ms": time_ms(lambda: ref.minplus_ref(one, one), reps=3)}
-    errs["minplus_acc"] = max(errs["minplus_acc"], check_equal(
-        "K1 unbatched (B2) squaring step N=256", ops.minplus(one, one),
-        ref.minplus_ref(one, one)))
-    b2["bound_ms"], b2["bound_by"] = bound(256.0 ** 3, 4.0 * 3 * 256 ** 2)
-    log(f"  K1 unbatched (B2) N=256: {b2['ms']:.4f} ms (twin "
-        f"{b2['plain_ms']:.3f} ms, bound {b2['bound_ms']:.5f} ms by "
-        f"{b2['bound_by']})")
-
-    relax = float(n) * n * t
-    nbytes = 4.0 * (2 * n * t + 2 * n * n)
-    b_ms, b_by = bound(relax, nbytes)
+    one = sq[:1]
+    work = d[None].clone()      # the outer update runs in place on a copy
+    # K1 at every shape the paths give it: (label, a, b, init, in place)
+    k1_shapes = [
+        (f"outer update (1,{n},{t})x(1,{t},{n}) in place", colp, rowp,
+         d[None], True),
+        (f"row panel (1,{t},{t})x(1,{t},{n}) +init", diag[None],
+         d[None, :t, :], d[None, :t, :], False),
+        ("squaring step (4,256,256)^2", sq, sq, None, False),
+        ("unbatched squaring step (1,256,256)^2", one, one, None, False),
+    ]
+    k1 = {}
+    for label, a, b, init, in_place in k1_shapes:
+        bsz, m, kk = a.shape
+        nn = b.shape[2]
+        want = ref.minplus_acc_ref(a, b, init)
+        plain = time_ms(lambda: ref.minplus_acc_ref(a, b, init),
+                        reps=2 if m * nn > 1 << 20 else 5, warmup=1)
+        chosen = kernel.variant(bsz, m, kk, nn)
+        by_variant = {}
+        for choice in kernel.MINPLUS_VARIANTS:
+            if in_place:
+                out = work
+                work.copy_(init)
+                kernel.minplus_acc(a, b, init=work, out=work, choice=choice)
+                run = (lambda c=choice: kernel.minplus_acc(
+                    a, b, init=work, out=work, choice=c))
+            else:
+                out = kernel.minplus_acc(a, b, init, choice=choice)
+                run = (lambda c=choice, o=out: kernel.minplus_acc(
+                    a, b, init, out=o, choice=c))
+            errs["minplus_acc"] = max(errs["minplus_acc"], check_equal(
+                f"K1 {label}, tile {choice[0]}, {choice[1]} k chunks", out,
+                want))
+            by_variant[f"{choice[0]}x{choice[1]}"] = time_ms(run, reps=20)
+        nbytes = a.element_size() * (a.numel() + b.numel()
+                                     + (2 if init is not None else 1)
+                                     * bsz * m * nn)
+        b_ms, b_by = bound(float(bsz) * m * kk * nn, nbytes)
+        ms = by_variant[f"{chosen[0]}x{chosen[1]}"]
+        k1[label] = {"variant": list(chosen), "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "variants": by_variant}
+        log(f"  K1 {label}: variant {chosen} {ms:.4f} ms (64x64 unsplit "
+            f"{by_variant['64x1']:.4f} ms; twin {plain:.3f} ms; bound "
+            f"{b_ms:.5f} ms by {b_by}); every variant: " + ", ".join(
+                f"{v} {x:.4f}" for v, x in by_variant.items()))
+    outer = k1[k1_shapes[0][0]]
     entries = [{
         "name": "minplus_acc", "route": "cuda",
         "source": "src/repro_torch/kernels/minplus/csrc/minplus_acc.cu",
         "replaces": "src/repro/kernels/minplus/kernel.py:97",
         "also_replaces": ["src/repro/kernels/minplus/kernel.py:249",
                           "src/repro/kernels/minplus/kernel.py:188"],
-        "shape": f"outer update (1,{n},{t})x(1,{t},{n}) fp32 +init",
+        "shape": f"outer update (1,{n},{t})x(1,{t},{n}) fp32, in place",
         "launches": launches["minplus_acc"],
-        "max_abs_err": errs["minplus_acc"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "unbatched_n256": b2}]
-    log(f"  K1 outer update N={n} T={t}: {ms:.4f} ms (twin {plain:.2f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by})")
+        "max_abs_err": errs["minplus_acc"], "ms": outer["ms"],
+        "plain_ms": outer["plain_ms"], "bound_ms": outer["bound_ms"],
+        "bound_by": outer["bound_by"], "library_ms": None,
+        "variant": outer["variant"], "shapes": k1,
+        "launches_are": "calls: a call with k chunks > 1 runs two kernels, "
+                        "the chunks' product and their combine, timed "
+                        "together"}]
 
     x = torch.from_numpy(tile_input(rng, t)).to(dev)
     k2_ms = time_ms(lambda: kernel.fw_tile(x), reps=20)

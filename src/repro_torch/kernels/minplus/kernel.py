@@ -5,7 +5,8 @@ Two kernels, sources in ``csrc/`` (each file carries its design note):
 * ``minplus_acc`` (K1) -- ``out[b] = min(init[b], A[b] ⊗ B[b])``, fp32 or
   bf16.  Serves the batched and unbatched Pallas products and the three
   min-plus bodies (row panel, column panel, outer update) of the Pallas
-  blocked Floyd-Warshall.
+  blocked Floyd-Warshall.  Its output tile (128 or 64) and its number of
+  k chunks (split K) are chosen per shape on the host by :func:`variant`.
 * ``fw_tile`` (K2) -- Floyd-Warshall closure of one T x T diagonal tile,
   T <= 256, by one thread-block cluster of :data:`FW_TILE_CLUSTER` CTAs
   that holds the tile in registers, reads the pivot rows through
@@ -34,7 +35,8 @@ from .._build import KernelFamily
 from .ref import fw_tile_ref, minplus_acc_ref
 
 __all__ = ["SOURCES", "build", "build_log", "launches", "reset_launches",
-           "minplus_acc", "fw_tile", "fw_tile_variant",
+           "minplus_acc", "variant", "MINPLUS_VARIANTS", "MINPLUS_BK", "SMS",
+           "fw_tile", "fw_tile_variant",
            "cluster_barrier_cycles", "FW_TILE_MAX", "FW_TILE_CLUSTER",
            "FW_TILE_PIVOTS", "FW_TILE_VARIANTS"]
 
@@ -47,11 +49,17 @@ FW_TILE_VARIANTS = tuple((c, p) for c in (2, 4, 8, 16) for p in (1, 2, 4)
 FW_TILE_CLUSTER = 8
 FW_TILE_PIVOTS = 4
 
+# K1's (output tile, k chunks) pairs, minplus_acc.cu's slice of k, and the
+# SMs of the card variant() fills (an H100 SXM).
+MINPLUS_VARIANTS = tuple((t, s) for t in (128, 64) for s in (1, 2, 4, 8))
+MINPLUS_BK = 16
+SMS = 132
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES, {
-        "minplus_acc": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+        "minplus_acc": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _L, _I, _L, _I, _L, _I, _L, _I, _P],
         "fw_tile": [_I, _I, _I, _P, _I, _P, _I, _I, _P],
     })
@@ -74,15 +82,50 @@ def _shares_storage(x: torch.Tensor, y: torch.Tensor) -> bool:
     return x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
 
 
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+def _chunks(k: int, splits: int) -> int:
+    """The k chunks a launch asked for ``splits`` makes: ceil(slices /
+    splits) whole slices each, so that none is empty."""
+    slices = _cdiv(k, MINPLUS_BK)
+    return _cdiv(slices, _cdiv(slices, min(splits, slices)))
+
+
+def variant(batch: int, m: int, k: int, n: int) -> tuple:
+    """K1's (output tile, k chunks) for a (batch, m, k) x (batch, k, n)
+    product: the 128 x 128 tile when it gives at least two blocks per SM
+    (two fit an SM); else the 64 x 64 tile, with k cut into the fewest
+    chunks (of at least two slices each, at most 8) that give a block per
+    SM.  The rule follows the H100 sweep of every variant at the paths'
+    shapes (PERF.md section 6).  The chunk count is that of the launch."""
+    if batch * _cdiv(m, 128) * _cdiv(n, 128) >= 2 * SMS:
+        return 128, 1
+    blocks = batch * _cdiv(m, 64) * _cdiv(n, 64)
+    splits = 1
+    while blocks * splits < SMS and \
+            2 * splits <= min(8, _cdiv(k, MINPLUS_BK) // 2):
+        splits *= 2
+    return 64, _chunks(k, splits)
+
+
 def minplus_acc(a: torch.Tensor, b: torch.Tensor,
                 init: torch.Tensor | None = None,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                choice: tuple | None = None) -> torch.Tensor:
     """K1: ``out[b] = min(init[b], a[b] ⊗ b[b])`` for (B, M, K) x (B, K, N).
 
     fp32 or bf16 (all operands alike).  ``init`` (B, M, N) may be omitted
     (+inf).  ``out`` must be contiguous and must not share storage with
     ``a`` or ``b`` -- the product is taken against frozen operands -- but
-    may be ``init`` itself (an in-place update).
+    may be ``init`` itself (an in-place update).  ``choice``: a (tile, k
+    chunks) pair of :data:`MINPLUS_VARIANTS` in place of :func:`variant`'s
+    choice (what ``chip_smoke.py`` times); every pair gives the same bits.
+
+    With more than one k chunk a call launches two kernels, the chunks'
+    product and their combine; :data:`launches` counts the call once, and
+    ``chip_smoke.py`` times the two together.
     """
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
@@ -101,6 +144,9 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
             raise ValueError("out must be a contiguous (B, M, N) tensor")
         if _shares_storage(out, a) or _shares_storage(out, b):
             raise ValueError("out must not alias a or b (frozen operands)")
+    if choice is not None and tuple(choice) not in MINPLUS_VARIANTS:
+        raise ValueError(f"minplus_acc is built for (tile, k chunks) in "
+                         f"{MINPLUS_VARIANTS}, got {choice}")
     if a.device.type == "cpu":
         res = minplus_acc_ref(a, b, init)
         return res if out is None else out.copy_(res)
@@ -113,14 +159,21 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
     _check_operand("a", a, a.dtype, a.device)
     if out is None:
         out = torch.empty((bsz, m, n), dtype=a.dtype, device=a.device)
+    if choice is None:
+        side, splits = variant(bsz, m, k, n)
+    else:
+        side, splits = choice[0], _chunks(k, choice[1])
+    ws = torch.empty((splits, bsz, m, n), dtype=torch.float32,
+                     device=a.device) if splits > 1 else None
     fn = FAMILY.fn("minplus_acc")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         ip = init.data_ptr() if init is not None else None
         si, ldi = (init.stride(0), init.stride(1)) if init is not None \
             else (0, n)
-        err = fn(_DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), ip,
-                 out.data_ptr(), bsz, m, k, n,
+        err = fn(_DTYPE_CODE[a.dtype], side, splits, a.data_ptr(),
+                 b.data_ptr(), ip, out.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, bsz, m, k, n,
                  a.stride(0), a.stride(1), b.stride(0), b.stride(1),
                  si, ldi, out.stride(0), out.stride(1), stream)
     FAMILY.launched("minplus_acc", err)

@@ -86,6 +86,80 @@ def test_minplus_acc_strided_views(cuda):
     assert torch.equal(got, want)
 
 
+# K1 at sizes below and around its tiles (64, 128) and slices (16)
+K1_RAGGED = [(1, 1, 1, 1), (2, 7, 63, 65), (1, 63, 65, 7), (3, 65, 127, 129),
+             (1, 127, 129, 255), (2, 129, 255, 127), (1, 255, 257, 1),
+             (1, 257, 7, 257)]
+
+
+def _k1_operands(cuda, dtype, shape, seed):
+    """Negative and positive operands, a row of A and a column of B at
+    +inf, and an init with a row at +inf."""
+    bsz, m, k, n = shape
+    rng = np.random.default_rng(seed)
+
+    def rand(*s):
+        return torch.from_numpy(rng.uniform(-20, 50, s).astype(np.float32)) \
+            .to(cuda, dtype)
+
+    a, b, c = rand(bsz, m, k), rand(bsz, k, n), rand(bsz, m, n)
+    a[-1, m // 2, :] = float("inf")
+    b[0, :, n // 2] = float("inf")
+    c[0, (m - 1) // 2, :] = float("inf")
+    return a, b, c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_RAGGED)
+@pytest.mark.parametrize("choice", kernel.MINPLUS_VARIANTS)
+def test_minplus_acc_every_variant_bitwise(cuda, choice, shape, dtype):
+    """Every (tile, k chunks) K1 is built for, at ragged sizes: without
+    init, with init, and in place (init = out)."""
+    a, b, c = _k1_operands(cuda, dtype, shape, sum(shape) + choice[1])
+    want = ref.minplus_acc_ref(a, b, c)
+    before = kernel.launches["minplus_acc"]
+    assert torch.equal(kernel.minplus_acc(a, b, choice=choice),
+                       ref.minplus_acc_ref(a, b))
+    assert torch.equal(kernel.minplus_acc(a, b, c, choice=choice), want)
+    out = c.clone()
+    kernel.minplus_acc(a, b, init=out, out=out, choice=choice)
+    assert torch.equal(out, want)
+    assert kernel.launches["minplus_acc"] == before + 3
+
+
+@pytest.mark.parametrize("choice", kernel.MINPLUS_VARIANTS)
+def test_minplus_acc_every_variant_strided_panels(cuda, choice):
+    """The blocked Floyd-Warshall's panels as views of one matrix (row
+    stride N): the row panel (diag x rows), the column panel (columns x
+    diag), and the outer update in place, at N = 300, T = 152."""
+    d = torch.from_numpy(_ring_adj("fabric", 300, 5, 3)).to(cuda)
+    t = 152
+    diag = kernel.fw_tile(d[:t, :t])
+    rows, cols = d[None, :t, :], d[None, :, :t]
+    assert torch.equal(kernel.minplus_acc(diag[None], rows, init=rows,
+                                          choice=choice),
+                       ref.minplus_acc_ref(diag[None], rows, rows))
+    assert torch.equal(kernel.minplus_acc(cols, diag[None], init=cols,
+                                          choice=choice),
+                       ref.minplus_acc_ref(cols, diag[None], cols))
+    colp, rowp = cols.clone(), rows.clone()      # the frozen panels
+    want = ref.minplus_acc_ref(colp, rowp, d[None])
+    kernel.minplus_acc(colp, rowp, init=d[None], out=d[None], choice=choice)
+    assert torch.equal(d[None], want)
+
+
+def test_minplus_acc_chosen_variants_at_the_path_shapes(cuda):
+    """The variant :func:`kernel.variant` picks at each shape the paths
+    give K1, bitwise against the plain version (small batches of the
+    same shapes keep the plain version fast)."""
+    for shape in [(1, 256, 256, 4096), (4, 256, 256, 256), (1, 256, 256, 256),
+                  (1, 4096, 256, 256)]:
+        a, b, c = _k1_operands(cuda, torch.float32, shape, shape[0])
+        assert kernel.variant(*shape) in kernel.MINPLUS_VARIANTS
+        assert torch.equal(kernel.minplus_acc(a, b, c),
+                           ref.minplus_acc_ref(a, b, c)), shape
+
+
 FW_TILE_TS = [1, 7, 8, 31, 33, 152, 200, 255, 256]
 
 
@@ -292,6 +366,45 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err < tol, (case, dtype, err)
+
+
+# K4 at the edges of its KV tiles and stages (64 keys) and D buckets (128,
+# 256)
+FLASH_RAGGED = [
+    # Tk below a stage, one past one and two stages, and inside the fifth
+    dict(b=1, hq=2, hkv=1, tq=45, tk=45, d=16, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=65, tk=65, d=128, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=129, tk=129, d=256, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=300, tk=300, d=256, causal=True, window=None),
+    # windows that end inside a stage, on its edge and one past it
+    dict(b=1, hq=2, hkv=2, tq=100, tk=100, d=80, causal=True, window=40),
+    dict(b=1, hq=2, hkv=1, tq=600, tk=600, d=256, causal=True, window=300),
+    dict(b=1, hq=2, hkv=1, tq=300, tk=300, d=256, causal=True, window=64),
+    dict(b=1, hq=2, hkv=1, tq=300, tk=300, d=128, causal=True, window=65),
+    # D = 16, 80, 200, 255 (not a multiple of 4: element-by-element loads)
+    dict(b=1, hq=1, hkv=1, tq=33, tk=33, d=200, causal=True, window=None),
+    dict(b=2, hq=4, hkv=2, tq=257, tk=257, d=255, causal=True, window=None),
+    # 8:1 GQA
+    dict(b=1, hq=8, hkv=1, tq=70, tk=70, d=64, causal=True, window=None),
+    # Tq < Tk, not causal
+    dict(b=2, hq=2, hkv=1, tq=20, tk=97, d=80, causal=False, window=None),
+    dict(b=1, hq=2, hkv=1, tq=130, tk=700, d=256, causal=False, window=None),
+    # Tq > Tk with a window: rows 23.. see no key (fully masked, 0)
+    dict(b=1, hq=2, hkv=1, tq=64, tk=16, d=16, causal=True, window=8),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_RAGGED, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_ragged_pieces(cuda, case, dtype, tol):
+    test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol)
+    if case["window"] and case["tq"] > case["tk"] + case["window"]:
+        q = torch.ones(1, 1, case["tq"], case["d"], device=cuda, dtype=dtype)
+        k = torch.ones(1, 1, case["tk"], case["d"], device=cuda, dtype=dtype)
+        got = fa_ops.flash_attention(q, k, k, window=case["window"])
+        assert not got[:, :, case["tk"] + case["window"]:].any()
 
 
 def test_flash_attention_kernel_takes_transposed_views(cuda):

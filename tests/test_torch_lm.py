@@ -176,6 +176,48 @@ def test_flash_attention_matches_jax(case, dtype, tol):
     assert err < tol, (case, dtype, err)
 
 
+# K4's KV tiles and stages (64 keys) and D buckets (128, 256): the plain
+# version against the JAX kernel in interpret mode at the edges of each
+RAGGED_CASES = [
+    # Tk below, one past one and one past two 64-key stages
+    dict(b=1, hq=2, hkv=1, tq=45, tk=45, d=16, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=63, tk=63, d=128, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=65, tk=65, d=16, causal=True, window=None),
+    dict(b=1, hq=2, hkv=2, tq=129, tk=129, d=80, causal=True, window=None),
+    # windows that end inside a stage, on its edge and one past it
+    dict(b=1, hq=2, hkv=2, tq=100, tk=100, d=80, causal=True, window=40),
+    dict(b=1, hq=2, hkv=1, tq=130, tk=130, d=32, causal=True, window=64),
+    dict(b=1, hq=2, hkv=1, tq=200, tk=200, d=16, causal=True, window=65),
+    # D = 200 and 255 (not a multiple of 4: element-by-element loads)
+    dict(b=1, hq=1, hkv=1, tq=33, tk=33, d=200, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=65, tk=65, d=255, causal=True, window=None),
+    # 8:1 GQA
+    dict(b=1, hq=8, hkv=1, tq=70, tk=70, d=64, causal=True, window=None),
+    dict(b=1, hq=8, hkv=1, tq=129, tk=129, d=16, causal=True, window=None),
+    # Tq < Tk, not causal
+    dict(b=2, hq=2, hkv=1, tq=20, tk=97, d=80, causal=False, window=None),
+    dict(b=1, hq=2, hkv=1, tq=20, tk=129, d=64, causal=False, window=None),
+    # Tq > Tk with a window: rows 23.. see no key (a fully masked row is 0)
+    dict(b=1, hq=2, hkv=1, tq=64, tk=16, d=16, causal=True, window=8),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_flash_attention_ragged_stages_match_jax(case):
+    rng = np.random.default_rng(case["tq"] * case["d"])
+    shapes = [(case["b"], case["hq"], case["tq"], case["d"])] + \
+        [(case["b"], case["hkv"], case["tk"], case["d"])] * 2
+    q, k, v = (rng.normal(0, 1, s).astype(np.float32) for s in shapes)
+    got = fa_ops.flash_attention(_t(q), _t(k), _t(v), causal=case["causal"],
+                                 window=case["window"]).numpy()
+    want = _np(jflash(_j(q), _j(k), _j(v), causal=case["causal"],
+                      window=case["window"], interpret=True))
+    assert np.abs(got - want).max() < 2e-5, case
+    if case["window"] and case["tq"] > case["tk"] + case["window"]:
+        assert not got[:, :, case["tk"] + case["window"]:].any()
+
+
 # --- layers -----------------------------------------------------------------
 
 def _layer_params(jcfg, tcfg, seed):

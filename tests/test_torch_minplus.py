@@ -177,3 +177,75 @@ def test_fw_tile_every_variant_takes_the_twin_on_cpu(variant):
         kernel.fw_tile_variant(x, cluster + 1, pivots)
     with pytest.raises(ValueError, match="built for"):
         kernel.fw_tile_variant(x, cluster, 3)
+
+
+# --- K1's tile choice and its plain version at the ragged sizes ---------
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 4096, 256, 4096), (128, 1)),    # outer update of the tiled APSP
+    ((1, 256, 256, 4096), (64, 1)),      # its row panel
+    ((1, 4096, 256, 256), (64, 1)),      # its column panel
+    ((4, 256, 256, 256), (64, 4)),       # adapt's squaring step
+    ((1, 256, 256, 256), (64, 8)),       # the unbatched N=256 step
+])
+def test_minplus_variant_at_the_path_shapes(shape, want):
+    assert kernel.variant(*shape) == want
+    assert want in kernel.MINPLUS_VARIANTS
+
+
+def test_minplus_variant_at_the_edges_of_its_rules():
+    sms = kernel.SMS
+    # the 128 x 128 tile from exactly two blocks per SM on
+    assert kernel.variant(2 * sms, 128, 256, 128) == (128, 1)
+    assert kernel.variant(2 * sms - 1, 128, 256, 128)[0] == 64
+    assert kernel.variant(1, 128 * 2 * sms, 256, 1) == (128, 1)
+    # 64 x 64 tiles that give a block per SM take no split
+    assert kernel.variant(sms, 64, 256, 64) == (64, 1)
+    assert kernel.variant(sms - 1, 64, 256, 64) == (64, 2)
+    assert kernel.variant(sms // 4, 64, 256, 64) == (64, 4)
+    assert kernel.variant(sms // 4 - 1, 64, 256, 64) == (64, 8)
+    # each chunk keeps at least two slices of 16: K <= 48 is not split
+    for k in (1, 16, 17, 32, 48):
+        assert kernel.variant(1, 64, k, 64) == (64, 1)
+    assert kernel.variant(1, 64, 64, 64) == (64, 2)
+    # at most 8 chunks, and the count is the launch's (none empty)
+    assert kernel.variant(1, 1, 4096, 1) == (64, 8)
+    assert kernel.variant(1, 64, 80, 64) == (64, 2)       # 5 slices: 3 + 2
+    for k in range(1, 600, 7):
+        tile, splits = kernel.variant(1, 64, k, 64)
+        slices = -(-k // kernel.MINPLUS_BK)
+        per = -(-slices // splits)
+        assert per * (splits - 1) < slices and (splits == 1 or per >= 2)
+
+
+@pytest.mark.parametrize("choice", kernel.MINPLUS_VARIANTS)
+def test_every_minplus_variant_takes_the_twin_on_cpu(choice):
+    rng = np.random.default_rng(choice[0] + choice[1])
+    a = _t(rng.uniform(-5, 10, (2, 9, 40)).astype(np.float32))
+    b = _t(rng.uniform(-5, 10, (2, 40, 6)).astype(np.float32))
+    assert torch.equal(kernel.minplus_acc(a, b, choice=choice),
+                       ref.minplus_acc_ref(a, b))
+    with pytest.raises(ValueError, match="built for"):
+        kernel.minplus_acc(a, b, choice=(choice[0], 3))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (7, 63, 65), (63, 65, 7),
+                                   (127, 129, 255), (129, 255, 127),
+                                   (255, 7, 257), (257, 257, 1),
+                                   (65, 127, 129), (64, 16, 64),
+                                   (128, 17, 128), (129, 33, 257),
+                                   (1, 48, 129)])
+def test_minplus_acc_twin_at_ragged_sizes_matches_reference(m, k, n):
+    """The plain version the card holds K1 to, against the JAX package's
+    twin at M, N, K below and around K1's tiles (64, 128) and slices (16):
+    batch 2, negative operands, a row of A and a column of B at +inf."""
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    a = rng.uniform(-20, 50, (2, m, k)).astype(np.float32)
+    b = rng.uniform(-20, 50, (2, k, n)).astype(np.float32)
+    c = rng.uniform(-20, 50, (2, m, n)).astype(np.float32)
+    a[1, m // 2, :] = np.inf
+    b[0, :, n // 2] = np.inf
+    want = np.asarray(jref.minplus_batched_ref(jnp.asarray(a), jnp.asarray(b)))
+    assert np.array_equal(ref.minplus_acc_ref(_t(a), _t(b)).numpy(), want)
+    assert np.array_equal(ref.minplus_acc_ref(_t(a), _t(b), _t(c)).numpy(),
+                          np.minimum(c, want))
