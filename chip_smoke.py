@@ -11,6 +11,13 @@ and read just after:
 
 * DGRO -- ``overlay.build("dgro")`` at N=4096 and ``selection.adapt`` at
   N=256 (diameters against scipy's Dijkstra), and fig20's scoring cell;
+* the deep-Q constructor -- ``overlay.build("dgro-dqn")`` at N=200 (the
+  paper's largest training size) with 2 training epochs instead of the
+  builder's 60, its rings rolled out again on the CPU, one more epoch
+  timed with host syncs counted;
+* partitioned construction -- ``overlay.build("parallel")`` at N=4096 with
+  M=1 and M=32 partitions (nearest and DQN segments, scored stitch), the
+  K2/K1 launches held to the tiled schedule's count;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3/K4
   launch counts the config implies and the prefill logits held against the
@@ -272,6 +279,286 @@ def phase_fig20(rng) -> None:
         raise AssertionError(f"genome 0: diameter {out[0]} != scipy {want}")
 
 
+DQN = dict(n=200, dist="fabric", epochs=2, n_starts=10)
+
+
+def phase_dqn(counts: dict) -> None:
+    """The deep-Q constructor: ``overlay.build("dgro-dqn")`` at N=200
+    (K = 8 rings, T = 1,600 steps an epoch, 10 starts), 2 training epochs.
+    Launch counts run from the build through the diameter recomputed by
+    batcheval (min-plus squaring: K1).  The trained parameters are rolled
+    out again on the card (same rings), every greedy decision is replayed
+    on the CPU (same Q values to fp32 rounding), and one more epoch is
+    timed with host syncs counted."""
+    import warnings
+
+    import torch
+
+    from repro_torch import overlay
+    from repro_torch.core import qlearning, rollout
+    from repro_torch.core.construction import default_num_rings
+    from repro_torch.core.diameter import diameter_scipy
+    from repro_torch.core.embedding import init_qparams
+    from repro_torch.core.topology import make_latency
+    from repro_torch.kernels.minplus import kernel
+    from repro_torch.train.optimizer import adamw_init
+
+    n = DQN["n"]
+    w = make_latency(DQN["dist"], n, seed=0)
+    cfg = overlay.DGRODQNConfig(epochs=DQN["epochs"],
+                                n_starts=DQN["n_starts"])
+    trained = []
+    train_dqn = qlearning.train_dqn
+
+    def keep(*args, **kwargs):
+        trained.append(train_dqn(*args, **kwargs))
+        return trained[-1]
+
+    qlearning.train_dqn = keep
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    try:
+        ov = overlay.build("dgro-dqn", w, cfg, seed=0)
+    finally:
+        qlearning.train_dqn = train_dqn
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cached = ov.diameter()
+    ov._cache.clear()
+    recomputed = ov.diameter()
+    counts["dgro-dqn"] = dict(kernel.launches)
+    params, tlog = trained[0]
+    k = default_num_rings(n)
+    log(f"  build('dgro-dqn') N={n} {DQN['dist']}: {k} rings, "
+        f"{cfg.epochs} epochs (the builder's default is 60), {wall:.2f} s "
+        f"wall, of which train_dqn {tlog.seconds:.2f} s (2 epochs + 2 eval "
+        f"rollouts, {tlog.steps_per_sec:.1f} env steps/s); "
+        f"max_memory_allocated {peak} B; launches {counts['dgro-dqn']}")
+    want_k1 = int(np.ceil(np.log2(n - 1)))
+    if counts["dgro-dqn"] != {"minplus_acc": want_k1, "fw_tile": 0}:
+        raise AssertionError(f"dgro-dqn launches {counts['dgro-dqn']}: "
+                             f"expected {want_k1} K1 squarings")
+    if ov.num_rings != k or any(sorted(r) != list(range(n))
+                                for r in ov.rings):
+        raise AssertionError("dgro-dqn rings are not K permutations")
+    want = diameter_scipy(ov.adjacency)
+    log(f"  diameter: cached {cached!r}, recomputed by batcheval "
+        f"{recomputed!r}, scipy Dijkstra {want!r}")
+    for label, got in (("cached", cached), ("recomputed", recomputed)):
+        if not np.isclose(got, want, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{label} diameter {got} != scipy {want}")
+
+    seed = int(np.random.default_rng(0).integers(2**31))
+    dcfg = qlearning.DQNConfig(n=n, k_rings=k, epochs=cfg.epochs,
+                               eps_decay=max(cfg.epochs // 2, 1),
+                               dist=cfg.dist, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = qlearning.dgro_overlay(params, dcfg, w, n_starts=cfg.n_starts,
+                                   seed=seed)
+    rollout_s = time.perf_counter() - t0
+    log(f"  {cfg.n_starts}-start rollout ({k * n} steps, batch of "
+        f"{cfg.n_starts}): {rollout_s:.3f} s on the card; its rings equal "
+        f"the build's: {again.to_json() == ov.to_json()}")
+    if again.to_json() != ov.to_json():
+        raise AssertionError("the trained parameters rolled out again give "
+                             "other rings")
+    check_greedy_on_cpu(params, w, ov.rings, dcfg.n_rounds)
+
+    # one more epoch, as train_dqn's first: timed, host syncs counted
+    slots = rollout.graph_slots(dcfg.buffer_capacity, 1, k, n)
+    buf = rollout.init_buffer(dcfg.buffer_capacity, n, slots)
+    p0 = init_qparams(torch.Generator().manual_seed(seed), dcfg.p, dcfg.h)
+    opt = adamw_init(p0.tensors())
+    plan = rollout.make_plan(np.random.default_rng(seed), 1, k, n,
+                             dcfg.updates_per_step, dcfg.batch_size)
+    ws = torch.as_tensor(make_latency(dcfg.dist, n, seed=seed * 77_000)[None],
+                         device="cuda")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = rollout.train_epoch(
+                p0, opt, buf, ws, np.zeros(1, np.int64), plan.starts,
+                plan.eps_u, plan.choice_u, plan.sample_u, 1.0, dcfg.gamma,
+                dcfg.lr, dcfg.alpha, k_rings=k, n_rounds=dcfg.n_rounds,
+                batch_size=dcfg.batch_size,
+                updates_per_step=dcfg.updates_per_step)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    where: dict = {}
+    for x in seen:
+        if "synchroniz" in str(x.message):
+            at = f"{os.path.relpath(x.filename, ROOT)}:{x.lineno}"
+            where[at] = where.get(at, 0) + 1
+    syncs = sum(where.values())
+    losses = out[4].cpu().numpy()
+    log(f"  one training epoch (eps 1.0, {k * n} steps, "
+        f"{int(np.isfinite(losses).sum())} TD updates of batch "
+        f"{dcfg.batch_size}): {epoch_s:.3f} s, {k * n / epoch_s:.1f} env "
+        f"steps/s, {syncs} host syncs (set_sync_debug_mode warn) at "
+        f"{where}, buffer {buf.size} transitions")
+    if syncs > k * n // 100:        # one a step would be 1,600
+        raise AssertionError(f"{syncs} host syncs in one epoch: the step "
+                             f"loop waits for the card")
+
+
+def greedy_states(rings, n: int, chunk: int = 128):
+    """Every greedy (non-closing) step of building ``rings`` in order, as
+    the rollout engine meets it, in chunks: (adjacency (B, N, N) f32,
+    current node (B,), visited (B, N) bool, the node taken (B,))."""
+    batch = []
+    base = np.zeros((n, n), np.float32)
+    for perm in rings:
+        adj, visited = base.copy(), np.zeros(n, bool)
+        visited[perm[0]] = True
+        for j in range(n - 1):
+            batch.append((adj.copy(), perm[j], visited.copy(), perm[j + 1]))
+            adj[perm[j], perm[j + 1]] = adj[perm[j + 1], perm[j]] = 1.0
+            visited[perm[j + 1]] = True
+            if len(batch) == chunk:
+                yield [np.stack(x) for x in zip(*batch)]
+                batch = []
+        adj[perm[-1], perm[0]] = adj[perm[0], perm[-1]] = 1.0
+        base = adj
+    if batch:
+        yield [np.stack(x) for x in zip(*batch)]
+
+
+def check_greedy_on_cpu(params, w, rings, n_rounds: int) -> None:
+    """Replay every greedy decision of the card's winning rings on the CPU.
+
+    Each node the card took must be a CPU argmax to 1e-5 x max |Q|.  (A
+    rollout made anew on the CPU can part from the card's: the two best of
+    ~200 Q values often lie within an ulp or two, and cuBLAS and the CPU's
+    BLAS sum in other orders.)  And the card's Q values must be as exact as
+    the CPU's fp32 ones: against the same states evaluated in float64 on
+    the CPU, the card's largest error is at most 4x the CPU's (+ 1e-6) x
+    max |Q|.  The same states with TF32 on are reported for scale."""
+    import torch
+
+    from repro_torch.core.embedding import QParams, q_values_batch
+
+    n = w.shape[0]
+    cpu = params.on("cpu")
+    f64 = QParams(**{k: v.detach().double() for k, v in cpu.tensors().items()})
+    err = {"cpu": 0.0, "card": 0.0, "card_tf32": 0.0}
+    worst_margin = 0.0
+    steps = ties = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for adj, v, visited, took in greedy_states(rings, n):
+            b = adj.shape[0]
+            w_b = torch.from_numpy(np.ascontiguousarray(
+                np.broadcast_to(w, (b, n, n))))
+            adj_t, v_t = torch.from_numpy(adj), torch.from_numpy(v)
+            q64 = q_values_batch(f64, w_b.double(), adj_t.double(), v_t,
+                                 n_rounds)
+            q = {"cpu": q_values_batch(cpu, w_b, adj_t, v_t, n_rounds)}
+            args = [x.cuda() for x in (w_b, adj_t, v_t)]
+            q["card"] = q_values_batch(params, *args, n_rounds).cpu()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            q["card_tf32"] = q_values_batch(params, *args, n_rounds).cpu()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            mask = torch.from_numpy(visited)
+            scale = q64.abs().masked_fill(mask, 0.0).amax(1).clamp_min(1.0)
+            for key, qk in q.items():
+                e = (qk.double() - q64).abs().masked_fill(mask, 0.0).amax(1)
+                err[key] = max(err[key], float((e / scale).max()))
+            q_c = q["cpu"].masked_fill(mask, float("-inf"))
+            took_t = torch.from_numpy(took)
+            margin = q_c.amax(1) - q_c.gather(1, took_t[:, None])[:, 0]
+            worst_margin = max(worst_margin, float((margin / scale).max()))
+            ties += int((q_c.argmax(1) != took_t).sum())
+            steps += b
+    log(f"  greedy decisions replayed on the CPU: {steps} states in "
+        f"{time.perf_counter() - t0:.1f} s; each pick of the card is a CPU "
+        f"argmax within {worst_margin:.3g} x max |Q| (tolerance 1e-5), "
+        f"{ties} of them at near ties where the CPU's argmax is another "
+        f"node; largest error against float64, x max |Q|: CPU fp32 "
+        f"{err['cpu']:.3g}, card fp32 {err['card']:.3g}, card with TF32 on "
+        f"{err['card_tf32']:.3g}")
+    if worst_margin > 1e-5:
+        raise AssertionError(f"a pick of the card is {worst_margin} x max "
+                             f"|Q| below the CPU's best")
+    if err["card"] > 4 * err["cpu"] + 1e-6:
+        raise AssertionError(f"the card's Q values are less exact than the "
+                             f"CPU's fp32 ones: {err}")
+
+
+PARALLEL = dict(n=4096, dist="fabric", m=32, dqn_epochs=40)
+
+
+def phase_parallel(counts: dict) -> None:
+    """Partitioned construction (Alg. 4) at N=4096: M=1 and M=32 with
+    nearest segments, M=32 with DQN segments (the builder's default 40
+    training epochs at the block size 128), all with the scored stitch.
+    Each build's K2 / K1 launches must be the tiled schedule's: 16 stitch
+    candidates x ceil(N / T) diagonal steps x (1 K2, 2 K1); M=1 has one
+    segment and scores nothing."""
+    import torch
+
+    from repro_torch import overlay
+    from repro_torch.core import batcheval
+    from repro_torch.core.diameter import diameter_scipy
+    from repro_torch.core.parallel import parallel_ring_host
+    from repro_torch.core.topology import make_latency
+    from repro_torch.kernels.minplus import kernel, ops
+
+    n, m = PARALLEL["n"], PARALLEL["m"]
+    w = make_latency(PARALLEL["dist"], n, seed=0)
+    steps = -(-n // ops.default_tile(n))
+    diameters = {}
+    rings = {}
+    for label, cfg in (
+            ("M=1 nearest", overlay.ParallelConfig(m=1)),
+            (f"M={m} nearest", overlay.ParallelConfig(m=m)),
+            (f"M={m} dqn", overlay.ParallelConfig(
+                m=m, constructor="dqn",
+                dqn_epochs=PARALLEL["dqn_epochs"]))):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ov = overlay.build("parallel", w, cfg, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernel.launches)
+        counts[f"parallel {label}"] = got
+        apsps = 0
+        if cfg.m > 1:
+            rep = batcheval.last_eval_report()
+            apsps = rep["b"] if rep["b"] <= rep["chunk"] else \
+                rep["device_calls"] * rep["chunk"]
+            if rep["b"] != 16 or rep["method"] != "tiled":
+                raise AssertionError(f"{label}: stitch scored {rep}")
+        want = {"minplus_acc": 2 * steps * apsps, "fw_tile": steps * apsps}
+        d = ov.diameter()
+        d_scipy = diameter_scipy(ov.adjacency)
+        diameters[label] = d
+        rings[label] = ov.rings[0]
+        log(f"  build('parallel') {label}, N={n}: {wall:.3f} s wall, "
+            f"diameter {d!r} (scipy {d_scipy!r}), launches {got} "
+            f"(expected {want})")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+        if not np.isclose(d, d_scipy, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"{label}: diameter {d} != scipy {d_scipy}")
+    log(f"  claim 3: M={m} / M=1 diameter "
+        f"{diameters[f'M={m} nearest'] / diameters['M=1 nearest']:.4f} "
+        f"(nearest), {diameters[f'M={m} dqn'] / diameters['M=1 nearest']:.4f}"
+        f" (dqn)")
+    seed = int(np.random.default_rng(0).integers(2**31))
+    host = parallel_ring_host(w, m, seed=seed, stitch="scored")
+    if not np.array_equal(host, rings[f"M={m} nearest"]):
+        raise AssertionError("M=32 nearest ring != parallel_ring_host's")
+    log(f"  M={m} nearest ring equals parallel_ring_host's (numpy segments)")
+
+
 def profiled(label: str, fn) -> None:
     """Run ``fn`` once under ``torch.profiler`` (device activity only) and
     print its wall time, the device time of its kernels and copies, their
@@ -315,6 +602,40 @@ def phase_profile(rng) -> None:
                         for _ in range(16)])
     profiled("fig20 cell, 16 of the 64 genomes",
              lambda: batcheval.diameters_of_rings(w20, genomes))
+    profiled("build('parallel') M=32 nearest, scored stitch, N=4096",
+             lambda: overlay.build("parallel", w,
+                                   overlay.ParallelConfig(m=32), seed=0))
+    profile_dqn()
+
+
+def profile_dqn() -> None:
+    """The deep-Q path at N=200 under the profiler: the 10-start greedy
+    rollout, and a training epoch cut to K = 2 rings (400 steps, the same
+    per-step work as the build's 1,600) to keep the trace small."""
+    import torch
+
+    from repro_torch.core import qlearning, rollout
+    from repro_torch.core.embedding import init_qparams
+    from repro_torch.core.topology import make_latency
+    from repro_torch.train.optimizer import adamw_init
+
+    n, k = DQN["n"], 8
+    w = make_latency(DQN["dist"], n, seed=0)
+    cfg = qlearning.DQNConfig(n=n, k_rings=k)
+    params = init_qparams(torch.Generator().manual_seed(0), cfg.p, cfg.h)
+    profiled(f"dgro-dqn {DQN['n_starts']}-start rollout N={n} K={k}",
+             lambda: qlearning.dgro_overlay(params, cfg, w,
+                                            n_starts=DQN["n_starts"]))
+    slots = rollout.graph_slots(cfg.buffer_capacity, 1, 2, n)
+    buf = rollout.init_buffer(cfg.buffer_capacity, n, slots)
+    plan = rollout.make_plan(np.random.default_rng(0), 1, 2, n, 1,
+                             cfg.batch_size)
+    profiled(f"dgro-dqn train_epoch N={n} K=2 ({2 * n} steps)",
+             lambda: rollout.train_epoch(
+                 params, adamw_init(params.tensors()), buf,
+                 torch.as_tensor(w[None], device="cuda"), [0], plan.starts,
+                 plan.eps_u, plan.choice_u, plan.sample_u, 1.0, cfg.gamma,
+                 cfg.lr, cfg.alpha, k_rings=2, batch_size=cfg.batch_size))
 
 
 def phase_timing(rng, counts: dict, errs: dict) -> list:
@@ -805,6 +1126,10 @@ def main() -> int:
     phase_adapt(counts)
     log("phase: fig20 cell, diameters_of_rings B=64 N=4096")
     phase_fig20(rng)
+    log(f"phase: dgro-dqn at N={DQN['n']}")
+    phase_dqn(counts)
+    log(f"phase: parallel at N={PARALLEL['n']}")
+    phase_parallel(counts)
     log("phase: LM serving, gemma3-1b at full width")
     served = phase_serve(counts, errs)
     log("phase: device time by profiler")

@@ -9,6 +9,9 @@ unions of K such rings.  Constructors:
                        nearest available neighbour (§V last ¶).
 * ``greedy_ring``    — Algorithm 1 with an arbitrary score function; the DQN
                        plugs its Q-function in here (score = Q(S_t, u)).
+* ``nearest_ring_batched`` — nearest rings of a stack of latency blocks on
+                       the device, one step for all blocks at once (the
+                       partitioned construction of §VI).
 
 The host constructors are numpy copies of ``repro.core.construction``;
 given the same generator they build the same permutations.
@@ -18,10 +21,13 @@ from __future__ import annotations
 from typing import Callable, List, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "random_ring",
     "nearest_ring",
+    "nearest_ring_batched",
+    "nearest_rings_batched",
     "greedy_ring",
     "k_rings",
     "default_num_rings",
@@ -68,6 +74,35 @@ def nearest_ring(w: np.ndarray, start: int = 0) -> np.ndarray:
         return -w[cur]
 
     return greedy_ring(w, score, start)
+
+
+def nearest_ring_batched(blocks: torch.Tensor,
+                         starts: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour rings of an (M, P, P) latency-block stack from
+    (M,) start nodes, on the blocks' device: P - 1 steps, each one argmin
+    over all M blocks.  Returns (M, P) int64 permutations.
+
+    Ties go to the first minimum (``torch.argmin``, as ``jnp.argmin``).
+    Blocks of fewer than P real nodes pad with the finite sentinel
+    ``diameter.INF``: pads lose to every real node and beat the ``inf`` of
+    visited nodes, so ``perm[:size]`` is the block's own ring order.
+    """
+    m, p = blocks.shape[0], blocks.shape[1]
+    cur = torch.as_tensor(starts, device=blocks.device).long().reshape(m)
+    perm = torch.empty((m, p), dtype=torch.int64, device=blocks.device)
+    perm[:, 0] = cur
+    visited = torch.zeros((m, p), dtype=torch.bool, device=blocks.device)
+    visited.scatter_(1, cur[:, None], True)
+    for t in range(1, p):
+        row = blocks.gather(1, cur[:, None, None].expand(m, 1, p))[:, 0]
+        cur = row.masked_fill(visited, float("inf")).argmin(1)
+        perm[:, t] = cur
+        visited.scatter_(1, cur[:, None], True)
+    return perm
+
+
+# the reference's name for the batched form
+nearest_rings_batched = nearest_ring_batched
 
 
 def k_rings(

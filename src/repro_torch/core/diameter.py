@@ -113,12 +113,27 @@ def apsp(adj: torch.Tensor) -> torch.Tensor:
 
 def relax_edge_update(dist: torch.Tensor, u, v, wuv) -> torch.Tensor:
     """Exact O(N^2) repair of an APSP matrix after inserting edge (u, v):
-    ``D' = min(D, D[:,u] + w + D[v,:], D[:,v] + w + D[u,:])``."""
-    du = dist[:, u]
-    dv = dist[:, v]
-    via = torch.minimum(du[:, None] + wuv + dist[v, :][None, :],
-                        dv[:, None] + wuv + dist[u, :][None, :])
-    return torch.minimum(dist, via)
+    ``D' = min(D, D[:,u] + w + D[v,:], D[:,v] + w + D[u,:])``.
+
+    One (N, N) matrix with scalar ``u``, ``v``, ``wuv``, or a (B, N, N)
+    stack with (B,) index and weight tensors (gathers: no host sync)."""
+    if dist.dim() == 2:
+        def one(x, dtype):
+            return torch.full((1,), x, dtype=dtype, device=dist.device)
+        return relax_edge_update(dist[None], one(int(u), torch.int64),
+                                 one(int(v), torch.int64),
+                                 one(float(wuv), dist.dtype))[0]
+    b, n = dist.shape[0], dist.shape[-1]
+
+    def col(i):
+        return dist.gather(2, i[:, None, None].expand(b, n, 1))
+
+    def row(i):
+        return dist.gather(1, i[:, None, None].expand(b, 1, n))
+
+    w = wuv[:, None, None]
+    return torch.minimum(dist, torch.minimum(col(u) + w + row(v),
+                                             col(v) + w + row(u)))
 
 
 def largest_cc_diameter(d: torch.Tensor) -> torch.Tensor:

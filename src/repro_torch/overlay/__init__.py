@@ -12,13 +12,16 @@ string-keyed builder registry::
     ov.diameter()
     overlay.Overlay.from_json(ov.to_json())      # byte-identical to repro's
 
-Registered builders (this slice):
+Registered builders:
 
 ====================  =====================================================
 builder               paper section
 ====================  =====================================================
 ``"dgro"``            §V adaptive selection: rho-guided random/nearest ring
                       mix, best candidate by batched diameter (Alg. 3)
+``"dgro-dqn"``        §IV Algs. 1-2: deep-Q constructor (graph embedding +
+                      Q-head), best of n_starts greedy constructions
+``"parallel"``        §VI Alg. 4: M-partition batched construction + stitch
 ``"chord"``           §II/§V-A baseline: identifier ring + 2^j fingers
 ``"rapid"``           §V-A baseline: K consistent-hash rings
 ``"perigee"``         §V-A baseline: d nearest neighbours + one ring
@@ -29,22 +32,22 @@ builder               paper section
 ``"papillon"``        routing baseline: bounded-degree butterfly long links
 ====================  =====================================================
 
-``"dgro-dqn"``, ``"parallel"`` and ``"dgro-hier"`` come with later slices
-of the port.
+``"dgro-hier"`` comes with a later slice of the port.
 """
 from .core import Overlay  # noqa: F401
 from .protocol import Topology, from_topology_json  # noqa: F401
 from .registry import build, builders, get_builder, register  # noqa: F401
-from .policies import (ChordConfig, DGROConfig, GAConfig,  # noqa: F401
-                       KleinbergConfig, NearestRingsConfig, PapillonConfig,
+from .policies import (ChordConfig, DGROConfig,  # noqa: F401
+                       DGRODQNConfig, GAConfig, KleinbergConfig,
+                       NearestRingsConfig, PapillonConfig, ParallelConfig,
                        PerigeeConfig, RandomRingsConfig, RapidConfig,
                        chord_finger_edges, nearest_neighbour_edges)
 
 __all__ = [
     "Overlay", "Topology", "from_topology_json",
     "build", "builders", "get_builder", "register",
-    "ChordConfig", "DGROConfig", "GAConfig", "KleinbergConfig",
-    "NearestRingsConfig", "PapillonConfig", "PerigeeConfig",
-    "RandomRingsConfig", "RapidConfig",
+    "ChordConfig", "DGROConfig", "DGRODQNConfig", "GAConfig",
+    "KleinbergConfig", "NearestRingsConfig", "PapillonConfig",
+    "ParallelConfig", "PerigeeConfig", "RandomRingsConfig", "RapidConfig",
     "chord_finger_edges", "nearest_neighbour_edges",
 ]

@@ -3,9 +3,11 @@
 One builder per topology policy the paper evaluates; each maps to a paper
 section (see ``repro_torch.overlay.__doc__`` for the table).  The builders
 are copies of ``repro.overlay.policies``: with the same generator they draw
-the same rings, and the ones that score candidates (``"dgro"``, ``"ga"``)
-do so through the port's ``batcheval``.  ``"dgro-dqn"`` and ``"parallel"``
-come with later slices of the port.
+the same rings, and the ones that score candidates (``"dgro"``, ``"ga"``,
+``"parallel"`` with the scored stitch) do so through the port's
+``batcheval``.  ``"dgro-dqn"`` initialises its Q-network from a
+``torch.Generator`` (the reference draws with ``jax.random``), so its rings
+match the reference's only with the reference's parameters carried across.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ from .registry import register
 
 __all__ = [
     "RandomRingsConfig", "NearestRingsConfig", "ChordConfig", "RapidConfig",
-    "PerigeeConfig", "DGROConfig", "GAConfig", "KleinbergConfig",
-    "PapillonConfig",
+    "PerigeeConfig", "DGROConfig", "DGRODQNConfig", "GAConfig",
+    "ParallelConfig", "KleinbergConfig", "PapillonConfig",
     "chord_finger_edges", "nearest_neighbour_edges",
 ]
 
@@ -277,9 +279,73 @@ def _build_dgro(w: np.ndarray, cfg: DGROConfig,
                               policy="dgro").cache_diameter(scores.min())
 
 
+@dataclasses.dataclass(frozen=True)
+class DGRODQNConfig:
+    """§IV Algs. 1-2: train the deep-Q ring constructor on graphs of the
+    target size and distribution, then keep the best of ``n_starts``
+    greedy constructions, all built in one batched rollout
+    (``repro_torch.core.rollout``).  ``rollout="host"`` switches to the
+    step-by-step debug loop."""
+    k: Optional[int] = None
+    epochs: int = 60
+    n_starts: int = 10
+    dist: str = "uniform"
+    rollout: str = "device"
+
+
+@register("dgro-dqn", config=DGRODQNConfig)
+def _build_dgro_dqn(w: np.ndarray, cfg: DGRODQNConfig,
+                    rng: np.random.Generator) -> Overlay:
+    from repro_torch.core import qlearning
+
+    n = w.shape[0]
+    k = default_num_rings(n) if cfg.k is None else cfg.k
+    seed = int(rng.integers(2**31))
+    dcfg = qlearning.DQNConfig(n=n, k_rings=k, epochs=cfg.epochs,
+                               eps_decay=max(cfg.epochs // 2, 1),
+                               dist=cfg.dist, seed=seed, rollout=cfg.rollout)
+    params, _ = qlearning.train_dqn(dcfg, eval_every=max(cfg.epochs, 1),
+                                    eval_graphs=1)
+    return qlearning.dgro_overlay(params, dcfg, w, n_starts=cfg.n_starts,
+                                  seed=seed)
+
+
 @register("ga", config=GAConfig)
 def _build_ga(w: np.ndarray, cfg: GAConfig,
               rng: np.random.Generator) -> Overlay:
     """Genetic-algorithm K-ring search (the GA consumes ``cfg.seed``, not
     ``rng`` — its evolution loop owns its own generator)."""
     return evolve(w, cfg).to_overlay(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Algorithm 4 on the batched engine: one ring built by M concurrent
+    partitions (all segments in one call), plus ``extra_random``
+    whole-fleet random rings.
+
+    ``constructor`` picks the per-partition builder: ``"nearest"`` (batched
+    greedy nearest-neighbour) or ``"dqn"`` (the batched rollout with
+    partitions as the environment batch; ``dqn_epochs`` sizes its training
+    run).  ``stitch`` picks the segment merge: ``"naive"`` (tail-to-head,
+    Alg. 4 line 14) or ``"scored"`` (segment rotations/reflections scored
+    in one batched diameter call).
+    """
+    m: int = 4
+    extra_random: int = 0
+    constructor: str = "nearest"
+    stitch: str = "scored"
+    dqn_epochs: int = 40
+
+
+@register("parallel", config=ParallelConfig)
+def _build_parallel(w: np.ndarray, cfg: ParallelConfig,
+                    rng: np.random.Generator) -> Overlay:
+    from repro_torch.core.parallel import SegmentDQNConfig, parallel_overlay
+
+    ov, _ = parallel_overlay(w, cfg.m, seed=int(rng.integers(2**31)),
+                             constructor=cfg.constructor, stitch=cfg.stitch,
+                             dqn=SegmentDQNConfig(epochs=cfg.dqn_epochs))
+    for _ in range(cfg.extra_random):
+        ov = ov.add_ring(random_ring(rng, w.shape[0]))
+    return ov

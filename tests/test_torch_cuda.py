@@ -426,3 +426,172 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa_ops.flash_attention(q, q.double(), q)
     with pytest.raises(ValueError, match="fp32/bf16"):
         rn_ops.rmsnorm(q.double(), torch.zeros(16, device=cuda).double())
+
+
+# ---------------------------------------------------------------------------
+# the deep-Q constructor and partitioned construction on the card, against
+# the port's own CPU path (TF32 off: the Q-network must stay in true fp32)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fp32_matmul(cuda):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _qparams(device, p=16, h=64, seed=0):
+    from repro_torch.core.embedding import init_qparams
+    return init_qparams(torch.Generator().manual_seed(seed), p, h,
+                        device=device)
+
+
+def _close_params(got, want, rtol):
+    for k, v in want.tensors().items():
+        torch.testing.assert_close(getattr(got, k).detach().cpu(),
+                                   v.detach().cpu(), rtol=rtol, atol=1e-5)
+
+
+def _replay_on_cpu(params, ws, plan, eps, k, actions, n_rounds=3,
+                   alpha=0.1):
+    """Replay a card rollout's whole trajectory on the CPU.  Every random
+    pick must be the plan's ``floor(u * n_unvisited)``-th unvisited node,
+    every closing step the ring's start, and every greedy pick a CPU argmax
+    within 1e-5 x max |Q| (cuBLAS and the CPU's BLAS sum in other orders,
+    so the two best Q values of an untrained network can swap; TF32 would
+    miss that bound by two orders).  Returns the rewards and the final
+    diameter recomputed on the CPU along the card's own actions."""
+    from repro_torch.core import rollout
+    from repro_torch.core.embedding import q_values_batch
+
+    e, n = ws.shape[0], ws.shape[1]
+    w = torch.from_numpy(ws)
+    dist, adj, _, v, _, prev_d = rollout._episode_init(e, n, "cpu")
+    rewards = torch.empty(k * n, e)
+    for t in range(k * n):
+        rt = t % n
+        if rt == 0:
+            start = torch.as_tensor(plan.starts[:, t // n], dtype=torch.int64)
+            visited, v = rollout._onehot(start, n), start
+        a = actions[t]
+        if rt == n - 1:
+            assert torch.equal(a, start), t
+        else:
+            with torch.no_grad():
+                q = q_values_batch(params, w, adj, v, n_rounds)
+            q = q.masked_fill(visited, float("-inf"))
+            for i in range(e):
+                if plan.eps_u[t, i] < eps:
+                    unvis = np.flatnonzero(~visited[i].numpy())
+                    r = int(np.float32(plan.choice_u[t, i])
+                            * np.float32(len(unvis)))
+                    assert int(a[i]) == unvis[min(r, len(unvis) - 1)], (t, i)
+                else:
+                    qi = q[i][~visited[i]]
+                    scale = max(1.0, float(qi.abs().max()))
+                    margin = float(qi.max() - q[i, a[i]])
+                    assert margin <= 1e-5 * scale, (t, i, margin, scale)
+        dist, adj, prev_d, rewards[t] = rollout._apply_edge(
+            w, dist, adj, v, a, prev_d, alpha)
+        visited = visited | rollout._onehot(a, n)
+        if rt != n - 1:
+            v = a
+    return rewards, prev_d
+
+
+@pytest.mark.parametrize("n,n_envs,k,eps", [(512, 1, 1, 0.3),
+                                            (64, 4, 2, 0.0)])
+def test_rollout_on_card_matches_cpu(fp32_matmul, n, n_envs, k, eps):
+    """The card's whole trajectory replayed on the CPU (see
+    :func:`_replay_on_cpu`), its rewards and final diameter held to the
+    CPU's recomputation along the same actions.  Where no near tie is met
+    (N=64, E=4) a fresh CPU rollout takes the card's actions exactly."""
+    from repro_torch.core import rollout
+
+    ws = np.stack([make_latency("fabric", n, seed=i) for i in range(n_envs)])
+    plan = rollout.make_plan(np.random.default_rng(n), n_envs, k, n)
+    a_g, r_g, d_g = (x.cpu() for x in rollout.rollout_episodes(
+        _qparams(fp32_matmul), torch.as_tensor(ws, device=fp32_matmul),
+        plan.starts, plan.eps_u, plan.choice_u, eps, 0.1, k_rings=k))
+    r_c, d_c = _replay_on_cpu(_qparams("cpu"), ws, plan, eps, k, a_g)
+    torch.testing.assert_close(r_g, r_c, rtol=0, atol=1e-4)
+    torch.testing.assert_close(d_g, d_c, rtol=1e-5, atol=0)
+    if n_envs > 1:
+        a_c, _, _ = rollout.rollout_episodes(
+            _qparams("cpu"), torch.from_numpy(ws), plan.starts, plan.eps_u,
+            plan.choice_u, eps, 0.1, k_rings=k)
+        assert torch.equal(a_g, a_c)
+
+
+def test_train_epoch_on_card_matches_cpu_without_host_syncs(fp32_matmul):
+    """One epoch at eps = 1.0 on both devices: same actions and buffer,
+    parameters within rtol 1e-4.  With its inputs already on the card the
+    step loop never waits for the device (sync debug mode counts)."""
+    import warnings
+
+    from repro_torch.core import rollout
+    from repro_torch.train.optimizer import adamw_init
+
+    n, n_envs, k, cap, batch = 48, 2, 2, 100, 16
+    ws = np.stack([make_latency("uniform", n, seed=30 + i)
+                   for i in range(n_envs)]).astype(np.float32)
+    plan = rollout.make_plan(np.random.default_rng(4), n_envs, k, n,
+                             updates_per_step=1, batch_size=batch)
+    slots = rollout.graph_slots(cap, n_envs, k, n)
+    out = {}
+    for dev in ("cpu", fp32_matmul):
+        params = _qparams(dev, 8, 16)
+        args = [torch.as_tensor(x, device=dev) for x in
+                (ws, np.arange(n_envs), plan.starts, plan.eps_u,
+                 plan.choice_u, plan.sample_u)]
+        buf = rollout.init_buffer(cap, n, slots, device=dev)
+        opt = adamw_init(params.tensors())
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            if str(dev) == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = rollout.train_epoch(
+                    params, opt, buf, *args, 1.0, 0.99, 5e-4, 0.1, k_rings=k,
+                    n_rounds=2, batch_size=batch, updates_per_step=1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        out[str(dev)] = res, syncs
+    (p_c, _, b_c, d_c, l_c, a_c, _), _ = out["cpu"]
+    (p_g, _, b_g, d_g, l_g, a_g, _), syncs = out["cuda"]
+    assert syncs == [], [str(w.message) for w in syncs[:3]]
+    assert torch.equal(a_g.cpu(), a_c)
+    assert (b_g.size, b_g.ptr) == (b_c.size, b_c.ptr)
+    for name in ("widx", "adj", "v", "action", "adj_next", "visited_next"):
+        assert torch.equal(getattr(b_g, name).cpu(), getattr(b_c, name))
+    _close_params(p_g, p_c, 1e-4)
+    torch.testing.assert_close(l_g.cpu(), l_c, rtol=1e-4, atol=1e-5,
+                               equal_nan=True)
+    torch.testing.assert_close(d_g.cpu(), d_c, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("stitch", ["naive", "scored"])
+def test_parallel_ring_scored_on_card_matches_cpu(cuda, stitch):
+    """N=512, M=8.  The CPU scores the stitch candidates with the tiled
+    method's plain twins, which are bitwise the card's K2 + K1."""
+    from repro_torch.core import parallel
+
+    w = make_latency("fabric", 512, seed=0)
+    before = dict(kernel.launches)
+    ring_g, sc_g = parallel.parallel_ring_scored(w, 8, seed=3,
+                                                 score_blocks=True,
+                                                 stitch=stitch)
+    with batcheval.eval_options(device="cpu", method="tiled"):
+        ring_c, sc_c = parallel.parallel_ring_scored(w, 8, seed=3,
+                                                     score_blocks=True,
+                                                     stitch=stitch)
+        assert np.array_equal(parallel.parallel_ring_host(w, 8, seed=3,
+                                                          stitch=stitch),
+                              ring_c)
+    assert np.array_equal(ring_g, ring_c)
+    np.testing.assert_allclose(sc_g, sc_c, rtol=1e-6, atol=0)
+    if stitch == "scored":
+        assert kernel.launches["fw_tile"] > before["fw_tile"]

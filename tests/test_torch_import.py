@@ -27,7 +27,10 @@ def test_import_leaves_jax_out():
             "repro_torch.configs, repro_torch.models.model, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.kernels.rmsnorm.ops; "
+            "repro_torch.kernels.rmsnorm.ops, "
+            "repro_torch.core.embedding, repro_torch.core.rollout, "
+            "repro_torch.core.qlearning, repro_torch.core.parallel, "
+            "repro_torch.train.optimizer; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -54,7 +57,9 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "launch/serve.py", "configs/base.py", "kernels/_build.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/flash_attention/ops.py",
-                "kernels/rmsnorm/kernel.py", "kernels/rmsnorm/ops.py"):
+                "kernels/rmsnorm/kernel.py", "kernels/rmsnorm/ops.py",
+                "core/embedding.py", "core/rollout.py", "core/qlearning.py",
+                "core/parallel.py", "train/optimizer.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
@@ -100,6 +105,32 @@ def test_device_rule_raises_without_cuda(monkeypatch):
     with batcheval.eval_options(device="cpu"):
         assert batcheval.diameters(adjs).shape == (1,)
         assert batcheval.last_eval_report()["device"] == "cpu"
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch):
+    """The deep-Q and partitioned constructors follow the same rule."""
+    from repro_torch import overlay
+    from repro_torch.core import embedding, parallel, qlearning, rollout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = topology.make_latency("uniform", 12, seed=0)
+    calls = [
+        lambda: embedding.init_qparams(torch.Generator(), 4, 8),
+        lambda: embedding.qparams_from_jax(
+            {k: np.zeros(1, np.float32) for k in embedding.THETAS}),
+        lambda: rollout.init_buffer(8, 4, 2),
+        lambda: qlearning.train_dqn(qlearning.DQNConfig(n=6, epochs=1)),
+        lambda: parallel.parallel_ring(w, 3),
+        lambda: parallel.parallel_ring_shmap(w, 3),
+        lambda: overlay.build("parallel", w),
+        lambda: overlay.build("dgro-dqn", w, epochs=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = embedding.init_qparams(torch.Generator(), 16, 64, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        qlearning.construct_ring_dqn(params, qlearning.DQNConfig(n=12), w,
+                                     np.random.default_rng(0))
 
 
 def test_device_rule_rejects_other_devices():

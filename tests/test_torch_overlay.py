@@ -101,6 +101,7 @@ def test_schema2_payload_names_the_hier_slice():
 def test_registry_holds_this_slice():
     assert set(tov.builders()) == {"random", "nearest", "chord", "rapid",
                                    "perigee", "kleinberg", "papillon",
-                                   "dgro", "ga"}
-    with pytest.raises(ValueError, match="dgro-dqn"):
-        tov.build("dgro-dqn", make_latency("uniform", 8, seed=0))
+                                   "dgro", "dgro-dqn", "ga", "parallel"}
+    assert set(tov.builders()) == set(jov.builders()) - {"dgro-hier"}
+    with pytest.raises(ValueError, match="dgro-hier"):
+        tov.build("dgro-hier", make_latency("uniform", 8, seed=0))
