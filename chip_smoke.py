@@ -18,6 +18,15 @@ and read just after:
 * partitioned construction -- ``overlay.build("parallel")`` at N=4096 with
   M=1 and M=32 partitions (nearest and DQN segments, scored stitch), the
   K2/K1 launches held to the tiled schedule's count;
+* the churn engine -- ``dynamics.ChurnEngine`` replaying a poisson_churn
+  trace at n0=4,000 (rebuilds and adapt scoring through K2 + K1) and a
+  regional failure at n0=1,024 with SWIM confirmation, each end state
+  held to scipy and the stale state to its lower bound, the K1/K2
+  launches held to the APSPs the engine asked for; then
+  ``batcheval.apsp_rowshard`` (K1 with a batch of one) of the live block,
+  maintenance throughput at N=4,096, the batched replica stream, the card
+  against the CPU port bitwise event by event at n0=96, and the obs
+  registry's reading and overhead;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3/K4
   launch counts the config implies and the prefill logits held against the
@@ -559,6 +568,666 @@ def phase_parallel(counts: dict) -> None:
     log(f"  M={m} nearest ring equals parallel_ring_host's (numpy segments)")
 
 
+CHURN = dict(n0=4000, dist="bitnode", horizon=30_000.0, rate=2e-3,
+             k_rings=2, adapt_every=8, threshold=8, fail_n0=1024,
+             maint_n=4096, maint_ops=80, maint_full_ops=16,
+             maint_threshold=16, replicas=16, stream_c=1024, stream_t=64,
+             parity_n0=96, overhead_events=24)
+
+
+class ApspLedger:
+    """Every APSP the churn path asks ``batcheval.batched_apsp`` for, tagged
+    by what asked (the policy's initial build, ``IncrementalDistances.
+    rebuild``, ``selection.adapt``), and every adapt decision with the
+    device it ran on.  A context manager: the wrappers are installed on
+    entry and removed on exit, and they only record."""
+
+    def __enter__(self):
+        from repro_torch.core import batcheval, selection
+        from repro_torch.dynamics.incremental import IncrementalDistances
+
+        self.calls = []         # (tag, matrices, n, method, tile)
+        self.adapts = []        # (device, kind, rho, seconds)
+        self.tag = "build"
+        ledger = self
+        apsp, rebuild, adapt = (batcheval.batched_apsp,
+                                IncrementalDistances.rebuild, selection.adapt)
+
+        def batched_apsp(adjs, **kw):
+            method = kw.get("method") or batcheval._auto_method(
+                bool(kw.get("use_kernel")), adjs.shape[-1], adjs.device)
+            ledger.calls.append((ledger.tag, int(adjs.shape[0]),
+                                 int(adjs.shape[-1]), method,
+                                 kw.get("tile")))
+            return apsp(adjs, **kw)
+
+        def tagged(tag, fn):
+            def call(*args, **kw):
+                prev, ledger.tag = ledger.tag, tag
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    ledger.tag = prev
+            return call
+
+        def adapt_logged(*args, **kw):
+            t0 = time.perf_counter()
+            out = tagged("adapt", adapt)(*args, **kw)
+            ledger.adapts.append((batcheval.eval_device().type, out[1],
+                                  out[2], time.perf_counter() - t0))
+            return out
+
+        self._undo = [(batcheval, "batched_apsp", apsp),
+                      (IncrementalDistances, "rebuild", rebuild),
+                      (selection, "adapt", adapt)]
+        batcheval.batched_apsp = batched_apsp
+        IncrementalDistances.rebuild = tagged("rebuild", rebuild)
+        selection.adapt = adapt_logged
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._undo:
+            setattr(obj, name, fn)
+        return False
+
+    def apsps(self, tag=None) -> int:
+        return sum(c[1] for c in self.calls if tag in (None, c[0]))
+
+    def expected_launches(self) -> dict:
+        """K1 / K2 launches of the recorded APSPs: a tiled APSP of N nodes
+        runs ceil(N / T) diagonal steps of one K2 and two K1 (row panel,
+        outer update; the column panel is the row panel's transpose); a
+        squaring APSP runs ceil(log2(N - 1)) batched K1 products."""
+        from repro_torch.kernels.minplus import ops
+
+        k1 = k2 = 0
+        for _, b, n, method, tile in self.calls:
+            if method == "tiled":
+                steps = -(-n // (tile or ops.default_tile(n)))
+                k1, k2 = k1 + 2 * b * steps, k2 + b * steps
+            elif method == "squaring":
+                k1 += max(1, int(np.ceil(np.log2(max(n - 1, 2)))))
+        return {"minplus_acc": k1, "fw_tile": k2}
+
+
+def live_truth(adj: np.ndarray):
+    """scipy Dijkstra of an overlay (float64, inf where unreachable) and its
+    largest-component diameter, the paper's rule as ``diameter_scipy``
+    applies it."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components, dijkstra
+
+    from repro_torch.core.diameter import is_edge
+
+    a = np.asarray(adj, np.float64)
+    sp = csr_matrix(np.where(is_edge(a), a, 0.0))
+    dist = dijkstra(sp, directed=False)
+    _, labels = connected_components(sp, directed=False)
+    keep = labels == np.bincount(labels).argmax()
+    return dist, float(dist[np.ix_(keep, keep)].max())
+
+
+def hold_to_truth(what: str, got: np.ndarray, truth: np.ndarray) -> float:
+    """Fail unless ``got`` has ``truth``'s reachability and agrees with it
+    within rtol 1e-4 / atol 1e-3 (the reference's own tolerance,
+    ``tests/test_dynamics.py``); returns max |diff| over reachable pairs."""
+    from repro_torch.core.diameter import INF
+
+    reach = np.isfinite(truth)
+    if not np.array_equal(got < float(INF) / 2, reach):
+        raise AssertionError(f"{what}: reachability differs from Dijkstra")
+    g = got.astype(np.float64)[reach]
+    if not np.allclose(g, truth[reach], rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"{what}: distances off Dijkstra by up to "
+                             f"{np.abs(g - truth[reach]).max()}")
+    return float(np.abs(g - truth[reach]).max())
+
+
+def count_syncs(seen) -> tuple:
+    """(total, {file:line: count}) of the host syncs torch warned about."""
+    where: dict = {}
+    for x in seen:
+        if "synchroniz" in str(x.message):
+            at = f"{os.path.relpath(x.filename, ROOT)}:{x.lineno}"
+            where[at] = where.get(at, 0) + 1
+    return sum(where.values()), where
+
+
+def replay(label: str, trace, counts: dict, **engine_kw):
+    """One counted run of the churn path: ``ChurnEngine`` construction (the
+    policy's initial build and the first APSP) and ``run(record=True)``,
+    launches reset before and read after.  The replay's host syncs are
+    counted (``set_sync_debug_mode``), the distances just before the final
+    refresh are kept on the device, and the end state is held to scipy:
+    stale distances at most the truth (the lower-bound contract), exact
+    ones equal to it within the reference's tolerance."""
+    import warnings
+
+    import torch
+
+    from repro_torch.dynamics import ChurnEngine, DGROPolicy
+    from repro_torch.kernels.minplus import kernel
+
+    kinds = {k: sum(e.kind == k for e in trace.events)
+             for k in sorted({e.kind for e in trace.events})}
+    log(f"  {label}: {trace.name} n0={trace.n0} capacity={trace.capacity} "
+        f"{trace.dist}, {len(trace.events)} trace events {kinds}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with ApspLedger() as ledger:
+        t0 = time.perf_counter()
+        eng = ChurnEngine(trace, DGROPolicy(k_rings=CHURN["k_rings"],
+                                            adapt_every=CHURN["adapt_every"]),
+                          rebuild_threshold=CHURN["threshold"], **engine_kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ledger.tag = "replay"
+        stale = {}
+        refresh = eng.inc.refresh
+
+        def keep_stale():
+            stale.setdefault("d", eng.inc._dist.clone())
+            stale.setdefault("pending", eng.inc.pending_deletions)
+            refresh()
+
+        eng.inc.refresh = keep_stale
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                res = eng.run(record=True)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+    got = dict(kernel.launches)
+    counts[f"churn {label}"] = got
+    peak = torch.cuda.max_memory_allocated()
+    syncs, where = count_syncs(seen)
+    st = res.stats
+    final_rebuild = int(stale["pending"] > 0)
+    want = ledger.expected_launches()
+    n_ev = eng.events_processed
+    log(f"  {label}: engine set up in {setup_s:.2f} s (initial dgro build + "
+        f"first APSP); replay of {n_ev} events in {wall:.3f} s, "
+        f"{n_ev / wall:.2f} events/s; stats {st}; "
+        f"{len(res.samples)} samples; host syncs {syncs} "
+        f"({syncs / n_ev:.2f} an event) at {where}; max_memory_allocated "
+        f"{peak} B")
+    adapt_kinds = {k: sum(a[1] == k for a in ledger.adapts)
+                   for k in sorted({a[1] for a in ledger.adapts})}
+    rhos = [round(a[2], 4) for a in ledger.adapts]
+    adapt_s = sum(a[3] for a in ledger.adapts)
+    log(f"  {label}: APSPs build {ledger.apsps('build')}, rebuild "
+        f"{ledger.apsps('rebuild')} (1 initial + {st['rebuilds']} churn + "
+        f"{final_rebuild} final refresh), adapt {ledger.apsps('adapt')} "
+        f"({len(ledger.adapts)} adapt calls: {adapt_kinds}, rho {rhos}; "
+        f"{adapt_s:.3f} s of the replay's wall in them), other "
+        f"{ledger.apsps('replay')}; methods "
+        f"{sorted({(c[3], c[2]) for c in ledger.calls})}; launches {got} "
+        f"(expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    if min(got.values()) < 1:
+        raise AssertionError(f"{label}: the path skipped a kernel: {got}")
+    if ledger.apsps("rebuild") != 1 + st["rebuilds"] + final_rebuild:
+        raise AssertionError(f"{label}: rebuild APSPs "
+                             f"{ledger.apsps('rebuild')} != stats")
+    if ledger.apsps("replay"):
+        raise AssertionError(f"{label}: APSPs outside rebuild / adapt")
+    if st.get("adaptations", 0) != sum(a[1] != "keep"
+                                       for a in ledger.adapts):
+        raise AssertionError(f"{label}: adaptations {st} vs {adapt_kinds}")
+
+    live = eng.live_ids()
+    t0 = time.perf_counter()
+    truth, d_true = live_truth(eng.inc.adj[np.ix_(live, live)])
+    scipy_s = time.perf_counter() - t0
+    reach = np.isfinite(truth)
+    old = stale["d"].cpu().numpy()[np.ix_(live, live)].astype(np.float64)
+    over = old[reach] - (truth[reach] * (1 + 1e-4) + 1e-3)
+    log(f"  {label}: before the final refresh ({stale['pending']} deletions "
+        f"pending) every live distance is at most Dijkstra's (largest "
+        f"excess {over.max():.3g}, below truth by up to "
+        f"{(truth[reach] - old[reach]).max():.3g})")
+    if (over > 0).any():
+        raise AssertionError(f"{label}: a stale distance exceeds the truth "
+                             f"by {over.max()}: the lower bound is broken")
+    err = hold_to_truth(f"{label} live distances after refresh",
+                        eng.inc.live_distances(), truth)
+    log(f"  {label}: after it, diameter(exact=True) {res.final_diameter!r} "
+        f"vs scipy {d_true!r}; live distances vs Dijkstra max |diff| "
+        f"{err:.3g} ({scipy_s:.1f} s of scipy)")
+    if not np.isclose(res.final_diameter, d_true, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"{label}: final diameter {res.final_diameter}"
+                             f" != scipy {d_true}")
+    if not all(np.isfinite(s.diameter) for s in res.samples):
+        raise AssertionError(f"{label}: a sampled diameter is not finite")
+    return eng, res, truth, final_rebuild
+
+
+def phase_churn(counts: dict) -> None:
+    """The churn engine on the card (``repro_torch.dynamics``):
+
+    (a) a poisson_churn trace at n0=4,000 on bitnode latency (the size of a
+        real P2P fleet) against DGRO (2 rings, adapt every 8 changes),
+        rebuild threshold 8 -- rebuilds tiled (K2 + K1) over a capacity
+        that pads to the tile grid, adapt scoring 4 candidates at N~4,000;
+        then the live block's APSP once more by ``apsp_rowshard`` (B2);
+    (b) regional_failure at n0=1,024 on FABRIC (one site crashes) with SWIM
+        confirmation (``detect_failures``);
+    (c) fig16's maintenance throughput at N=4,096: incremental against
+        full rebuilds on one op stream;
+    (d) the batched replica stream, bitwise against per-step calls;
+    (e) the card against the CPU port at n0=96, bitwise after every event;
+    (f) the obs registry's reading of (a) and its overhead."""
+    import torch
+
+    from repro_torch.core import batcheval
+    from repro_torch.dynamics import scenarios
+    from repro_torch.kernels.minplus import kernel
+    from repro_torch.obs import REGISTRY, parse_prometheus
+
+    c = CHURN
+    before = parse_prometheus(REGISTRY.render_prometheus())
+    trace = scenarios.poisson_churn(
+        n0=c["n0"], dist=c["dist"], seed=0, horizon=c["horizon"],
+        join_rate=c["rate"], leave_rate=c["rate"])
+    eng, res, truth, final_rebuild = replay("(a) replay", trace, counts)
+    after = parse_prometheus(REGISTRY.render_prometheus())
+    check_obs(trace, res, final_rebuild, before, after)
+
+    truth = forced_adapt(eng, counts)
+    live = eng.live_ids()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    d = batcheval.apsp_rowshard(eng.inc.adj[np.ix_(live, live)])
+    wall = time.perf_counter() - t0
+    got = dict(kernel.launches)
+    counts["churn apsp_rowshard"] = got
+    want = max(1, int(np.ceil(np.log2(len(live) - 1))))
+    err = hold_to_truth("apsp_rowshard of the live block", d, truth)
+    log(f"  (a) apsp_rowshard (B2: K1 with a batch of one) of the live "
+        f"block N={len(live)}: {wall:.3f} s, launches {got} (expected "
+        f"{want} K1 squarings), vs Dijkstra max |diff| {err:.3g}")
+    if got != {"minplus_acc": want, "fw_tile": 0}:
+        raise AssertionError(f"apsp_rowshard launches {got}")
+    del eng, res, truth, d
+
+    fail = scenarios.regional_failure(n0=c["fail_n0"], dist="fabric", seed=0)
+    eng, res, _, _ = replay("(b) regional failure", fail, counts,
+                            detect_failures=True)
+    victims = sorted({e.node for e in fail.events})
+    if eng.alive[victims].any() or eng.inc.n_live != fail.n0 - len(victims):
+        raise AssertionError("(b): a crashed site's node is still live")
+    del eng, res
+
+    churn_maintenance()
+    churn_stream()
+    churn_card_vs_cpu()
+    churn_obs_overhead(trace)
+
+
+def forced_adapt(eng, counts: dict) -> np.ndarray:
+    """(a') One adapt of the engine's own DGRO policy over the live fleet
+    of (a), through ``DGROPolicy.maybe_adapt``, with ``selection.adapt``'s
+    eps set to 0.5: a keep band of width 0, so the rule must add a ring.
+    Its 4 candidates are scored at N~4,000 (K2 + K1) and the winner's new
+    edges land in the maintained state as relaxations -- the path an adapt
+    takes when rho leaves the keep band, which replay (a) may not reach.
+    Run once under the profiler (its launches counted there), then held
+    to scipy; returns the new live Dijkstra matrix."""
+    import functools
+
+    import torch
+
+    from repro_torch.core import selection
+    from repro_torch.kernels.minplus import kernel
+
+    pol = eng.policy
+    live = eng.live_ids()
+    t0 = time.perf_counter()
+    selection.measure_latency_stats(eng.w[np.ix_(live, live)],
+                                    eng.inc.adj[np.ix_(live, live)], seed=0)
+    log(f"  (a') host: Alg. 3's latency sampling "
+        f"(selection.measure_latency_stats), which every adapt call runs "
+        f"first, takes {time.perf_counter() - t0:.3f} s over the "
+        f"{len(live)} live nodes")
+    relax0 = eng.inc.stats["relaxations"]
+    with ApspLedger() as ledger:
+        selection.adapt = functools.partial(selection.adapt, eps=0.5)
+        pol._changes_since_adapt = pol.adapt_every - 1
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiled("(a') forced adapt at N~4,000 (eps 0.5)",
+                 lambda: pol.maybe_adapt(eng))
+        wall = time.perf_counter() - t0
+    got = dict(kernel.launches)
+    counts["churn (a') forced adapt"] = got
+    want = ledger.expected_launches()
+    kind, rho = ledger.adapts[-1][1:3]
+    added = eng.inc.stats["relaxations"] - relax0
+    log(f"  (a') forced adapt: added a {kind} ring (rho {rho:.4f}) as "
+        f"{added} relaxations, {ledger.apsps('adapt')} candidates scored "
+        f"({sorted({(c[3], c[2]) for c in ledger.calls})}), {wall:.3f} s "
+        f"with the profiler on; launches {got} (expected {want})")
+    if got != want or ledger.apsps("adapt") < 4 or added < 1:
+        raise AssertionError(f"(a'): launches {got} != {want}, or no ring "
+                             f"was scored and added")
+    live = eng.live_ids()
+    truth, d_true = live_truth(eng.inc.adj[np.ix_(live, live)])
+    err = hold_to_truth("(a') live distances after the adapt",
+                        eng.inc.live_distances(), truth)
+    d = eng.inc.diameter(exact=True)
+    log(f"  (a') after it: diameter {d!r} vs scipy {d_true!r}, live "
+        f"distances vs Dijkstra max |diff| {err:.3g}")
+    if not np.isclose(d, d_true, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"(a'): diameter {d} != scipy {d_true}")
+    return truth
+
+
+def check_obs(trace, res, final_rebuild: int, before: dict,
+              after: dict) -> None:
+    """(f) What the obs registry saw of replay (a), against the engine's own
+    counts: one ``repro_engine_events_total`` per trace event by kind, one
+    ``repro_jit_*_seconds{fn="incremental.*"}`` observation per relax,
+    join, tombstone and rebuild, and the engine calls of
+    ``repro_apsp_seconds`` by method and phase."""
+    def delta(series: str) -> dict:
+        new, old = after.get(series, {}), before.get(series, {})
+        return {k: v - old.get(k, 0.0) for k, v in new.items()
+                if v != old.get(k, 0.0)}
+
+    def by(label: str, d: dict) -> dict:
+        out: dict = {}
+        for key, v in d.items():
+            name = dict(key).get(label)
+            out[name] = out.get(name, 0) + int(v)
+        return out
+
+    apsp = {",".join(v for _, v in key): int(n)
+            for key, n in delta("repro_apsp_seconds_count").items()}
+    events = by("kind", delta("repro_engine_events_total"))
+    spans: dict = {}
+    for series in ("repro_jit_compile_seconds_count",
+                   "repro_jit_execute_seconds_count"):
+        for fn, v in by("fn", delta(series)).items():
+            spans[fn] = spans.get(fn, 0) + v
+    st = res.stats
+    want_spans = {"incremental.relax": st["relaxations"] - st["joins"],
+                  "incremental.join": st["joins"],
+                  "incremental.tombstone": st["leaves"],
+                  "incremental.rebuild": 1 + st["rebuilds"] + final_rebuild}
+    want_events = {}
+    for e in trace.events:
+        want_events[e.kind] = want_events.get(e.kind, 0) + 1
+    log(f"  (f) obs over (a): repro_apsp_seconds calls by method,phase "
+        f"{apsp}; repro_engine_events_total by kind {events} (trace "
+        f"{want_events}); repro_jit_*_seconds counts "
+        f"{ {k: v for k, v in spans.items() if k.startswith('incremental')} }"
+        f" (from stats {want_spans})")
+    if events != want_events:
+        raise AssertionError(f"engine event counter {events} != trace "
+                             f"{want_events}")
+    got_spans = {k: spans.get(k, 0) for k in want_spans}
+    if got_spans != want_spans:
+        raise AssertionError(f"incremental spans {got_spans} != stats "
+                             f"{want_spans}")
+    if not apsp:
+        raise AssertionError("repro_apsp_seconds saw no engine call")
+
+
+def churn_ops(n_live: int, capacity: int, n_ops: int, seed: int) -> list:
+    """fig16's op stream (70% edge inserts, 15% joins, 15% leaves) with its
+    own membership bookkeeping; a copy of ``benchmarks/fig16_churn.py``'s
+    ``_make_ops``, which imports jax."""
+    rng = np.random.default_rng(seed)
+    live = list(range(n_live))
+    dead = list(range(n_live, capacity))
+    ops = []
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < 0.70 or len(live) < 8:
+            u, v = rng.choice(live, size=2, replace=False)
+            ops.append(("add", int(u), int(v)))
+        elif r < 0.85 and dead:
+            u = dead.pop(0)
+            nbrs = [int(x) for x in rng.choice(live, size=3, replace=False)]
+            ops.append(("join", u, tuple(nbrs)))
+            live.append(u)
+        else:
+            u = live.pop(int(rng.integers(len(live))))
+            dead.append(u)
+            ops.append(("leave", u, ()))
+    return ops
+
+
+def two_ring_state(w: np.ndarray, n_live: int, seed: int):
+    """fig16's initial overlay: two random rings over the first ``n_live``
+    slots (adjacency, alive mask)."""
+    from repro_torch.core.diameter import adjacency_from_edges, ring_edges
+
+    rng = np.random.default_rng(seed)
+    alive = np.zeros(w.shape[0], bool)
+    alive[:n_live] = True
+    edges = np.concatenate([ring_edges(rng.permutation(n_live))
+                            for _ in range(2)])
+    return adjacency_from_edges(w, edges), alive
+
+
+def apply_ops(inc, ops) -> float:
+    """Apply ``ops`` to ``inc``; seconds until the card has done them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for op in ops:
+        if op[0] == "add":
+            inc.add_edge(op[1], op[2])
+        elif op[0] == "join":
+            inc.join(op[1], list(op[2]))
+        else:
+            inc.leave(op[1])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def churn_maintenance() -> None:
+    """(c) fig16's part A at N=4,096 instead of 128: one seeded op stream
+    applied incrementally (all ops) and with a full rebuild after every
+    mutation (its first ops only); events/s of each and their ratio
+    (reported; the reference gates >= 5x at N=128).  The two end states
+    after the same ops agree within rtol 1e-4 / atol 1e-3 after refresh."""
+    from repro_torch.core.topology import make_latency
+    from repro_torch.dynamics import IncrementalDistances
+
+    c = CHURN
+    n, n_ops, n_full = c["maint_n"], c["maint_ops"], c["maint_full_ops"]
+    cap = n + max(8, n_ops // 5)
+    w = make_latency("bitnode", cap, seed=7)
+    adj, alive = two_ring_state(w, n, 0)
+    ops = churn_ops(n, cap, n_ops, 1)
+    mix = {k: sum(op[0] == k for op in ops) for k in ("add", "join", "leave")}
+
+    def fresh(mode):
+        return IncrementalDistances(w, adj, alive, mode=mode,
+                                    rebuild_threshold=c["maint_threshold"])
+
+    apply_ops(fresh("incremental"), ops[:4])      # first calls at this shape
+    apply_ops(fresh("full"), ops[:2])
+    inc = fresh("incremental")
+    t_inc = apply_ops(inc, ops)
+    full = fresh("full")
+    t_full = apply_ops(full, ops[:n_full])
+    r_inc, r_full = n_ops / t_inc, n_full / t_full
+    log(f"  (c) maintenance N={n} capacity {cap}, {n_ops} ops {mix}, "
+        f"threshold {c['maint_threshold']}: incremental {t_inc:.3f} s "
+        f"({r_inc:.1f} events/s, stats {inc.stats}); full rebuild after "
+        f"each of the first {n_full} ops {t_full:.3f} s ({r_full:.2f} "
+        f"events/s); ratio {r_inc / r_full:.1f}x (the reference gates >= 5x "
+        f"at N=128; reported here)")
+    part = fresh("incremental")
+    apply_ops(part, ops[:n_full])
+    part.refresh()
+    if not np.array_equal(part.alive, full.alive):
+        raise AssertionError("(c): incremental and full disagree on alive")
+    from repro_torch.core.diameter import INF
+    a, b = part.live_distances(), full.live_distances()
+    reach = b < float(INF) / 2
+    if not np.array_equal(a < float(INF) / 2, reach) or not np.allclose(
+            a[reach], b[reach], rtol=1e-4, atol=1e-3):
+        raise AssertionError("(c): incremental and full end states differ")
+    log(f"  (c) after the same {n_full} ops and a refresh, incremental and "
+        f"full agree: max |diff| {np.abs(a[reach] - b[reach]).max():.3g}")
+
+
+def churn_stream() -> None:
+    """(d) ``relax_edge_stream_batched``: B replicas of a C-slot state
+    through T steps, bitwise against T calls of ``relax_edges_batched``;
+    ms a step by CUDA events (device) and by the wall clock (host)."""
+    import torch
+
+    from repro_torch.core.topology import make_latency
+    from repro_torch.dynamics import IncrementalDistances
+    from repro_torch.dynamics import incremental as incr
+
+    c = CHURN
+    b, cap, t_steps = c["replicas"], c["stream_c"], c["stream_t"]
+    w = make_latency("bitnode", cap, seed=7)
+    adj, alive = two_ring_state(w, cap, 0)
+    dist0 = IncrementalDistances(w, adj, alive)._dist
+    dists = dist0[None].repeat(b, 1, 1)
+    rng = np.random.default_rng(2)
+    live = np.flatnonzero(alive)
+    iu = rng.integers(0, len(live), size=(t_steps, b))
+    off = rng.integers(1, len(live), size=(t_steps, b))
+    us, vs = live[iu], live[(iu + off) % len(live)]
+    dev = dists.device
+    us_t, vs_t = (torch.from_numpy(x).to(dev) for x in (us, vs))
+    ws_t = torch.from_numpy(w[us, vs].astype(np.float32)).to(dev)
+    got = incr.relax_edge_stream_batched(dists, us_t, vs_t, ws_t)
+    want = dists
+    for t in range(t_steps):
+        want = incr.relax_edges_batched(want, us_t[t], vs_t[t], ws_t[t])
+    check_equal(f"(d) stream B={b} C={cap} T={t_steps} vs {t_steps} "
+                f"relax_edges_batched calls", got, want)
+    dev_ms = time_ms(lambda: incr.relax_edge_stream_batched(
+        dists, us_t, vs_t, ws_t), reps=3, warmup=1) / t_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    incr.relax_edge_stream_batched(dists, us_t, vs_t, ws_t)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / t_steps
+    nbytes = 4.0 * b * cap * cap
+    log(f"  (d) stream: {dev_ms:.4f} ms a step on the device, {wall_ms:.4f} "
+        f"ms a step by the wall clock ({b / wall_ms * 1e3:.0f} relaxations/s"
+        f"); a step reads and writes the {nbytes / 1e6:.1f} MB stack "
+        f"(at least {2 * nbytes / BYTES_PER_S * 1e3:.4f} ms)")
+
+
+def churn_card_vs_cpu() -> None:
+    """(e) One poisson_churn trace at n0=96 under DGRO, replayed event by
+    event on the card and on the CPU port.  The CPU side runs the card's
+    APSP method (``squaring``: K1 on the card, its plain twin on the CPU,
+    bitwise equal); the relax, join and tombstone are elementwise fp32 in
+    the same order.  The maintained distances, adjacency, alive mask and
+    stats must be bitwise equal after every event, and every adapt
+    decision identical; the first event where they part is printed."""
+    import torch
+
+    from repro_torch.core import batcheval
+    from repro_torch.dynamics import ChurnEngine, DGROPolicy, scenarios
+
+    trace = scenarios.poisson_churn(n0=CHURN["parity_n0"], seed=0)
+    on_cpu = dict(device="cpu", method="squaring")
+    with ApspLedger() as ledger:
+        card = ChurnEngine(trace, DGROPolicy(), seed=0)
+        with batcheval.eval_options(**on_cpu):
+            cpu = ChurnEngine(trace, DGROPolicy(), seed=0)
+
+        def same(tag):
+            parts = {
+                "distances": torch.equal(card.inc._dist.cpu(),
+                                         cpu.inc._dist),
+                "adjacency": np.array_equal(card.inc.adj, cpu.inc.adj),
+                "alive": np.array_equal(card.alive, cpu.alive),
+                "stats": card.inc.stats == cpu.inc.stats,
+                "adaptations": (card.policy.adaptations
+                                == cpu.policy.adaptations)}
+            if not all(parts.values()):
+                d = (card.inc._dist.cpu() - cpu.inc._dist).abs().max()
+                log(f"  (e) card and CPU part at {tag}: {parts}, max |diff| "
+                    f"{float(d)}")
+                raise AssertionError(f"(e): card and CPU part at {tag}")
+
+        same("the initial state")
+        events = sorted(trace.events, key=lambda e: e.time)
+        for i, e in enumerate(events):
+            card.process(e)
+            with batcheval.eval_options(**on_cpu):
+                cpu.process(e)
+            same(f"event {i} ({e.kind} node {e.node} at t={e.time:.1f})")
+        d_card = card.inc.diameter(exact=True)
+        with batcheval.eval_options(**on_cpu):
+            d_cpu = cpu.inc.diameter(exact=True)
+    decisions = {dev: [(k, r) for d, k, r, _ in ledger.adapts if d == dev]
+                 for dev in ("cuda", "cpu")}
+    log(f"  (e) card vs CPU at n0={trace.n0}, capacity {trace.capacity}: "
+        f"{len(events)} events, bitwise equal distances, adjacency, alive "
+        f"and stats after each; {len(decisions['cuda'])} adapt decisions "
+        f"{[k for k, _ in decisions['cuda']]}; exact diameters {d_card!r} / "
+        f"{d_cpu!r}; stats {card.inc.stats}")
+    if decisions["cuda"] != decisions["cpu"] or d_card != d_cpu:
+        raise AssertionError(f"(e): adapt decisions or diameters differ: "
+                             f"{decisions}, {d_card} vs {d_cpu}")
+
+
+def churn_obs_overhead(trace) -> None:
+    """(f) The instrumented overhead: the first events of replay (a) on
+    copies of one fresh engine, with the registry disabled and enabled in
+    the order off, on, on, off; the wall of each until the card is done."""
+    import copy
+
+    import torch
+
+    from repro_torch.dynamics import ChurnEngine, DGROPolicy
+    from repro_torch.obs import REGISTRY
+
+    c = CHURN
+    base = ChurnEngine(trace, DGROPolicy(k_rings=c["k_rings"],
+                                         adapt_every=c["adapt_every"]),
+                       rebuild_threshold=c["threshold"])
+    events = sorted(trace.events, key=lambda e: e.time)[:c["overhead_events"]]
+    walls = {False: [], True: []}
+    try:
+        for enabled in (False, True, True, False):
+            eng = copy.deepcopy(base)
+            REGISTRY.set_enabled(enabled)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for e in events:
+                eng.process(e)
+            torch.cuda.synchronize()
+            walls[enabled].append(time.perf_counter() - t0)
+    finally:
+        REGISTRY.set_enabled(True)
+    off, on = np.mean(walls[False]), np.mean(walls[True])
+    log(f"  (f) obs overhead over the first {len(events)} events of (a): "
+        f"disabled {walls[False]} s, enabled {walls[True]} s; enabled / "
+        f"disabled {on / off:.4f} (the reference gates 5% at its fig18; "
+        f"reported here)")
+    eng = copy.deepcopy(base)
+
+    def first_events():
+        for e in events:
+            eng.process(e)
+
+    profiled(f"churn replay (a), first {len(events)} events", first_events)
+
+
 def profiled(label: str, fn) -> None:
     """Run ``fn`` once under ``torch.profiler`` (device activity only) and
     print its wall time, the device time of its kernels and copies, their
@@ -575,12 +1244,14 @@ def profiled(label: str, fn) -> None:
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     dev_s = sum(r[2] for r in rows) / 1e6
+    n_ops = sum(r[1] for r in rows)
     if not rows:
         log(f"  {label}: {wall:.3f} s wall; the profiler saw no device "
             f"time (busy share not measured)")
         return
-    log(f"  {label}: {wall:.3f} s wall, {dev_s:.4f} s device time, busy "
-        f"share {dev_s / wall:.4f}")
+    log(f"  {label}: {wall:.3f} s wall, {dev_s:.4f} s device time in "
+        f"{n_ops} device ops (kernels and copies), busy share "
+        f"{dev_s / wall:.4f}")
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:4]:
         log(f"    {us / 1e3:.3f} ms in {count} x {key[:70]}")
 
@@ -1130,6 +1801,10 @@ def main() -> int:
     phase_dqn(counts)
     log(f"phase: parallel at N={PARALLEL['n']}")
     phase_parallel(counts)
+    log(f"phase: churn, the dynamics engine at n0={CHURN['n0']}")
+    t0 = time.perf_counter()
+    phase_churn(counts)
+    log(f"  churn phase: {time.perf_counter() - t0:.1f} s")
     log("phase: LM serving, gemma3-1b at full width")
     served = phase_serve(counts, errs)
     log("phase: device time by profiler")

@@ -23,6 +23,19 @@ diameter".  This module turns that into memory-bounded device calls.
   error on float32 probes and re-runs exactly past ``exact_rtol``.
   ``eval_options`` scopes any knob -- including ``device`` -- over a call
   tree; ``last_eval_report()`` returns the facts of the last call.
+* one-device versions of the reference's sharded entry points --
+  ``diameters_sharded`` is the streaming ``diameters`` (the reference's
+  own single-device fallback), and ``apsp_rowshard`` is the APSP of one
+  (N, N) matrix by min-plus squaring through ``ops.minplus`` (K1 with a
+  batch of one on the card).  There is no mesh: ``torch.distributed``
+  comes after every one-device slice.
+
+Instrumentation is the reference's (``repro_torch.obs``): every device
+call lands in ``repro_apsp_seconds{method, phase}`` (first call per key
+vs steady state, via ``obs.jit_phase``; the span ends on the result's
+``.cpu()``, a real sync) and sets ``repro_apsp_workingset_bytes``;
+reduced-precision evals record their measured error and
+``repro_apsp_exact_fallbacks_total``.
 
 The device follows ``repro_torch.device``: CUDA unless the caller asks for
 the CPU (``device=`` here, or ``eval_options(device="cpu")``).
@@ -32,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,8 +53,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.minplus import ops as minplus_ops
+from repro_torch.obs import REGISTRY, jit_phase, jit_span
+from repro_torch.obs.tracing import SPAN_BUCKETS_S
 
-from .diameter import INF, is_edge, largest_cc_diameter
+from .diameter import INF, apsp, is_edge, largest_cc_diameter
 
 __all__ = [
     "rings_to_edges",
@@ -53,7 +69,9 @@ __all__ = [
     "batched_diameter",
     "diameters",
     "diameters_of_rings",
+    "diameters_sharded",
     "apsp_matrices",
+    "apsp_rowshard",
     "quantize_latency",
     "eval_options",
     "last_eval_report",
@@ -67,6 +85,20 @@ DEFAULT_BUDGET_BYTES = 1 << 28          # ~256 MiB of device temporaries
 DEFAULT_TILED_N = 512                   # CUDA auto-switch to the tiled path
 DEFAULT_EXACT_RTOL = 0.05               # quantized-eval fallback threshold
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_APSP_SECONDS = REGISTRY.histogram(
+    "repro_apsp_seconds",
+    "device wall time per APSP/diameter engine call, compile/execute split",
+    labels=("method", "phase"), buckets=SPAN_BUCKETS_S)
+_APSP_WORKINGSET = REGISTRY.gauge(
+    "repro_apsp_workingset_bytes",
+    "modeled peak device working set of the last engine call")
+_APSP_QUANT_ERR = REGISTRY.gauge(
+    "repro_apsp_quant_rel_err",
+    "measured relative diameter error of the last reduced-precision eval")
+_APSP_FALLBACKS = REGISTRY.counter(
+    "repro_apsp_exact_fallbacks_total",
+    "reduced-precision evals that exceeded exact_rtol and re-ran in float32")
 
 
 # ---------------------------------------------------------------------------
@@ -433,16 +465,27 @@ class _Plan:
                 "fallback": False}
 
 
-def _stream(src, b: int, fn, *, chunk: int, quantize: bool,
-            device: torch.device):
+def _observe_call(method: str, key, seconds: float, ws_bytes: int) -> None:
+    if not REGISTRY.enabled:
+        return
+    _APSP_SECONDS.labels(method=method,
+                         phase=jit_phase("batcheval.apsp", key)).observe(
+        seconds)
+    _APSP_WORKINGSET.set(ws_bytes)
+
+
+def _stream(src, b: int, fn, plan: "_Plan", *, compute_dtype: str,
+            quantize: bool, symmetric: bool):
     """Drive ``fn`` over fixed-size chunks of ``src``, never holding more
     than one (chunk, N, N) block on host or device.  The trailing partial
     chunk is padded by repeating its first matrix so every device call has
     the same shape; a batch of at most one chunk runs unpadded in one
-    call."""
+    call.  Each call is timed from the upload to the result's ``.cpu()``
+    into ``repro_apsp_seconds``, keyed as the reference keys it."""
     outs = []
     calls = 0
     max_scale = 0.0
+    chunk = plan.chunk
     single = b <= chunk
     for lo in range(0, b, chunk):
         hi = min(b, lo + chunk)
@@ -453,7 +496,12 @@ def _stream(src, b: int, fn, *, chunk: int, quantize: bool,
         if not single and hi - lo < chunk:
             blk = np.concatenate(
                 [blk, np.repeat(blk[:1], chunk - (hi - lo), axis=0)], axis=0)
-        res = fn(torch.from_numpy(blk).to(device)).cpu().numpy()
+        t0 = time.perf_counter()
+        res = fn(torch.from_numpy(blk).to(plan.device)).cpu().numpy()
+        _observe_call(plan.method,
+                      (blk.shape[0], blk.shape[-1], plan.use_kernel,
+                       plan.method, symmetric, compute_dtype, plan.tile),
+                      time.perf_counter() - t0, plan.ws)
         outs.append(res[:hi - lo])
         calls += 1
     return outs, calls, max_scale
@@ -492,10 +540,19 @@ def diameters(adjs, *, use_kernel: bool = False, method: str | None = None,
             return batched_diameter(blk, use_kernel=plan.use_kernel,
                                     method=plan.method, symmetric=symmetric,
                                     dtype=cdt, tile=plan.tile)
-        return _stream(src, b, fn, chunk=plan.chunk, quantize=quant,
-                       device=plan.device)
+        return _stream(src, b, fn, plan, compute_dtype=cdt, quantize=quant,
+                       symmetric=symmetric)
 
-    outs, calls, max_scale = run(plan.compute_dtype, plan.dtype == "int16")
+    if b <= plan.chunk:
+        # the reference's one-shot span over a batch of at most one chunk
+        with jit_span("batcheval.diameters",
+                      key=(b, n, plan.use_kernel, plan.method, symmetric,
+                           plan.dtype)):
+            outs, calls, max_scale = run(plan.compute_dtype,
+                                         plan.dtype == "int16")
+    else:
+        outs, calls, max_scale = run(plan.compute_dtype,
+                                     plan.dtype == "int16")
     out = np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     rep = plan.report(b, n, calls, max_scale)
@@ -521,7 +578,10 @@ def _verify_quantized(src, b: int, out: np.ndarray, rtol: Optional[float],
         for i in probes])
     denom = np.maximum(np.abs(ref), 1e-6)
     rel = float(np.max(np.abs(out[probes] - ref) / denom)) if len(ref) else 0.0
+    if REGISTRY.enabled:
+        _APSP_QUANT_ERR.set(rel)
     if rtol is not None and rel > rtol:
+        _APSP_FALLBACKS.inc()
         outs, _, _ = run("float32", False)
         out = np.concatenate(outs) if len(outs) > 1 else outs[0]
     return rel, out, bool(rtol is not None and rel > rtol)
@@ -547,9 +607,10 @@ def apsp_matrices(adjs, *, use_kernel: bool = False,
                             method=plan.method, symmetric=symmetric,
                             dtype=plan.compute_dtype, tile=plan.tile).float()
 
-    outs, calls, max_scale = _stream(src, b, fn, chunk=plan.chunk,
+    outs, calls, max_scale = _stream(src, b, fn, plan,
+                                     compute_dtype=plan.compute_dtype,
                                      quantize=plan.dtype == "int16",
-                                     device=plan.device)
+                                     symmetric=symmetric)
     _report.data = plan.report(b, n, calls, max_scale)
     return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
@@ -562,3 +623,43 @@ def diameters_of_rings(w: np.ndarray, genomes, *, use_kernel: bool = False,
     assembly chunk-by-chunk (never a dense (B, N, N) host tensor)."""
     return diameters(RingBlockSource(w, genomes), use_kernel=use_kernel,
                      method=method, chunk=chunk, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the reference's sharded entry points, on one device
+# ---------------------------------------------------------------------------
+
+def diameters_sharded(adjs, *, use_kernel: bool = False,
+                      method: str | None = None, symmetric: bool = True,
+                      dtype: str | None = None, tile: int | None = None,
+                      device=None) -> np.ndarray:
+    """``repro.core.batcheval.diameters_sharded`` on one device: the
+    streaming ``diameters``, as the reference's own fallback for a
+    one-device mesh.  The keywords are the reference's, less ``mesh`` and
+    ``axis``; ``device`` follows the ``repro_torch.device`` rule."""
+    adjs = np.asarray(adjs, np.float32)
+    assert adjs.ndim == 3 and adjs.shape[1] == adjs.shape[2], adjs.shape
+    if adjs.shape[0] == 0:
+        return np.zeros((0,), np.float32)
+    return diameters(adjs, use_kernel=use_kernel, method=method,
+                     symmetric=symmetric, dtype=dtype, tile=tile,
+                     device=device)
+
+
+def apsp_rowshard(adj: np.ndarray, *, device=None) -> np.ndarray:
+    """APSP of ONE (N, N) matrix by min-plus squaring, as a host float32
+    array: ``repro.core.batcheval.apsp_rowshard`` with its row-block axis
+    on one device.  Each of the ceil(log2(N-1)) squarings is
+    ``diameter.minplus`` -- K1 with a batch of one on the card, its plain
+    twin on the CPU -- and equals the reference's per-row-block pivot
+    loop bit for bit (a min over the same sums; the 0 diagonal keeps the
+    old entry among the candidates).  Observed into ``repro_apsp_seconds``
+    under the reference's method ``"squaring"`` and key."""
+    adj = np.asarray(adj, np.float32)
+    assert adj.ndim == 2 and adj.shape[0] == adj.shape[1], adj.shape
+    n = adj.shape[0]
+    t0 = time.perf_counter()
+    out = apsp(torch.from_numpy(adj).to(eval_device(device))).cpu().numpy()
+    _observe_call("squaring", ("rowshard", 1, n), time.perf_counter() - t0,
+                  4 * (n * n + 2 * n * n))
+    return out

@@ -28,6 +28,7 @@ __all__ = [
     "adjacency_from_edges",
     "ring_edges",
     "adjacency_from_rings",
+    "minplus",
     "apsp",
     "relax_edge_update",
     "largest_cc_diameter",
@@ -100,6 +101,20 @@ def adjacency_from_rings(w: np.ndarray,
 # min-plus APSP on tensors
 # ---------------------------------------------------------------------------
 
+def minplus(a: torch.Tensor, b: torch.Tensor, *,
+            use_kernel: bool = False) -> torch.Tensor:
+    """(A ⊗ B)[i,j] = min_k A[i,k] + B[k,j] — the tropical-semiring matmul,
+    in float32.
+
+    Dispatch is by the operands' device, as everywhere in the port: CUDA
+    tensors run ``kernels.minplus.ops.minplus`` (the kernel K1 with a batch
+    of one), CPU tensors its plain twin.  ``use_kernel`` is the reference's
+    keyword (it picks the Pallas kernel there) and changes nothing here:
+    both give the same bits, a min over the same sums being exact."""
+    del use_kernel
+    return minplus_ops.minplus(a, b)
+
+
 def apsp(adj: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest paths of one (N, N) adjacency (0 diag, INF
     non-edges) by ceil(log2(N-1)) min-plus squarings, in float32."""
@@ -107,7 +122,7 @@ def apsp(adj: torch.Tensor) -> torch.Tensor:
     n_iters = max(1, int(np.ceil(np.log2(max(n - 1, 2)))))
     d = adj
     for _ in range(n_iters):
-        d = minplus_ops.minplus(d, d)
+        d = minplus(d, d)
     return d
 
 

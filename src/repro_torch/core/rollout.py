@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import jit_span
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, adamw_update
 
 from .batcheval import batched_apsp
@@ -287,7 +288,25 @@ def rollout_episodes(params: QParams, w_batch: torch.Tensor, starts,
     ``stretch_weight`` adds a routing-stretch shaping term: each step also
     pays ``stretch_weight * (potential(dist) - potential(dist'))`` against
     the full graph's APSP (``batcheval.batched_apsp``).  0.0 skips it.
+
+    Each call is timed by ``obs.jit_span("rollout.rollout_episodes")``
+    under the reference's key.  The loop only launches work, so the span
+    times the launches (it adds no sync); the first call per key holds
+    the one-off costs (``repro_torch.obs.tracing``).
     """
+    key = (tuple(w_batch.shape), k_rings, n_rounds, sizes is None,
+           float(stretch_weight))
+    with jit_span("rollout.rollout_episodes", key=key):
+        return _rollout_episodes(params, w_batch, starts, eps_u, choice_u,
+                                 eps, alpha, k_rings=k_rings,
+                                 n_rounds=n_rounds, sizes=sizes,
+                                 stretch_weight=stretch_weight)
+
+
+def _rollout_episodes(params: QParams, w_batch: torch.Tensor, starts, eps_u,
+                      choice_u, eps, alpha, *, k_rings: int, n_rounds: int,
+                      sizes, stretch_weight: float):
+    """The body of :func:`rollout_episodes`."""
     dev = w_batch.device
     params = params.on(dev)
     n_envs, n = w_batch.shape[0], w_batch.shape[1]

@@ -208,3 +208,85 @@ def test_relax_edge_update_and_diameter_of_rings():
     assert td.diameter_of_rings(w, rings, device=CPU) == \
         jd.diameter_of_rings(w, rings)
     assert td.diameter_scipy(adj) == jd.diameter_scipy(adj)
+
+
+# --- the sharded entry points on one device, diameter.minplus, protocols ----
+
+@pytest.mark.parametrize("method", [None, "fw", "squaring", "tiled"])
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "int16"])
+def test_diameters_sharded_bit_equal_reference(method, dtype):
+    """The reference's default mesh has one CPU device here, so it takes
+    its own fallback to the streaming ``diameters``: the port is that."""
+    _, _, adjs = _batch(n=30, b=5, seed=6)
+    tile = 8 if method == "tiled" else None
+    want = jb.diameters_sharded(adjs, method=method, dtype=dtype, tile=tile)
+    got = tb.diameters_sharded(adjs, method=method, dtype=dtype, tile=tile,
+                               device=CPU)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    empty = np.zeros((0, 30, 30), np.float32)
+    assert tb.diameters_sharded(empty, device=CPU).shape == (0,)
+    assert jb.diameters_sharded(empty).shape == (0,)
+
+
+@pytest.mark.parametrize("n", [2, 3, 17, 40])
+def test_apsp_rowshard_bit_equal_reference(n):
+    rng = np.random.default_rng(n)
+    w = make_latency("fabric", n, seed=n)
+    adj = jd.adjacency_from_rings(w, [rng.permutation(n) for _ in range(2)])
+    adj[0, :] = adj[:, 0] = float(td.INF)      # an isolated node, too
+    adj[0, 0] = 0.0
+    got = tb.apsp_rowshard(adj, device=CPU)
+    want = jb.apsp_rowshard(adj)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    with tb.eval_options(device=CPU):
+        assert np.array_equal(tb.apsp_rowshard(adj), want)
+
+
+def test_apsp_rowshard_observed_like_the_reference():
+    from repro_torch.obs import REGISTRY
+
+    adj = jd.adjacency_from_rings(make_latency("uniform", 9, seed=1),
+                                  [np.arange(9)])
+    hist = REGISTRY.get("repro_apsp_seconds")
+    before = sum(c.count for _, c in hist._series())
+    tb.apsp_rowshard(adj, device=CPU)
+    assert sum(c.count for _, c in hist._series()) == before + 1
+    assert REGISTRY.get("repro_apsp_workingset_bytes").value == 4 * 3 * 81
+
+
+@pytest.mark.parametrize("shape", [(7, 7, 7), (5, 13, 9), (1, 4, 1)])
+def test_diameter_minplus_matches_reference(shape):
+    m, k, n = shape
+    rng = np.random.default_rng(sum(shape))
+    a = rng.uniform(0, 10, (m, k)).astype(np.float32)
+    b = rng.uniform(0, 10, (k, n)).astype(np.float32)
+    want = np.asarray(jd.minplus(jnp.asarray(a), jnp.asarray(b)))
+    want_k = np.asarray(jd.minplus(jnp.asarray(a), jnp.asarray(b),
+                                   use_kernel=True))
+    for use_kernel in (False, True):
+        got = td.minplus(torch.from_numpy(a), torch.from_numpy(b),
+                         use_kernel=use_kernel)
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.numpy(), want)
+        assert np.array_equal(got.numpy(), want_k)
+
+
+def test_node_degrees_and_removed_protocol_names():
+    from repro.core import protocols as jp
+    from repro_torch.core import protocols as tp
+
+    rng = np.random.default_rng(2)
+    w = make_latency("gaussian", 20, seed=2)
+    adj = jd.adjacency_from_rings(w, [rng.permutation(20) for _ in range(3)])
+    assert np.array_equal(tp.node_degrees(adj), jp.node_degrees(adj))
+    assert np.array_equal(tp.node_degrees(adj[:1, :1]),
+                          jp.node_degrees(adj[:1, :1]))
+    for name in ("chord", "rapid", "perigee", "with_replaced_rings"):
+        with pytest.raises(AttributeError) as got:
+            getattr(tp, name)
+        with pytest.raises(AttributeError) as want:
+            getattr(jp, name)
+        assert str(got.value) == str(want.value).replace(
+            "repro.", "repro_torch.")
+    with pytest.raises(AttributeError, match="no attribute"):
+        tp.nonexistent

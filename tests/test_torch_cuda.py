@@ -595,3 +595,81 @@ def test_parallel_ring_scored_on_card_matches_cpu(cuda, stitch):
     np.testing.assert_allclose(sc_g, sc_c, rtol=1e-6, atol=0)
     if stitch == "scored":
         assert kernel.launches["fw_tile"] > before["fw_tile"]
+
+
+# --- the churn engine (repro_torch.dynamics) ----------------------------------
+
+def test_churn_replay_on_card_bitwise_cpu_every_event(cuda):
+    """poisson_churn at n0=96 under DGRO, event by event on the card and
+    on the CPU port.  The CPU runs the card's APSP method (squaring: K1's
+    plain twin, bitwise equal); relax, join and tombstone are elementwise
+    fp32 in the same order, so the maintained state is bitwise equal
+    after every event and every adapt decision is the same."""
+    from repro_torch.dynamics import ChurnEngine, DGROPolicy, scenarios
+
+    trace = scenarios.poisson_churn(n0=96, seed=0)
+    on_cpu = dict(device="cpu", method="squaring")
+    card = ChurnEngine(trace, DGROPolicy(adapt_every=3), seed=0)
+    with batcheval.eval_options(**on_cpu):
+        cpu = ChurnEngine(trace, DGROPolicy(adapt_every=3), seed=0)
+    assert card.inc._dist.is_cuda and not cpu.inc._dist.is_cuda
+    for i, e in enumerate(sorted(trace.events, key=lambda e: e.time)):
+        card.process(e)
+        with batcheval.eval_options(**on_cpu):
+            cpu.process(e)
+        assert torch.equal(card.inc._dist.cpu(), cpu.inc._dist), i
+        assert np.array_equal(card.inc.adj, cpu.inc.adj), i
+        assert card.inc.stats == cpu.inc.stats, i
+        assert card.policy.adaptations == cpu.policy.adaptations, i
+        assert card.inc.diameter() == cpu.inc.diameter(), i
+    with batcheval.eval_options(**on_cpu):
+        d_cpu = cpu.inc.diameter(exact=True)
+    assert card.inc.diameter(exact=True) == d_cpu
+
+
+@pytest.mark.parametrize("mode", ["incremental", "full"])
+def test_incremental_distances_on_card_held_to_scipy(cuda, mode):
+    """C=1024 (the tiled rebuild, K2 + K1): an op stream of inserts,
+    joins and leaves; after a refresh the live distances equal scipy's
+    Dijkstra within the reference's tolerance, and before it the stale
+    ones are lower bounds."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from repro_torch.core.diameter import INF, adjacency_from_edges, \
+        is_edge, ring_edges
+    from repro_torch.dynamics import IncrementalDistances
+
+    cap, n_live = 1024, 1000
+    w = make_latency("bitnode", cap, seed=3)
+    rng = np.random.default_rng(3)
+    alive = np.zeros(cap, bool)
+    alive[:n_live] = True
+    adj = adjacency_from_edges(w, np.concatenate(
+        [ring_edges(rng.permutation(n_live)) for _ in range(2)]))
+    inc = IncrementalDistances(w, adj, alive, rebuild_threshold=6,
+                               mode=mode)
+    assert inc._dist.is_cuda
+    before = dict(kernel.launches)
+    for step in range(40):
+        live = inc.live_ids()
+        r = rng.random()
+        if r < 0.6:
+            u, v = rng.choice(live, size=2, replace=False)
+            inc.add_edge(int(u), int(v))
+        elif r < 0.8 and (~inc.alive).any():
+            inc.join(int(np.flatnonzero(~inc.alive)[0]),
+                     [int(x) for x in rng.choice(live, 3, replace=False)])
+        else:
+            inc.leave(int(rng.choice(live)))
+    live = inc.live_ids()
+    a = inc.adj[np.ix_(live, live)].astype(np.float64)
+    want = dijkstra(csr_matrix(np.where(is_edge(a), a, 0.0)), directed=False)
+    reach = np.isfinite(want)
+    stale = inc.live_distances().astype(np.float64)
+    assert (stale[reach] <= want[reach] * (1 + 1e-4) + 1e-3).all()
+    inc.refresh()
+    got = inc.live_distances()
+    assert np.array_equal(got < float(INF) / 2, reach)
+    np.testing.assert_allclose(got[reach], want[reach], rtol=1e-4, atol=1e-3)
+    assert kernel.launches["fw_tile"] > before["fw_tile"]

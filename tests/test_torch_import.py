@@ -30,7 +30,10 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.rmsnorm.ops, "
             "repro_torch.core.embedding, repro_torch.core.rollout, "
             "repro_torch.core.qlearning, repro_torch.core.parallel, "
-            "repro_torch.train.optimizer; "
+            "repro_torch.train.optimizer, repro_torch.obs, "
+            "repro_torch.obs.logsetup, repro_torch.core.protocols, "
+            "repro_torch.membership.gossip, "
+            "repro_torch.membership.elastic, repro_torch.dynamics; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -59,7 +62,12 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "kernels/flash_attention/ops.py",
                 "kernels/rmsnorm/kernel.py", "kernels/rmsnorm/ops.py",
                 "core/embedding.py", "core/rollout.py", "core/qlearning.py",
-                "core/parallel.py", "train/optimizer.py"):
+                "core/parallel.py", "train/optimizer.py", "core/protocols.py",
+                "obs/__init__.py", "obs/metrics.py", "obs/tracing.py",
+                "obs/logsetup.py", "membership/gossip.py",
+                "membership/elastic.py", "dynamics/__init__.py",
+                "dynamics/scenarios.py", "dynamics/incremental.py",
+                "dynamics/engine.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
