@@ -27,6 +27,18 @@ and read just after:
   maintenance throughput at N=4,096, the batched replica stream, the card
   against the CPU port bitwise event by event at n0=96, and the obs
   registry's reading and overhead;
+* routing, hierarchies and the service -- (r) ``routing.route_pairs``
+  over the build's overlay at N=4096 (P=4,096 pairs of every workload,
+  both policies) bitwise against the CPU port and the host loop, and
+  fig19's router-vs-host ratio at N=256; (p) the churn engine's routing
+  probe, card against CPU at n0=96 and on replay (b); (h) fig21 at
+  N=10^5: ``build_hier`` on a synthetic-geo world, its eccentricity
+  bound, a ``HierChurnEngine`` streaming 200 events with a split and a
+  merge (K1 launches held to its cluster APSPs), ``route_pairs_hier``,
+  the card's build at N=16,384 equal to the CPU's, the exact bound at
+  N=512 against scipy; (s) ``tools/torch_service_smoke.py`` against
+  ``python -m repro_torch.service`` on the card, flat at n0=1,024 and
+  hierarchical at n0=10,000;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3/K4
   launch counts the config implies and the prefill logits held against the
@@ -203,9 +215,10 @@ def phase_kernels(rng, errs: dict) -> None:
     errs["fw_tile"] = max(k2)
 
 
-def phase_build(counts: dict) -> None:
+def phase_build(counts: dict):
     """Main path at large N: ``overlay.build("dgro")`` at N=4096 scores its
-    candidates with the tiled method (K2 + K1)."""
+    candidates with the tiled method (K2 + K1).  Returns the overlay (phase
+    routing routes over it)."""
     from repro_torch import overlay
     from repro_torch.core.diameter import diameter_scipy
     from repro_torch.core.topology import make_latency
@@ -228,6 +241,7 @@ def phase_build(counts: dict) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
     if not np.isclose(got, want, rtol=1e-5, atol=0.0):
         raise AssertionError(f"diameter {got} != scipy {want} (rtol 1e-5)")
+    return ov
 
 
 def phase_adapt(counts: dict) -> None:
@@ -572,26 +586,29 @@ CHURN = dict(n0=4000, dist="bitnode", horizon=30_000.0, rate=2e-3,
              k_rings=2, adapt_every=8, threshold=8, fail_n0=1024,
              maint_n=4096, maint_ops=80, maint_full_ops=16,
              maint_threshold=16, replicas=16, stream_c=1024, stream_t=64,
-             parity_n0=96, overhead_events=24)
+             parity_n0=96, overhead_events=8)
 
 
 class ApspLedger:
     """Every APSP the churn path asks ``batcheval.batched_apsp`` for, tagged
     by what asked (the policy's initial build, ``IncrementalDistances.
-    rebuild``, ``selection.adapt``), and every adapt decision with the
-    device it ran on.  A context manager: the wrappers are installed on
-    entry and removed on exit, and they only record."""
+    rebuild``, ``selection.adapt``, ``ChurnEngine.probe_stretch``), and
+    every adapt decision with the device it ran on.  A context manager:
+    the wrappers are installed on entry and removed on exit, and they only
+    record."""
 
     def __enter__(self):
         from repro_torch.core import batcheval, selection
+        from repro_torch.dynamics.engine import ChurnEngine
         from repro_torch.dynamics.incremental import IncrementalDistances
 
         self.calls = []         # (tag, matrices, n, method, tile)
         self.adapts = []        # (device, kind, rho, seconds)
         self.tag = "build"
         ledger = self
-        apsp, rebuild, adapt = (batcheval.batched_apsp,
-                                IncrementalDistances.rebuild, selection.adapt)
+        apsp, rebuild, adapt, probe = (
+            batcheval.batched_apsp, IncrementalDistances.rebuild,
+            selection.adapt, ChurnEngine.probe_stretch)
 
         def batched_apsp(adjs, **kw):
             method = kw.get("method") or batcheval._auto_method(
@@ -619,10 +636,12 @@ class ApspLedger:
 
         self._undo = [(batcheval, "batched_apsp", apsp),
                       (IncrementalDistances, "rebuild", rebuild),
-                      (selection, "adapt", adapt)]
+                      (selection, "adapt", adapt),
+                      (ChurnEngine, "probe_stretch", probe)]
         batcheval.batched_apsp = batched_apsp
         IncrementalDistances.rebuild = tagged("rebuild", rebuild)
         selection.adapt = adapt_logged
+        ChurnEngine.probe_stretch = tagged("probe", probe)
         return self
 
     def __exit__(self, *exc):
@@ -700,7 +719,9 @@ def replay(label: str, trace, counts: dict, **engine_kw):
     counted (``set_sync_debug_mode``), the distances just before the final
     refresh are kept on the device, and the end state is held to scipy:
     stale distances at most the truth (the lower-bound contract), exact
-    ones equal to it within the reference's tolerance."""
+    ones equal to it within the reference's tolerance.  Returns the
+    engine, the run's result, the truth, whether the final refresh rebuilt
+    and the replay's events/s."""
     import warnings
 
     import torch
@@ -764,8 +785,8 @@ def replay(label: str, trace, counts: dict, **engine_kw):
         f"{ledger.apsps('rebuild')} (1 initial + {st['rebuilds']} churn + "
         f"{final_rebuild} final refresh), adapt {ledger.apsps('adapt')} "
         f"({len(ledger.adapts)} adapt calls: {adapt_kinds}, rho {rhos}; "
-        f"{adapt_s:.3f} s of the replay's wall in them), other "
-        f"{ledger.apsps('replay')}; methods "
+        f"{adapt_s:.3f} s of the replay's wall in them), probe "
+        f"{ledger.apsps('probe')}, other {ledger.apsps('replay')}; methods "
         f"{sorted({(c[3], c[2]) for c in ledger.calls})}; launches {got} "
         f"(expected {want})")
     if got != want:
@@ -805,10 +826,10 @@ def replay(label: str, trace, counts: dict, **engine_kw):
                              f" != scipy {d_true}")
     if not all(np.isfinite(s.diameter) for s in res.samples):
         raise AssertionError(f"{label}: a sampled diameter is not finite")
-    return eng, res, truth, final_rebuild
+    return eng, res, truth, final_rebuild, n_ev / wall
 
 
-def phase_churn(counts: dict) -> None:
+def phase_churn(counts: dict) -> float:
     """The churn engine on the card (``repro_torch.dynamics``):
 
     (a) a poisson_churn trace at n0=4,000 on bitnode latency (the size of a
@@ -822,7 +843,8 @@ def phase_churn(counts: dict) -> None:
         full rebuilds on one op stream;
     (d) the batched replica stream, bitwise against per-step calls;
     (e) the card against the CPU port at n0=96, bitwise after every event;
-    (f) the obs registry's reading of (a) and its overhead."""
+    (f) the obs registry's reading of (a) and its overhead.
+    Returns (b)'s events/s (phase probe runs (b) again with the probe)."""
     import torch
 
     from repro_torch.core import batcheval
@@ -835,7 +857,7 @@ def phase_churn(counts: dict) -> None:
     trace = scenarios.poisson_churn(
         n0=c["n0"], dist=c["dist"], seed=0, horizon=c["horizon"],
         join_rate=c["rate"], leave_rate=c["rate"])
-    eng, res, truth, final_rebuild = replay("(a) replay", trace, counts)
+    eng, res, truth, final_rebuild, _ = replay("(a) replay", trace, counts)
     after = parse_prometheus(REGISTRY.render_prometheus())
     check_obs(trace, res, final_rebuild, before, after)
 
@@ -857,8 +879,8 @@ def phase_churn(counts: dict) -> None:
     del eng, res, truth, d
 
     fail = scenarios.regional_failure(n0=c["fail_n0"], dist="fabric", seed=0)
-    eng, res, _, _ = replay("(b) regional failure", fail, counts,
-                            detect_failures=True)
+    eng, res, _, _, rate_b = replay("(b) regional failure", fail, counts,
+                                    detect_failures=True)
     victims = sorted({e.node for e in fail.events})
     if eng.alive[victims].any() or eng.inc.n_live != fail.n0 - len(victims):
         raise AssertionError("(b): a crashed site's node is still live")
@@ -868,6 +890,7 @@ def phase_churn(counts: dict) -> None:
     churn_stream()
     churn_card_vs_cpu()
     churn_obs_overhead(trace)
+    return rate_b
 
 
 def forced_adapt(eng, counts: dict) -> np.ndarray:
@@ -1226,6 +1249,377 @@ def churn_obs_overhead(trace) -> None:
             eng.process(e)
 
     profiled(f"churn replay (a), first {len(events)} events", first_events)
+
+
+ROUTE = dict(pairs=4096, host_pairs=512, gate_n=256, gate_pairs=1024,
+             gate_budget=64)
+
+
+def same_route(what: str, got, want, rows=None) -> None:
+    """Fail unless two RouteResults agree bitwise on every per-pair field
+    (on ``got``'s first ``rows`` pairs when ``want`` routed only those)."""
+    for f in ("hops", "latency", "success", "failed", "optimum", "stretch"):
+        a, b = getattr(got, f), getattr(want, f)
+        a = a if rows is None else a[:rows]
+        if not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase_routing(ov, counts: dict) -> None:
+    """(r) Greedy routing over phase build's overlay at N=4096: P=4,096
+    pairs of every workload under both policies on the card, each held
+    bitwise against the CPU port's ``route_pairs`` on all pairs and the
+    numpy host loop on the first 512; pairs/s, hops, host syncs per call
+    and the wall.  Then fig19's shape: the router against the host loop
+    at N=256, P=1,024 (the reference gates >= 5x; reported here)."""
+    import warnings
+
+    import torch
+
+    from repro_torch import overlay, routing
+    from repro_torch.core import batcheval
+    from repro_torch.core.topology import make_latency
+    from repro_torch.kernels.minplus import kernel
+
+    n, p, hp = ov.n, ROUTE["pairs"], ROUTE["host_pairs"]
+    dist = ov.distances()            # the build's exact APSP (tiled, cached)
+    dist_dev = torch.from_numpy(dist).cuda()
+    adj, ring = ov.adjacency, np.asarray(ov.rings[0])
+    warm = routing.sample_pairs(n, 64, "uniform", seed=99)
+    for policy in routing.POLICIES:  # CUDA's lazy set-up, outside the timing
+        routing.route_pairs(adj, dist_dev, warm, policy=policy, ring=ring)
+    reset_all_launches()
+    for kind in routing.WORKLOADS:
+        pairs = routing.sample_pairs(n, p, kind, seed=0)
+        for policy in routing.POLICIES:
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    res = routing.route_pairs(adj, dist_dev, pairs,
+                                              policy=policy, ring=ring)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                wall = time.perf_counter() - t0
+            syncs, where = count_syncs(seen)
+            with batcheval.eval_options(device="cpu"):
+                cpu = routing.route_pairs(adj, dist, pairs, policy=policy,
+                                          ring=ring)
+            host = routing.route_pairs_host(adj, dist, pairs[:hp],
+                                            policy=policy, ring=ring)
+            what = f"(r) {kind} {policy}"
+            same_route(f"{what} card vs CPU", res, cpu)
+            same_route(f"{what} card vs host loop", res, host, rows=hp)
+            ok = res.success
+            stretch = res.stretch[ok]
+            log(f"  {what}: {p} pairs in {wall * 1e3:.1f} ms, "
+                f"{p / wall:.0f} pairs/s; success {ok.mean():.4f}, "
+                f"dead ends {int(res.failed.sum())}; hops p50 "
+                f"{np.percentile(res.hops[ok], 50):.0f} max "
+                f"{int(res.hops.max())}; stretch mean {stretch.mean():.4f} "
+                f"max {stretch.max():.4f}; host syncs {syncs} at {where}; "
+                f"bitwise equal to the CPU's route_pairs ({p} pairs) and the"
+                f" host loop (first {hp})")
+    counts["routing"] = dict(kernel.launches)
+
+    # fig19's gate shape: Chord on bitnode, N=256, P=1,024, budget 64
+    g = ROUTE["gate_n"]
+    gov = overlay.build("chord", make_latency("bitnode", g, seed=0), seed=0)
+    gdist = gov.distances()
+    gpairs = routing.sample_pairs(g, ROUTE["gate_pairs"], "uniform", seed=1)
+    kw = dict(policy="latency", ring=np.asarray(gov.rings[0]),
+              hop_budget=ROUTE["gate_budget"])
+    dev = routing.route_pairs(gov.adjacency, gdist, gpairs, **kw)
+    t_dev = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        routing.route_pairs(gov.adjacency, gdist, gpairs, **kw)
+        t_dev = min(t_dev, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host = routing.route_pairs_host(gov.adjacency, gdist, gpairs, **kw)
+    t_host = time.perf_counter() - t0
+    same_route("(r) fig19 shape", dev, host)
+    log(f"  (r) fig19 shape (Chord, bitnode, N={g}, P={len(gpairs)}, latency,"
+        f" budget {ROUTE['gate_budget']}): card router {t_dev * 1e3:.2f} ms "
+        f"(best of 3, distances uploaded each call), host loop "
+        f"{t_host * 1e3:.1f} ms, ratio {t_host / t_dev:.2f}x (the reference "
+        f"gates >= 5x; reported); bitwise equal")
+    profiled(f"route_pairs N={n}, P={p}, uniform, latency",
+             lambda: routing.route_pairs(
+                 adj, dist_dev, routing.sample_pairs(n, p, "uniform",
+                                                     seed=0),
+                 policy="latency"))
+
+
+def phase_probe(counts: dict, rate_b: float) -> None:
+    """(p) The churn engine's routing probe: replay (e) (poisson_churn
+    n0=96 under DGRO) with ``route_probe=2`` on the card and on the CPU
+    port (the card's APSP method), every sample's diameter and stretch
+    bitwise equal; then replay (b) (regional failure n0=1,024) once more
+    with ``route_probe=8, route_pairs=256``, its events/s beside (b)'s."""
+    from repro_torch.core import batcheval
+    from repro_torch.dynamics import ChurnEngine, DGROPolicy, scenarios
+    from repro_torch.kernels.minplus import kernel
+
+    trace = scenarios.poisson_churn(n0=CHURN["parity_n0"], seed=0)
+    reset_all_launches()
+    card = ChurnEngine(trace, DGROPolicy(), seed=0, route_probe=2).run()
+    launches = counts["probe (e')"] = dict(kernel.launches)
+    with batcheval.eval_options(device="cpu", method="squaring"):
+        cpu = ChurnEngine(trace, DGROPolicy(), seed=0, route_probe=2).run()
+    a = np.array([(s.diameter, s.stretch) for s in card.samples])
+    b = np.array([(s.diameter, s.stretch) for s in cpu.samples])
+    probed = int(np.isfinite(a[:, 1]).sum())
+    log(f"  (e') probe at n0={trace.n0}, route_probe=2: {len(a)} samples, "
+        f"{probed} probed, mean stretch {card.mean_stretch!r} (CPU "
+        f"{cpu.mean_stretch!r}); launches {launches}")
+    if probed < 4 or not np.array_equal(a, b, equal_nan=True):
+        raise AssertionError("(e'): the card's samples differ from the CPU's")
+    log("  (e') every sample's diameter and stretch bitwise equal to the "
+        "CPU's")
+    fail = scenarios.regional_failure(n0=CHURN["fail_n0"], dist="fabric",
+                                      seed=0)
+    eng, res, _, _, rate = replay("(b') regional failure + probe", fail,
+                                  counts, detect_failures=True,
+                                  route_probe=8, route_pairs=256)
+    stretch = [s.stretch for s in res.samples if np.isfinite(s.stretch)]
+    log(f"  (b') {len(stretch)} probes of 256 pairs, stretch "
+        f"{min(stretch):.4f}..{max(stretch):.4f}; {rate:.2f} events/s "
+        f"against (b)'s {rate_b:.2f} without the probe")
+    if not stretch or min(stretch) < 1 - 1e-4:
+        raise AssertionError(f"(b'): probe stretch {stretch}")
+
+
+HIER = dict(n=100_000, events=200, route_pairs=4096, equal_n=16_384,
+            exact_n=512)
+
+
+def hier_events(n: int, capacity: int, n_events: int, seed: int) -> list:
+    """A churn stream over a fleet of ``n`` live nodes in ``capacity``
+    slots: leaves of random live nodes alternating with joins of random
+    free slots (the slow N=10^5 smoke's stream of ``tests/test_hier.py``,
+    every event effective), then fig21's two reorganizations: split
+    cluster 0, merge cluster 2 into 1."""
+    from repro_torch.dynamics.scenarios import Event
+
+    rng = np.random.default_rng(seed)
+    alive = np.zeros(capacity, bool)
+    alive[:n] = True
+    events, t = [], 0.0
+    for i in range(n_events):
+        t += 1.0
+        pool = np.flatnonzero(alive if i % 2 == 0 else ~alive)
+        u = int(pool[rng.integers(pool.size)])
+        alive[u] = i % 2 == 1
+        events.append(Event(time=t, kind="join" if alive[u] else "leave",
+                            node=u))
+    events.append(Event(time=t + 1.0, kind="cluster_split", node=0))
+    events.append(Event(time=t + 2.0, kind="cluster_merge", node=1, peer=2))
+    return events
+
+
+def phase_hier(counts: dict) -> None:
+    """(h) fig21 part A on the card: ``build_hier`` over a synthetic-geo
+    world of N=10^5 (lazy latency blocks, never the 40 GB matrix; the
+    clusters' nearest rings in chunks on the card, the head ring's DGRO
+    scored by K1), its ``diameter_bound("ecc")``; a ``HierChurnEngine`` at
+    capacity N+8 streaming 200 churn events plus a split and a merge, its
+    K1 launches held to the cluster APSPs it asked for; ``route_pairs_hier``
+    over 4,096 uniform pairs.  Then the card against the CPU port:
+    ``build_hier`` at N=16,384 equal (``.equals`` and ``to_json`` byte for
+    byte), and fig21 part B at N=512: ``diameter_bound("exact")`` equal to
+    scipy's diameter of ``materialize()``."""
+    import torch
+
+    from repro_torch import routing
+    from repro_torch.core import batcheval
+    from repro_torch.core.diameter import diameter_scipy
+    from repro_torch.core.topology import make_latency
+    from repro_torch.dynamics.scenarios import Trace
+    from repro_torch.hier import (DenseLatency, HierChurnEngine, HierConfig,
+                                  build_hier, core, route_pairs_hier,
+                                  synthetic_geo)
+    from repro_torch.kernels.minplus import kernel
+
+    n = HIER["n"]
+    chunks = []
+    batched = core.nearest_rings_batched
+
+    def counted(blocks, starts):
+        chunks.append(tuple(blocks.shape))
+        return batched(blocks, starts)
+
+    lat = synthetic_geo(n, seed=0)
+    core.nearest_rings_batched = counted
+    reset_all_launches()
+    try:
+        with ApspLedger() as ledger:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hov = build_hier(lat, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        core.nearest_rings_batched = batched
+    got = counts["hier build"] = dict(kernel.launches)
+    sizes = hov.cluster_sizes()
+    log(f"  (h) build_hier N={n} synthetic-geo: {wall:.2f} s wall, "
+        f"{hov.n_clusters} clusters of {sizes.min()}..{sizes.max()} nodes, "
+        f"{len(chunks)} nearest-ring chunks {chunks}; the head ring's "
+        f"build: {ledger.apsps()} APSPs, launches {got} (expected "
+        f"{ledger.expected_launches()})")
+    if got != ledger.expected_launches() or got["minplus_acc"] < 1:
+        raise AssertionError(f"(h) build launches {got}")
+    t0 = time.perf_counter()
+    d, stamp = hov.diameter_bound("ecc")
+    log(f"  (h) diameter_bound('ecc') {d!r} ({stamp}), "
+        f"{time.perf_counter() - t0:.2f} s of scipy Dijkstra")
+    if stamp != "upper" or not np.isfinite(d) or d <= 0:
+        raise AssertionError(f"(h) diameter bound {d} {stamp}")
+
+    pairs = routing.sample_pairs(n, HIER["route_pairs"], "uniform", seed=0)
+    reset_all_launches()
+    with ApspLedger() as ledger:
+        ledger.tag = "route"
+        t0 = time.perf_counter()
+        res = route_pairs_hier(hov, pairs)
+        wall = time.perf_counter() - t0
+    got = counts["hier route"] = dict(kernel.launches)
+    ok = res.success
+    log(f"  (h) route_pairs_hier {len(pairs)} uniform pairs: {wall:.2f} s "
+        f"wall ({len(pairs) / wall:.0f} pairs/s), success {ok.mean():.4f}, "
+        f"hops p50 {np.percentile(res.hops[ok], 50):.0f} (local "
+        f"{np.percentile(res.hops_local[ok], 50):.0f}, head "
+        f"{np.percentile(res.hops_head[ok], 50):.0f}), stretch mean "
+        f"{res.stretch[ok].mean():.4f}; {ledger.apsps()} APSPs of the "
+        f"touched clusters, launches {got} (expected "
+        f"{ledger.expected_launches()})")
+    if got != ledger.expected_launches():
+        raise AssertionError(f"(h) hier route launches {got}")
+    if ok.mean() < 0.99 or (res.stretch[ok] < 1 - 1e-4).any():
+        raise AssertionError(f"(h) hier routing success {ok.mean()}")
+    # a slice under the profiler: its trace of the whole batch (~300,000
+    # device ops) takes the profiler minutes to reduce
+    profiled(f"route_pairs_hier N={n}, P=512 of them (cluster APSPs "
+             f"cached)", lambda: route_pairs_hier(hov, pairs[:512]))
+    del hov, res
+
+    cap = n + 8
+    events = hier_events(n, cap, HIER["events"], seed=0)
+    trace = Trace(n0=n, capacity=cap, dist="bitnode", seed=0, events=events,
+                  name="fig21-scale")
+    lat = synthetic_geo(cap, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with ApspLedger() as ledger:
+        ledger.tag = "boot"
+        t0 = time.perf_counter()
+        eng = HierChurnEngine(trace, lat=lat, seed=0)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        boot = counts["hier engine boot"] = dict(kernel.launches)
+        boot_want = ledger.expected_launches()
+        n_boot = ledger.apsps()
+        ledger.calls.clear()
+        ledger.tag = "events"
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for e in events:
+            eng.process(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = counts["hier engine"] = dict(kernel.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (h) HierChurnEngine at capacity {cap}: boot {boot_s:.2f} s "
+        f"({eng.n_clusters} clusters + the head graph: {n_boot} APSPs, "
+        f"launches {boot}, expected {boot_want})")
+    rebuilds = ledger.apsps("rebuild")
+    log(f"  (h) {len(events)} events ({HIER['events']} joins/leaves, a split,"
+        f" a merge) in {wall:.3f} s, {len(events) / wall:.2f} events/s; "
+        f"stats {eng.stats()}; {rebuilds} APSPs of rebuilt states, launches"
+        f" {got} (expected {ledger.expected_launches()}, "
+        f"{got['minplus_acc'] / max(rebuilds, 1):.2f} K1 a rebuild); "
+        f"max_memory_allocated {peak} B")
+    if boot != boot_want or got != ledger.expected_launches():
+        raise AssertionError(f"(h) engine launches {boot}, {got}")
+    if eng.reorg_stats["splits"] != 1 or eng.reorg_stats["merges"] != 1:
+        raise AssertionError(f"(h) reorgs {eng.reorg_stats}")
+    t0 = time.perf_counter()
+    d = eng.diameter()
+    log(f"  (h) maintained diameter {d!r} ({time.perf_counter() - t0:.2f} "
+        f"s), {eng.pending_deletions} deletions pending")
+    if not np.isfinite(d) or d <= 0:
+        raise AssertionError(f"(h) maintained diameter {d}")
+    del eng
+
+    m = HIER["equal_n"]
+    lat = synthetic_geo(m, seed=0)
+    t0 = time.perf_counter()
+    card = build_hier(lat, seed=0)
+    t_card = time.perf_counter() - t0
+    with batcheval.eval_options(device="cpu", method="squaring"):
+        t0 = time.perf_counter()
+        cpu = build_hier(lat, seed=0)
+        t_cpu = time.perf_counter() - t0
+    same = card.equals(cpu) and card.to_json() == cpu.to_json()
+    log(f"  (h) build_hier N={m}: card {t_card:.2f} s, CPU port "
+        f"{t_cpu:.2f} s (squaring); {card.n_clusters} clusters; .equals "
+        f"and to_json byte-identical: {same}")
+    if not same:
+        raise AssertionError(f"(h) the card's build at N={m} != the CPU's")
+
+    k = HIER["exact_n"]
+    w = make_latency("bitnode", k, seed=2)
+    small = build_hier(DenseLatency(w), HierConfig(k_local=12), seed=0)
+    d, stamp = small.diameter_bound("exact")
+    want = diameter_scipy(small.materialize().adjacency)
+    log(f"  (h) fig21 part B, N={k} bitnode: diameter_bound('exact') {d!r} "
+        f"({stamp}) vs scipy's diameter of materialize() {want!r}")
+    if stamp != "exact" or not np.isclose(d, want, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"(h) exact bound {d} != scipy {want}")
+
+
+SERVICE = (("dgro", 1024, 200), ("dgro-hier", 10_000, 200))
+
+
+def phase_service() -> None:
+    """(s) The control-plane daemon on the card: the port's service smoke
+    (``tools/torch_service_smoke.py``) against ``python -m
+    repro_torch.service`` twice -- flat DGRO at n0=1,024 and ``dgro-hier``
+    at n0=10,000, 200 poisson events each.  The smoke asserts every
+    endpoint, the metrics counters against what it streamed and a clean
+    exit; its last line carries the numbers printed here."""
+    for policy, n0, n_events in SERVICE:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "torch_service_smoke.py"),
+             "--policy", policy, "--n0", str(n0), "--events", str(n_events),
+             "--device", "cuda"],
+            capture_output=True, text=True, timeout=400, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            log(out.stdout[-3000:])
+            log(out.stderr[-6000:])
+            raise AssertionError(f"(s) {policy}: smoke exited "
+                                 f"{out.returncode}")
+        lines = out.stdout.strip().splitlines()
+        r = json.loads(lines[-1])
+        log(f"  (s) {lines[-2]}")
+        log(f"  (s) {policy} n0={n0} capacity {r['capacity']}: daemon up in "
+            f"{r['boot_s']:.2f} s; {r['events']} events in "
+            f"{r['ingest_s']:.3f} s ({r['events_per_s']:.1f} events/s over "
+            f"HTTP); route query p50 {r['route_ms_p50']:.2f} ms, max "
+            f"{r['route_ms_max']:.2f} ms over {r['route_queries']} "
+            f"({r['route_delivered']} delivered); exact diameter "
+            f"{r['diameter_exact']!r}; reopt cycles {r['reopt_cycles']}; "
+            f"clusters {r['clusters']}; {wall:.1f} s in all")
+        if "error" in r["reopt_cycles"]:
+            raise AssertionError(f"(s) {policy}: a reopt cycle failed: "
+                                 f"{r['reopt_cycles']}")
 
 
 def profiled(label: str, fn) -> None:
@@ -1792,7 +2186,7 @@ def main() -> int:
     log("phase: LM kernels (K3, K4) vs plain versions on the card")
     phase_lm_kernels(rng, errs)
     log("phase: main path, overlay.build('dgro') at N=4096")
-    phase_build(counts)
+    built = phase_build(counts)
     log("phase: ring selection, selection.adapt at N=256")
     phase_adapt(counts)
     log("phase: fig20 cell, diameters_of_rings B=64 N=4096")
@@ -1803,8 +2197,21 @@ def main() -> int:
     phase_parallel(counts)
     log(f"phase: churn, the dynamics engine at n0={CHURN['n0']}")
     t0 = time.perf_counter()
-    phase_churn(counts)
+    rate_b = phase_churn(counts)
     log(f"  churn phase: {time.perf_counter() - t0:.1f} s")
+    for label, run in (
+            (f"(r) routing over the build's overlay, N={built.n}",
+             lambda: phase_routing(built, counts)),
+            ("(p) the churn engine's routing probe",
+             lambda: phase_probe(counts, rate_b)),
+            (f"(h) hierarchy at N={HIER['n']}", lambda: phase_hier(counts)),
+            ("(s) the control-plane service", phase_service)):
+        log(f"phase: {label}")
+        t0 = time.perf_counter()
+        run()
+        log(f"  {label.split(' ')[0]} phase: "
+            f"{time.perf_counter() - t0:.1f} s")
+    del built
     log("phase: LM serving, gemma3-1b at full width")
     served = phase_serve(counts, errs)
     log("phase: device time by profiler")

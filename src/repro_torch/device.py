@@ -7,9 +7,10 @@ the batcheval facade or with ``batcheval.eval_options(device="cpu")``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "upload"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -27,3 +28,13 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the copy: through a
+    pinned staging buffer, asynchronously, on CUDA (the caching host
+    allocator keeps the buffer alive until the copy is done)."""
+    t = torch.from_numpy(np.require(x, requirements=("C", "W")))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

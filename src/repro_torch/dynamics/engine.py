@@ -41,9 +41,10 @@ Membership-plane wiring (the paper's application layer):
 Traces are plain data and replay deterministically: engine randomness comes
 from one ``numpy`` Generator seeded at construction.
 
-Not ported yet: the routing probe (``route_probe > 0``, ``probe_stretch``)
-needs ``routing/`` (ROADMAP item 11) and raises ``NotImplementedError``;
-the cluster event kinds raise the reference's ``ValueError``.
+The routing probe (``route_probe > 0``, ``probe_stretch``) routes over an
+exact APSP of the live block on the eval device through
+``repro_torch.routing``; the cluster event kinds raise the reference's
+``ValueError`` (they need ``repro_torch.hier.HierChurnEngine``).
 """
 from __future__ import annotations
 
@@ -474,16 +475,48 @@ class ChurnEngine:
 
     def probe_stretch(self, n_pairs: int | None = None,
                       policy: str | None = None) -> float:
-        """Greedy-route a seeded pair batch over the live overlay and return
-        the mean routing stretch — the reference's read-only probe.
+        """Greedy-route a seeded uniform pair batch over the LIVE overlay
+        and return the mean routing stretch over delivered pairs.
 
-        Not ported yet: it needs ``routing/`` (ROADMAP item 11), so it
-        raises ``NotImplementedError``, as does ``run()`` with
-        ``route_probe > 0`` at its first sample.  ``route_probe=0`` (the
-        default) is the path this package runs."""
-        raise NotImplementedError(
-            "ChurnEngine.probe_stretch needs repro_torch.routing, which is "
-            "not ported yet (ROADMAP item 11); run with route_probe=0")
+        The probe is a read-only measurement: exact live-block APSP (never
+        the maintenance lower bound — a probe must not charge the router
+        for the engine's bounded staleness) through ``batcheval`` on the
+        eval device (K1 squaring below 512 live nodes on the card, K2 + K1
+        tiled from there), then ``repro_torch.routing``'s batched router
+        over that device matrix, pairs seeded by ``events_processed`` so
+        replays probe identical traffic.  NaN when fewer than 2 nodes are
+        live or nothing was delivered.  ``policy="ring"`` routes on the
+        policy's first ring (live members only); the default latency
+        policy needs no ring embedding.
+        """
+        import torch
+
+        from repro_torch import routing
+        from repro_torch.core.batcheval import batched_apsp, eval_device
+
+        n_pairs = self.route_pairs if n_pairs is None else int(n_pairs)
+        policy = self.route_policy if policy is None else policy
+        live = self.live_ids()
+        m = len(live)
+        if m < 2 or n_pairs < 1:
+            return float("nan")
+        adjl = np.asarray(self.inc.adj, np.float32)[np.ix_(live, live)]
+        dist = batched_apsp(torch.from_numpy(adjl)[None].to(
+            eval_device()))[0]
+        ring = None
+        if policy == "ring":
+            pos = {int(g): i for i, g in enumerate(live)}
+            rings = getattr(self.policy, "rings", None) or [[]]
+            ring = np.asarray([pos[g] for g in rings[0] if g in pos],
+                              np.int64)
+            if ring.size < 2:
+                return float("nan")
+        res = routing.route_pairs(
+            adjl, dist, routing.sample_pairs(
+                m, n_pairs, "uniform", seed=self.events_processed),
+            policy=policy, ring=ring, hop_budget=m)
+        ok = res.success & np.isfinite(res.stretch)
+        return float(res.stretch[ok].mean()) if ok.any() else float("nan")
 
     def host_states(self) -> List[HostState]:
         """Per-slot membership view for the elastic layer (``plan_rescale``):

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import batcheval
 from repro_torch.core.diameter import (INF, is_edge, largest_cc_diameter,
                                        relax_edge_update)
+from repro_torch.device import upload
 from repro_torch.obs import jit_span
 
 __all__ = [
@@ -75,16 +76,6 @@ def _on(x, like: torch.Tensor, dtype) -> torch.Tensor:
     device."""
     return torch.as_tensor(np.asarray(x) if isinstance(x, (list, tuple))
                            else x, dtype=dtype, device=like.device)
-
-
-def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without waiting for the copy: through a
-    pinned staging buffer, asynchronously, on CUDA (the caching host
-    allocator keeps the buffer alive until the copy is done)."""
-    t = torch.from_numpy(x)
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def join_nodes_batched(dists: torch.Tensor, rows, us) -> torch.Tensor:
@@ -220,6 +211,12 @@ class IncrementalDistances:
         the live truth."""
         return self._dist.cpu().numpy()
 
+    def distances_at(self, rows=slice(None), cols=slice(None)) -> np.ndarray:
+        """``distances[rows, cols]`` copied to the host alone: an entry, a
+        row or a column costs one small copy, not one of the whole (C, C)
+        matrix."""
+        return self._dist[rows, cols].cpu().numpy()
+
     def live_distances(self) -> np.ndarray:
         live = self.live_ids()
         return self.distances[np.ix_(live, live)]
@@ -276,7 +273,7 @@ class IncrementalDistances:
         row = np.full(self.capacity, float(INF), np.float32)
         row[nbrs] = self.adj[u, nbrs]
         with jit_span("incremental.join", key=self.capacity):
-            self._dist = join_node(self._dist, _upload(row, self.device),
+            self._dist = join_node(self._dist, upload(row, self.device),
                                    u)
         self.stats["relaxations"] += 1
 
@@ -352,7 +349,7 @@ class IncrementalDistances:
         with jit_span("incremental.rebuild", key=self.capacity):
             d = batcheval.apsp_matrices(self.adj[None], dtype="float32",
                                         device=self.device)[0]
-            self._dist = _upload(d, self.device)
+            self._dist = upload(d, self.device)
         self.pending_deletions = 0
         self.stats["rebuilds"] += 1
 

@@ -30,9 +30,9 @@ builder               paper section
 ``"random"``          §IV-B random K-ring (the paper's normalizer)
 ``"kleinberg"``       routing baseline: base ring + q harmonic long links
 ``"papillon"``        routing baseline: bounded-degree butterfly long links
+``"dgro-hier"``       §VI composed: cluster-local rings + a DGRO ring over
+                      cluster heads (``repro_torch.hier``, imported lazily)
 ====================  =====================================================
-
-``"dgro-hier"`` comes with a later slice of the port.
 """
 from .core import Overlay  # noqa: F401
 from .protocol import Topology, from_topology_json  # noqa: F401

@@ -75,14 +75,11 @@ def from_topology_json(s: str) -> "Topology":
     Flat ``Overlay`` payloads are schema 1; ``HierarchicalOverlay``
     payloads are schema 2 with ``"kind": "hier_overlay"``.  Dispatch is by
     payload, so callers that accept "a topology" (service snapshots, trace
-    sidecars) need exactly one entry point.  The port reads flat payloads
-    only, until its hier slice lands; a schema-2 payload raises
-    ``NotImplementedError``.
+    sidecars) need exactly one entry point.
     """
     d = serde.loads(s, what="topology JSON")
     if serde.payload_schema(d) >= 2 or d.get("kind") == "hier_overlay":
-        raise NotImplementedError(
-            "hierarchical (schema-2) topologies are not ported yet: they "
-            "come with the port's hier slice (repro.hier's counterpart)")
+        from repro_torch.hier import HierarchicalOverlay
+        return HierarchicalOverlay.from_json(s)
     from .core import Overlay
     return Overlay.from_json(s)

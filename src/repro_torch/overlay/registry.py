@@ -14,8 +14,8 @@ Consumers construct overlays without touching policy internals::
     ov = overlay.build("perigee", w, ring="nearest", seed=3)  # field override
 
 New policies plug in through ``@register`` instead of editing call sites.
-The port registers the builders its slices have brought (see
-``repro_torch.overlay``).
+``"dgro-hier"`` lives in ``repro_torch.hier`` and registers itself when
+that package is imported; the registry imports it on first use.
 """
 from __future__ import annotations
 
@@ -54,6 +54,18 @@ class BuilderSpec:
 
 _REGISTRY: Dict[str, BuilderSpec] = {}
 
+# builders that live OUTSIDE repro_torch.overlay (above it in the layering)
+# and self-register on import: resolved lazily so `import
+# repro_torch.overlay` stays light and the layering stays acyclic
+_LAZY_MODULES: Dict[str, str] = {"dgro-hier": "repro_torch.hier"}
+
+
+def _resolve_lazy(name: Optional[str] = None) -> None:
+    import importlib
+    for key, module in _LAZY_MODULES.items():
+        if (name is None or name == key) and key not in _REGISTRY:
+            importlib.import_module(module)
+
 def register(name: str, *, config: Optional[type] = None,
              kind: str = "flat"):
     """Decorator: register an overlay builder under ``name``."""
@@ -70,13 +82,16 @@ def register(name: str, *, config: Optional[type] = None,
 
 def builders() -> Dict[str, Optional[type]]:
     """Registered builder names -> config class (None = no config)."""
+    _resolve_lazy()
     return {name: spec.config_cls for name, spec in sorted(_REGISTRY.items())}
 
 
 def get_builder(name: str) -> BuilderSpec:
+    _resolve_lazy(name)
     try:
         return _REGISTRY[name]
     except KeyError:
+        _resolve_lazy()     # the message must list lazy builders too
         # sorted, comma-joined: a stable message tests/docs can rely on
         raise ValueError(
             f"unknown overlay builder {name!r}; registered builders: "
@@ -93,8 +108,9 @@ def build(name: str, w: np.ndarray, cfg=None, *,
     Randomness comes from ``rng`` (or ``np.random.default_rng(seed)``).
 
     Beside the paper's diameter-oriented builders (``"dgro"``,
-    ``"chord"``, ``"rapid"``, ``"perigee"``, ``"ga"``, ``"nearest"``,
-    ``"random"``), two routing-native small-world baselines:
+    ``"dgro-dqn"``, ``"chord"``, ``"rapid"``, ``"perigee"``, ``"ga"``,
+    ``"nearest"``, ``"random"``, ``"parallel"``), two routing-native
+    small-world baselines back the ``repro_torch.routing`` workloads:
 
     * ``"kleinberg"`` — base ring + ``q`` long links per node drawn with
       probability ∝ ``1/ringdist^exponent`` (harmonic at the default

@@ -673,3 +673,96 @@ def test_incremental_distances_on_card_held_to_scipy(cuda, mode):
     assert np.array_equal(got < float(INF) / 2, reach)
     np.testing.assert_allclose(got[reach], want[reach], rtol=1e-4, atol=1e-3)
     assert kernel.launches["fw_tile"] > before["fw_tile"]
+
+
+# --- routing, hierarchies and the service (repro_torch.routing / hier /
+# service) ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_route_pairs_on_card_bitwise_cpu(cuda, ties):
+    """The card's walk against the CPU's and the host loop on the same
+    numpy inputs, both policies, every workload; with ``ties`` every link
+    weighs the same, so first-min ``argmin`` decides most hops."""
+    from repro_torch import overlay, routing
+
+    n = 512
+    if ties:
+        w = np.full((n, n), 7.0, np.float32)
+        np.fill_diagonal(w, 0.0)
+    else:
+        w = make_latency("fabric", n, seed=5)
+    with batcheval.eval_options(device="cpu"):
+        ov = overlay.build("chord", w, seed=0)
+        dist = ov.distances()
+    adj, ring = ov.adjacency, ov.rings[0]
+    for kind in routing.WORKLOADS:
+        pairs = routing.sample_pairs(n, 2048, kind, seed=1)
+        for policy in routing.POLICIES:
+            card = routing.route_pairs(adj, dist, pairs, policy=policy,
+                                       ring=ring)
+            dev = routing.route_pairs(adj, torch.from_numpy(dist).to(cuda),
+                                      pairs, policy=policy, ring=ring)
+            with batcheval.eval_options(device="cpu"):
+                cpu = routing.route_pairs(adj, dist, pairs, policy=policy,
+                                          ring=ring)
+            host = routing.route_pairs_host(adj, dist, pairs[:256],
+                                            policy=policy, ring=ring)
+            for f in ("hops", "latency", "success", "failed", "optimum",
+                      "stretch"):
+                a = getattr(card, f)
+                for other in (cpu, dev):
+                    assert np.array_equal(a, getattr(other, f),
+                                          equal_nan=True), (kind, policy, f)
+                assert np.array_equal(a[:256], getattr(host, f),
+                                      equal_nan=True), (kind, policy, f)
+            assert card.success.all(), (kind, policy)
+
+
+def test_hier_build_on_card_equals_cpu(cuda):
+    """``build_hier`` on a synthetic-geo world: the clusters' nearest
+    rings on the card, the head ring's DGRO scored by K1.  The CPU side
+    runs the card's APSP method (squaring), so the builds are equal."""
+    from repro_torch.hier import build_hier, synthetic_geo
+
+    lat = synthetic_geo(4096, seed=0)
+    before = kernel.launches["minplus_acc"]
+    card = build_hier(lat, seed=0)
+    assert kernel.launches["minplus_acc"] > before
+    with batcheval.eval_options(device="cpu", method="squaring"):
+        cpu = build_hier(lat, seed=0)
+    assert card.equals(cpu)
+    assert card.to_json() == cpu.to_json()
+    assert card.diameter_bound("ecc") == cpu.diameter_bound("ecc")
+
+
+@pytest.mark.parametrize("policy", ["dgro", "dgro-hier"])
+def test_service_state_on_card_routes_as_cpu(cuda, policy):
+    """A ServiceState on the card and one on the CPU (the card's APSP
+    method) ingest the same events and answer every route the same."""
+    from repro_torch.dynamics import Trace, scenarios
+    from repro_torch.service import ServiceState
+
+    n0 = 200
+    world = Trace(n0=n0, capacity=2 * n0, dist="bitnode", seed=3, events=[],
+                  name="card-world")
+    card = ServiceState.fresh(world, policy=policy, seed=0,
+                              rebuild_threshold=4)
+    assert card.device.type == "cuda"
+    with batcheval.eval_options(method="squaring"):
+        cpu = ServiceState.fresh(world, policy=policy, seed=0,
+                                 rebuild_threshold=4, device="cpu")
+    tr = scenarios.poisson_churn(n0=n0, seed=3, join_rate=2e-3,
+                                 leave_rate=2e-3)
+    events = sorted(tr.events, key=lambda e: e.time)[:40]
+    rng = np.random.default_rng(0)
+    for i in range(0, len(events), 8):
+        card.ingest(events[i:i + 8])
+        with batcheval.eval_options(method="squaring"):
+            cpu.ingest(events[i:i + 8])
+        live = card.adjacency()["nodes"]
+        assert live == cpu.adjacency()["nodes"]
+        for _ in range(8):
+            a, b = rng.choice(live, size=2, replace=False)
+            with batcheval.eval_options(method="squaring"):
+                want = cpu.route(int(a), int(b))
+            assert card.route(int(a), int(b)) == want

@@ -9,9 +9,11 @@
   trace of ``SCENARIOS`` under all four policies (samples, final
   diameter, stats, adaptations); ``restore`` then ``process`` / ``flush``.
 * ``Trace.to_json`` byte-identical for every scenario.
-* What the port does not do yet raises: ``cluster_split_merge`` the
-  reference's ``ValueError``, the routing probe ``NotImplementedError``
-  (ROADMAP item 11), and every entry point the device error without CUDA.
+* The routing probe (``route_probe > 0``) replays the reference's
+  stretch samples exactly.
+* ``cluster_split_merge`` raises the reference's ``ValueError`` (the flat
+  engine has no clusters), and every entry point the device error without
+  CUDA.
 
 The port's APSP rebuilds run the plain Floyd-Warshall here, the CPU method
 of both packages, so distances are compared for exact equality.
@@ -505,16 +507,28 @@ def test_trace_json_byte_identical(name):
             assert np.array_equal(got.latency(), want.latency())
 
 
-def test_route_probe_is_not_ported_yet():
+@pytest.mark.parametrize("route_policy", ["latency", "ring"])
+def test_route_probe_replay_equals_reference(route_policy):
+    """``route_probe > 0``: every probed sample's stretch, and the run's
+    mean, equal the reference's (the probe's live-block APSP and its
+    routed pairs are bitwise the reference's)."""
     trace = SCENARIOS["flash_crowd"](n0=12, seed=0)
-    eng = ChurnEngine(trace, POLICIES["rapid"](), seed=0, route_probe=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.run()
+    jtrace = jdyn.SCENARIOS["flash_crowd"](n0=12, seed=0)
+    res = ChurnEngine(trace, POLICIES["rapid"](), seed=0, route_probe=2,
+                      route_policy=route_policy).run()
+    jres = jdyn.ChurnEngine(jtrace, jdyn.POLICIES["rapid"](), seed=0,
+                            route_probe=2, route_policy=route_policy).run()
+    got = np.array([s.stretch for s in res.samples])
+    assert np.isfinite(got).sum() >= 4
+    assert np.array_equal(got, [s.stretch for s in jres.samples],
+                          equal_nan=True)
+    assert res.mean_stretch == jres.mean_stretch
     eng = ChurnEngine(trace, POLICIES["rapid"](), seed=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.probe_stretch()
-    res = ChurnEngine(trace, POLICIES["rapid"](), seed=0).run()
-    assert np.isnan(res.mean_stretch)
+    jeng = jdyn.ChurnEngine(jtrace, jdyn.POLICIES["rapid"](), seed=0)
+    assert eng.probe_stretch(policy=route_policy) == \
+        jeng.probe_stretch(policy=route_policy)
+    off = ChurnEngine(trace, POLICIES["rapid"](), seed=0).run()
+    assert np.isnan(off.mean_stretch)
 
 
 def test_churn_entry_points_raise_without_cuda(monkeypatch):

@@ -33,7 +33,9 @@ def test_import_leaves_jax_out():
             "repro_torch.train.optimizer, repro_torch.obs, "
             "repro_torch.obs.logsetup, repro_torch.core.protocols, "
             "repro_torch.membership.gossip, "
-            "repro_torch.membership.elastic, repro_torch.dynamics; "
+            "repro_torch.membership.elastic, repro_torch.dynamics, "
+            "repro_torch.routing, repro_torch.hier, repro_torch.service, "
+            "repro_torch.service.client; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -67,7 +69,14 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "obs/logsetup.py", "membership/gossip.py",
                 "membership/elastic.py", "dynamics/__init__.py",
                 "dynamics/scenarios.py", "dynamics/incremental.py",
-                "dynamics/engine.py"):
+                "dynamics/engine.py", "routing/__init__.py",
+                "routing/greedy.py", "routing/metrics.py",
+                "routing/workload.py", "hier/__init__.py", "hier/geo.py",
+                "hier/core.py", "hier/routing.py", "hier/engine.py",
+                "service/__init__.py", "service/__main__.py",
+                "service/client.py", "service/reoptimizer.py",
+                "service/server.py", "service/snapshots.py",
+                "service/state.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
@@ -147,3 +156,19 @@ def test_device_rule_rejects_other_devices():
     with pytest.raises(ValueError):
         with batcheval.eval_options(device="meta"):
             pass
+
+
+def test_service_daemon_exits_with_the_device_error_without_cuda():
+    """``python -m repro_torch.service`` with no CUDA device and no
+    ``--device cpu``: a non-zero exit with the device error, before it
+    binds a port (CUDA is hidden from the child, whatever the machine)."""
+    env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.service",
+                          "--n0", "8", "--port", "0", "--no-reopt"],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=PORT.parents[1])
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr, out.stderr
+    assert "device='cpu'" in out.stderr
+    assert "SERVING" not in out.stdout

@@ -90,18 +90,26 @@ def test_json_byte_identical_both_ways_and_numpy_state():
     assert tov.from_topology_json(ref.to_json()).to_json() == ref.to_json()
 
 
-def test_schema2_payload_names_the_hier_slice():
-    payload = '{"kind": "hier_overlay", "schema": 2}'
-    with pytest.raises(NotImplementedError, match="hier"):
-        tov.from_topology_json(payload)
+def test_schema2_payload_loads_the_hierarchy():
+    """A schema-2 payload loads as the port's HierarchicalOverlay and
+    writes the reference's payload back byte for byte; the flat loader
+    refuses it."""
+    from repro import hier as jhier
+    from repro_torch.hier import HierarchicalOverlay
+
+    w = make_latency("bitnode", 64, seed=1)
+    payload = jhier.build_hier(jhier.DenseLatency(w), seed=0).to_json()
+    got = tov.from_topology_json(payload)
+    assert isinstance(got, HierarchicalOverlay)
+    assert got.to_json() == payload
     with pytest.raises(ValueError, match="schema-2"):
         tov.Overlay.from_json(payload)
 
 
-def test_registry_holds_this_slice():
-    assert set(tov.builders()) == {"random", "nearest", "chord", "rapid",
-                                   "perigee", "kleinberg", "papillon",
-                                   "dgro", "dgro-dqn", "ga", "parallel"}
-    assert set(tov.builders()) == set(jov.builders()) - {"dgro-hier"}
-    with pytest.raises(ValueError, match="dgro-hier"):
-        tov.build("dgro-hier", make_latency("uniform", 8, seed=0))
+def test_registry_equals_reference():
+    """Every builder of the reference is registered, ``"dgro-hier"``
+    (resolved lazily, as the reference resolves it) included."""
+    assert set(tov.builders()) == set(jov.builders())
+    assert {n: tov.get_builder(n).kind for n in tov.builders()} == \
+        {n: jov.get_builder(n).kind for n in jov.builders()}
+    assert tov.get_builder("dgro-hier").kind == "hier"
