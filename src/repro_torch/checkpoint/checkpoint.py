@@ -1,0 +1,222 @@
+"""Atomic, async checkpointing of tensor trees, in the JAX package's layout
+(``repro.checkpoint.checkpoint``), so that a checkpoint written by either
+package restores into the other.
+
+Layout:  <dir>/step_<N>/
+             manifest.json      (leaf keys, shapes, dtypes, step, meta)
+             shard_0.npz        (every leaf, one host)
+             COMMITTED          (written last: atomic-commit marker)
+
+* **Atomic**: everything is written into ``step_<N>.tmp`` and renamed;
+  readers ignore directories without the COMMITTED marker, so a job killed
+  mid-save can never restore a torn checkpoint.
+* **Async**: ``save_async`` copies the tree to host memory synchronously
+  (after the device's pending work) and writes in a background thread.
+* **Keys**: each leaf is stored under the JAX package's ``keystr`` of its
+  path: a dataclass's fields (``TrainState``) as ``[<flat index i>]``, a
+  NamedTuple's (``AdamWState``) as ``.name``, dict keys sorted as
+  ``['key']``, list items as ``[i]`` -- e.g.
+  ``[<flat index 0>]['blocks']['pos0']['attn']['wq']`` and
+  ``[<flat index 1>].mu['embed']``.  bf16 leaves are stored as fp32
+  (lossless) and cast back to the template's dtype on restore.
+
+One device, one host: the JAX version's ``shardings`` (elastic restore onto
+another mesh) is not ported (ROADMAP Queue A item 13f); ``restore`` puts
+each leaf on its template leaf's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["save", "restore", "latest_steps", "AsyncCheckpointer",
+           "flatten_with_keys"]
+
+Tree = Any
+_MARKER = "COMMITTED"
+
+
+def _children(node):
+    """(key string, child) pairs of a tree node in ``jax.tree.flatten``'s
+    order, or None for a leaf."""
+    if isinstance(node, dict):
+        return [(f"[{key!r}]", node[key]) for key in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(f".{name}", getattr(node, name)) for name in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [(f"[{i}]", child) for i, child in enumerate(node)]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f"[<flat index {i}>]", getattr(node, f.name))
+                for i, f in enumerate(dataclasses.fields(node))]
+    return None
+
+
+def flatten_with_keys(tree: Tree) -> Dict[str, Any]:
+    """``{keystr: leaf}`` in ``jax.tree.flatten``'s order."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        kids = _children(node)
+        if kids is None:
+            out[prefix] = node
+            return
+        for key, child in kids:
+            walk(child, prefix + key)
+
+    walk(tree, "")
+    return out
+
+
+def _rebuild(tree: Tree, leaf_of) -> Tree:
+    """``tree`` with each leaf replaced by ``leaf_of(keystr, leaf)``."""
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {key: walk(node[key], f"{prefix}[{key!r}]")
+                    for key in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(getattr(node, n), f"{prefix}.{n}")
+                                for n in node._fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(c, f"{prefix}[{i}]")
+                              for i, c in enumerate(node))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return type(node)(**{
+                f.name: walk(getattr(node, f.name),
+                             f"{prefix}[<flat index {i}>]")
+                for i, f in enumerate(dataclasses.fields(node))})
+        return leaf_of(prefix, node)
+
+    return walk(tree, "")
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:        # npz has no bf16: fp32, lossless
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()     # never the live storage
+    return np.array(leaf)
+
+
+def _snapshot(tree: Tree) -> Dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in flatten_with_keys(tree).items()}
+
+
+def _write(directory: str, step: int, arrays: Dict[str, np.ndarray],
+           meta: Optional[Dict]) -> str:
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
+    manifest = {
+        "step": step,
+        "meta": meta or {},
+        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                   for k, v in arrays.items()},
+        "n_hosts": 1,
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    with open(os.path.join(tmp, _MARKER), "w") as f:
+        f.write("ok")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def save(directory: str, step: int, tree: Tree, *,
+         meta: Optional[Dict] = None) -> str:
+    """Synchronous save.  Returns the committed directory."""
+    return _write(directory, step, _snapshot(tree), meta)
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpointing; at most one save in flight; keeps
+    the newest ``keep`` committed steps."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self.last_committed: Optional[str] = None
+
+    def save_async(self, step: int, tree: Tree, meta: Optional[Dict] = None):
+        self.wait()
+        # copy to host memory NOW: the caller may update the tensors later
+        snapshot = _snapshot(tree)
+
+        def work():
+            self.last_committed = _write(self.directory, step, snapshot,
+                                         meta)
+            self._gc()
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        steps = latest_steps(self.directory)
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+
+def latest_steps(directory: str):
+    """The committed steps under ``directory``, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        path = os.path.join(directory, name)
+        if (name.startswith("step_") and not name.endswith(".tmp")
+                and os.path.exists(os.path.join(path, _MARKER))):
+            out.append(int(name.split("_")[1]))
+    return sorted(out)
+
+
+def restore(directory: str, template: Tree, *,
+            step: Optional[int] = None) -> tuple:
+    """Restore into the structure of ``template`` (the newest committed
+    step, or ``step``): each leaf in its template leaf's dtype, on its
+    device.  Returns (tree, step)."""
+    steps = latest_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no committed checkpoint under {directory}")
+    step = steps[-1] if step is None else step
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    keyed = flatten_with_keys(template)
+    stored = manifest["leaves"]
+    missing = [k for k in keyed if k not in stored]
+    if missing:
+        raise ValueError(f"checkpoint at step {step} missing leaves: "
+                         f"{missing[:5]}")
+    for k, leaf in keyed.items():
+        got, want = tuple(stored[k]["shape"]), tuple(np.shape(leaf))
+        if got != want:
+            raise ValueError(f"shape mismatch for {k}: ckpt {got} vs "
+                             f"template {want}")
+    with np.load(os.path.join(path, "shard_0.npz")) as data:
+        def leaf_of(key, leaf):
+            arr = data[key]
+            if isinstance(leaf, torch.Tensor):
+                return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                    device=leaf.device, dtype=leaf.dtype)
+            return np.asarray(arr).astype(np.asarray(leaf).dtype)
+
+        tree = _rebuild(template, leaf_of)
+    return tree, manifest["step"]

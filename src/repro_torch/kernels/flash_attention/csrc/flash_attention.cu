@@ -9,7 +9,11 @@
 // by ops._call_kernel (ops.py) with the true KV length.  It computes what
 // ops.flash_attention computes: masked scores are -1e30, p is zeroed where
 // masked, l is clamped to 1e-30 (a fully masked row gives 0), and the scale
-// is taken by the caller from the true D.
+// is taken by the caller from the true D.  For training it also writes
+// each row's log-sum-exp L = m + log(l) (scaled scores; l clamped to 1e-30,
+// so a fully masked row gets L ~ -1e30 and K4b gives it a zero gradient)
+// into an optional fp32 (B, Hq, Tq) array; serving passes none, and the
+// output is the same bits either way.
 //
 // What bounds it on an H100: operations.  At the served shape of gemma3-1b
 // (B 8, Hq 4, Hkv 1, T 1024, D 256, fp32) a causal layer does 17.2 GFLOP
@@ -79,6 +83,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                          // (B, Hq, Tq) or null
   int batch, hq, hkv, tq, tk, d;
   int ntq;                             // query tiles: ceil(tq / BQ)
   long long sq_b, sq_h, sq_t;          // element strides (last dim is 1)
@@ -388,7 +393,11 @@ flash_attention_kernel(const Params p) {
   for (int r = 0; r < ROWS_W; ++r) {
     const float lr =
         fmaxf(__shfl_sync(0xffffffffu, l[r % RI], (r / RI) * 16), 1e-30f);
+    const float mr = __shfl_sync(0xffffffffu, m[r % RI], (r / RI) * 16);
     if (r0 + r >= p.tq) continue;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(static_cast<long long>(b) * p.hq + h) * p.tq + r0 + r] =
+          mr + logf(lr);
     T* orow = o + (r0 + r) * p.so_t;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -440,10 +449,11 @@ bool vector_ok(const Params& p) {
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  Strides are in
 // elements; each tensor's last dimension is contiguous.  window <= 0 means
-// no window.  Returns the launch's cudaError_t.
+// no window.  lse: null, or a contiguous fp32 (B, Hq, Tq) array for the
+// rows' log-sum-exp.  Returns the launch's cudaError_t.
 extern "C" int flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o,
-    int batch, int hq, int hkv, int tq, int tk, int d,
+    float* lse, int batch, int hq, int hkv, int tq, int tk, int d,
     long long sq_b, long long sq_h, long long sq_t,
     long long sk_b, long long sk_h, long long sk_t,
     long long sv_b, long long sv_h, long long sv_t,
@@ -452,7 +462,7 @@ extern "C" int flash_attention(
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || tq < 1 || tk < 1 ||
       d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, batch, hq, hkv, tq, tk, d, (tq + BQ - 1) / BQ,
+  Params p{q, k, v, o, lse, batch, hq, hkv, tq, tk, d, (tq + BQ - 1) / BQ,
            sq_b, sq_h, sq_t, sk_b, sk_h, sk_t, sv_b, sv_h, sv_t,
            so_b, so_h, so_t, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,14 +1,15 @@
-"""K4 ``flash_attention``: the hand-written CUDA flash attention, its
-binding and wrapper.
+"""K4 ``flash_attention`` and K4b ``flash_attention_bwd``: the hand-written
+CUDA flash attention and its gradient, their bindings and wrappers.
 
-Source ``csrc/flash_attention.cu`` (with its design note), built by the
-port's shared builder (``repro_torch.kernels._build``) at first use.  The
-wrapper takes the plain version (``ref.attention_ref``) for a CPU tensor
-and launches the kernel for a CUDA tensor -- or raises: there is no
-fallback.  It takes q, k, v with any strides but a contiguous last dim
-(the model hands it transposed views), pads nothing (the kernel masks
-ragged T and D), allocates a contiguous output and counts launches in
-:data:`launches`.
+Sources ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
+(each with its design note), built by the port's shared builder
+(``repro_torch.kernels._build``) at first use.  The wrappers take the plain
+versions (``ref.attention_fwd_ref``, ``ref.attention_bwd_ref``) for CPU
+tensors and launch the kernels for CUDA tensors -- or raise: there is no
+fallback.  They take q, k, v (and o, dO) with any strides but a contiguous
+last dim (the model hands them transposed views), pad nothing (the kernels
+mask ragged T and D), allocate contiguous outputs and count launches in
+:data:`launches` (K4b: one per call of its three kernels).
 """
 from __future__ import annotations
 
@@ -18,27 +19,27 @@ from pathlib import Path
 import torch
 
 from .._build import KernelFamily
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_fwd_ref
 
-__all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "flash_attention"]
+__all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "flash_attention",
+           "flash_attention_bwd"]
 
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 D_MAX = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
-    {"flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-     + [_L] * 12 + [_F, _I, _I, _P]})
+    {"flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+     + [_L] * 12 + [_F, _I, _I, _P],
+     "flash_attention_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15
+     + [_F, _I, _I, _P]})
 launches = FAMILY.launches
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """K4 on q (B, Hq, Tq, D), k / v (B, Hkv, Tk, D), D <= 256, fp32 or
-    bf16 alike, scores scaled by ``scale``."""
+def _check(q, k, v, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, k "
@@ -50,29 +51,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Hq % Hkv == 0, got Hq={hq} Hkv={hkv}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+
+
+def _check_cuda(q, **others) -> None:
+    """Raise unless the kernels take q and ``others`` (same device and
+    dtype, unit last stride)."""
     if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention runs on CUDA fp32/bf16 tensors, "
                          f"got {q.device} {q.dtype}")
-    for what, x in (("k", k), ("v", v)):
+    for what, x in others.items():
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(f"{what} is {x.device} {x.dtype}, expected "
                              f"{q.device} {q.dtype}")
-    for what, x in (("q", q), ("k", k), ("v", v)):
+    for what, x in (("q", q), *others.items()):
         if x.stride(3) != 1:
             raise ValueError(f"{what} needs unit stride in its last dim")
-    if d > D_MAX:
-        raise ValueError(f"flash_attention supports D <= {D_MAX}, got {d}")
+    if q.shape[3] > D_MAX:
+        raise ValueError(f"flash_attention supports D <= {D_MAX}, got "
+                         f"{q.shape[3]}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    window: int | None = None, with_lse: bool = False):
+    """K4 on q (B, Hq, Tq, D), k / v (B, Hkv, Tk, D), D <= 256, fp32 or
+    bf16 alike, scores scaled by ``scale``.  With ``with_lse`` returns
+    (out, lse), lse the rows' fp32 (B, Hq, Tq) log-sum-exp (K4b's input);
+    the output is the same bits either way."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        out, lse = attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+        return (out, lse) if with_lse else out
+    _check_cuda(q, k=k, v=v)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
     out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     fn = FAMILY.fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, hq, hkv, tq, tk, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk,
+                 d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], float(scale), int(causal),
                  0 if window is None else int(window), stream)
     FAMILY.launched("flash_attention", err)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        window: int | None = None) -> tuple:
+    """K4b: (dq, dk, dv) of K4 for the output gradient ``do``, from K4's
+    output ``o`` and ``lse`` (``flash_attention(..., with_lse=True)``);
+    dq, dk, dv contiguous, in the inputs' dtype."""
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window, scale=scale)
+    _check_cuda(q, k=k, v=v, o=o, do=do)
+    if lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous fp32 tensor on q's "
+                         "device")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    fn = FAMILY.fn("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, hq, hkv, tq, tk, d, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 *do.stride()[:3], float(scale), int(causal),
+                 0 if window is None else int(window), stream)
+    FAMILY.launched("flash_attention_bwd", err)
+    return dq, dk, dv

@@ -1,14 +1,18 @@
-"""K3 ``rmsnorm``: the hand-written CUDA RMSNorm, its binding and wrapper.
+"""K3 ``rmsnorm`` and K3b ``rmsnorm_bwd``: the hand-written CUDA RMSNorm and
+its gradient, their bindings and wrappers.
 
-Source ``csrc/rmsnorm.cu`` (with its design note), built by the port's
-shared builder (``repro_torch.kernels._build``) at first use.  One warp
-normalises one row: for d <= :data:`D_MAX` with 16-byte aligned rows it
+Sources ``csrc/rmsnorm.cu`` and ``csrc/rmsnorm_bwd.cu`` (each with its
+design note), built by the port's shared builder
+(``repro_torch.kernels._build``) at first use.  One warp normalises one
+row: for d <= :data:`D_MAX` with 16-byte aligned rows it
 keeps the row in registers and reads device memory once; :func:`variant`
 picks, from shape and alignment and before the launch, that variant or one
 of the two strided variants for longer or unaligned rows.  The wrapper
 takes the plain version (``ref.rmsnorm_ref``) for a CPU tensor and launches
 the kernel for a CUDA tensor -- or raises: there is no fallback.  Launches
 are counted in :data:`launches`, one per call whatever the variant.
+:func:`rmsnorm_rows_bwd` does the same for the gradient (K3b, one count
+per call of its three kernels; ``ref.rmsnorm_bwd_ref`` on the CPU).
 """
 from __future__ import annotations
 
@@ -18,12 +22,12 @@ from pathlib import Path
 import torch
 
 from .._build import KernelFamily
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 __all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "rmsnorm_rows",
-           "variant"]
+           "rmsnorm_rows_bwd", "variant"]
 
-SOURCES = {"rmsnorm": "rmsnorm.cu"}
+SOURCES = {"rmsnorm": "rmsnorm.cu", "rmsnorm_bwd": "rmsnorm_bwd.cu"}
 D_MAX = 2048           # the largest d whose row a warp keeps in registers
 VARIANTS = ("warp", "loop", "scalar")      # their codes in rmsnorm.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,7 +35,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
-    {"rmsnorm": [_I, _I, _I, _P, _L, _P, _P, _L, _I, _I, _F, _P]})
+    {"rmsnorm": [_I, _I, _I, _P, _L, _P, _P, _L, _I, _I, _F, _P],
+     "rmsnorm_bwd": [_I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                     _P]})
 launches = FAMILY.launches
 
 
@@ -53,15 +59,9 @@ def variant(x: torch.Tensor, scale: torch.Tensor) -> tuple:
     return "warp", -(-d // (32 * epv))
 
 
-def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
-    """K3 over the rows of ``x`` (rows, d) with ``scale`` (d,), fp32 or
-    bf16 alike; any row count, any row stride, unit inner stride."""
-    if x.dim() != 2 or scale.shape != (x.shape[1],) or min(x.shape) < 1:
-        raise ValueError(f"rmsnorm needs x (rows, d) and scale (d,), got "
-                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
+def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
+    """Raise unless K3 / K3b take ``x`` (rows, d) and ``scale`` (d,) on
+    CUDA."""
     if x.device.type != "cuda" or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"rmsnorm runs on CUDA fp32/bf16 tensors, got "
                          f"{x.device} {x.dtype}")
@@ -71,6 +71,22 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
                          f"{x.device}")
     if x.stride(1) != 1:
         raise ValueError("x needs unit stride in its last dimension")
+
+
+def _check_shapes(x: torch.Tensor, scale: torch.Tensor) -> None:
+    if x.dim() != 2 or scale.shape != (x.shape[1],) or min(x.shape) < 1:
+        raise ValueError(f"rmsnorm needs x (rows, d) and scale (d,), got "
+                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
+
+
+def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """K3 over the rows of ``x`` (rows, d) with ``scale`` (d,), fp32 or
+    bf16 alike; any row count, any row stride, unit inner stride."""
+    _check_shapes(x, scale)
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    _check(x, scale)
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     kind, nv = variant(x, scale)
@@ -83,3 +99,46 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
                  stream)
     FAMILY.launched("rmsnorm", err)
     return out
+
+
+def _bwd_chunks(rows: int, d: int, device: torch.device) -> int:
+    """Row chunks of K3b's partial ds pass: enough (column strip, chunk)
+    blocks to fill the card (~4 a streaming multiprocessor), at least 8
+    rows each."""
+    strips = -(-d // 32)
+    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-rows // 8), -(-blocks // strips), 65535))
+
+
+def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-6) -> tuple:
+    """K3b: the gradient of K3 over the rows of ``x`` (rows, d) for the
+    output gradient ``g`` (rows, d).  Returns (dx, dscale), dx contiguous
+    in x's dtype, dscale in scale's."""
+    _check_shapes(x, scale)
+    if g.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: g {tuple(g.shape)} is not x's "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, scale, g, eps)
+    _check(x, scale)
+    if g.device != x.device or g.dtype != x.dtype:
+        raise ValueError(f"g is {g.device} {g.dtype}, expected {x.device} "
+                         f"{x.dtype}")
+    if g.stride(1) != 1:
+        g = g.contiguous()
+    rows, d = x.shape
+    chunks = _bwd_chunks(rows, d, x.device)
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
+    rinv = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
+    fn = FAMILY.fn("rmsnorm_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0),
+                 g.data_ptr(), g.stride(0), scale.data_ptr(), dx.data_ptr(),
+                 rinv.data_ptr(), partial.data_ptr(), dscale.data_ptr(), rows,
+                 d, chunks, float(eps), stream)
+    FAMILY.launched("rmsnorm_bwd", err)
+    return dx, dscale

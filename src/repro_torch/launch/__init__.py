@@ -1,1 +1,1 @@
-"""Entry points of the port that a user runs (``serve``)."""
+"""Entry points of the port that a user runs (``serve``, ``train``)."""

@@ -4,9 +4,11 @@ package's ``models/layers.py`` in the same layout.
 
 Kernels: on a CUDA tensor ``rms_norm`` runs K3 (``kernels.rmsnorm``) and
 prefill attention with ``impl="flash"`` runs K4 (``kernels.flash_attention``);
-on a CPU tensor both take their plain versions.  ``impl="ref"`` runs the
-plain PyTorch versions throughout, on either device (the kernel-vs-plain
-check of a whole forward).  Decode attends over the cache with the plain
+on a CPU tensor both take their plain versions.  Under autograd both are
+``torch.autograd.Function``s whose backward is K3b / K4b on CUDA (the
+plain backward versions on the CPU).  ``impl="ref"`` runs the plain
+PyTorch versions throughout, on either device (the kernel-vs-plain check
+of a whole forward or training step).  Decode attends over the cache with the plain
 masked softmax, as the JAX package does.
 
 The window of a local layer is a Python int (the JAX package may trace it;

@@ -13,6 +13,9 @@ global ones full-length caches.
 
 Modes:
   * train:   full-sequence causal; returns (logits, aux)
+  * train_hidden: as train, but returns (x, head, aux), the final hidden
+             states and the head, for a chunked cross-entropy that never
+             holds the (B, S, V) logits
   * prefill: full-sequence causal + fills the KV caches; returns
              (last-position logits, caches, aux)
   * decode:  one token against the caches; returns (logits, caches)
@@ -20,13 +23,19 @@ Modes:
 Unlike the JAX package, prefill and decode write the caches IN PLACE (the
 returned caches are the tensors passed in): one full-width cache is then
 never copied per step.  ``impl`` "flash" runs the kernels (K3 RMSNorm, K4
-prefill attention) on CUDA; "ref" the plain versions throughout.
+prefill attention) on CUDA; "ref" the plain versions throughout.  In the
+train modes the kernels are autograd Functions (K3b and K4b backward).
+``remat`` recomputes each repetition of the layer pattern in the backward
+(``torch.utils.checkpoint``, non-reentrant), saving only its input, as the
+JAX package's ``jax.checkpoint(..., nothing_saveable)`` over its scan body;
+the remainder layers and the final norm are not recomputed, as there.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -34,7 +43,7 @@ from .layers import (IMPLS, attention_apply, dense_init, init_attention,
                      init_mlp, mlp_apply, rms_norm, rope, zeros)
 
 __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
-           "init_caches", "forward", "check_supported"]
+           "init_caches", "forward", "check_supported", "MODES"]
 
 Tree = Dict[str, Any]
 
@@ -224,18 +233,26 @@ def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
 # forward
 # ---------------------------------------------------------------------------
 
+MODES = ("train", "train_hidden", "prefill", "decode")
+TRAIN_MODES = ("train", "train_hidden")
+
+
 def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             mode: str = "train", caches: Optional[Tree] = None,
-            pos: Optional[int] = None, impl: str = "flash"):
+            pos: Optional[int] = None, impl: str = "flash",
+            remat: bool = False):
     """tokens (B, S) integer (S = 1 for decode, at absolute position
     ``pos``).  See the module docstring for what each mode returns."""
     check_supported(cfg)
-    if mode not in ("train", "prefill", "decode"):
-        raise ValueError(f"mode must be train, prefill or decode, got {mode}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if mode != "train" and caches is None:
+    training = mode in TRAIN_MODES
+    if not training and caches is None:
         raise ValueError(f"mode {mode!r} needs caches (init_caches)")
+    if remat and not training:
+        raise ValueError("remat applies to the train modes only")
     per = pattern_period(cfg)
     kinds = [layer_kind(cfg, j) for j in range(per)]
     n_blocks, n_rem = divmod(cfg.n_layers, per)
@@ -254,22 +271,33 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     else:
         cache_pos = None
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    kw = dict(positions=positions, cache_pos=cache_pos, mode=mode, impl=impl)
+    kw = dict(positions=positions, cache_pos=cache_pos,
+              mode="train" if training else mode, impl=impl)
 
-    for i in range(n_blocks):
+    def block(x_, i):
+        """Repetition i of the layer pattern."""
         for j in range(per):
             lp = _index(params["blocks"][f"pos{j}"], i)
-            cache = None if mode == "train" else \
+            cache = None if training else \
                 _index(caches["blocks"][f"pos{j}"], i)
-            x = _attn_mlp_layer(cfg, kinds[j], lp, x, cache=cache, **kw)
+            x_ = _attn_mlp_layer(cfg, kinds[j], lp, x_, cache=cache, **kw)
+        return x_
+
+    for i in range(n_blocks):
+        if remat:
+            x = checkpoint(block, x, i, use_reentrant=False)
+        else:
+            x = block(x, i)
     for j in range(n_rem):
-        cache = None if mode == "train" else caches["rem"][f"rem{j}"]
+        cache = None if training else caches["rem"][f"rem{j}"]
         x = _attn_mlp_layer(cfg, kinds[j], params["rem"][f"rem{j}"], x,
                             cache=cache, **kw)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, impl == "ref")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train_hidden":
+        return x, head, aux
     if mode == "train":
         return x @ head, aux
     # prefill / decode: only the last position's logits are needed

@@ -1,1 +1,3 @@
-"""Training substrate, ported (``repro.train``): the optimizer so far."""
+"""Training substrate, ported (``repro.train``): the optimizer and the LM
+training step.  ``collectives`` and ``pod_compress`` are not ported yet
+(ROADMAP Queue A item 13f)."""

@@ -1,8 +1,10 @@
 """AdamW, global-norm clipping and a warmup+cosine schedule as plain
 functions over tensors (torch port of ``repro.train.optimizer``).
 
-Parameters, gradients and moments are a dict (name -> tensor) or a
-list/tuple of tensors; every function returns the same kind it was given.
+Parameters, gradients and moments are trees: nested dicts, lists and
+tuples of tensors; every function returns the same kind it was given.
+Leaves are taken in ``jax.tree.flatten``'s order (dict keys sorted), so
+``global_norm`` sums them in the reference's order.
 This is deliberately not ``torch.optim.AdamW``: the reference clips by
 ``norm + 1e-12`` (``clip_grad_norm_`` adds 1e-6) and divides the moments
 by their bias corrections before the square root, so the same gradients
@@ -18,10 +20,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-Tree = Any   # dict of tensors, or list / tuple of tensors
+Tree = Any   # nested dicts / lists / tuples of tensors
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "warmup_cosine", "global_norm", "clip_by_global_norm"]
+           "warmup_cosine", "global_norm", "clip_by_global_norm",
+           "tree_leaves", "tree_like"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,24 +44,40 @@ class AdamWState(NamedTuple):
     nu: Tree             # second moment
 
 
-def _leaves(tree: Tree) -> list:
-    return list(tree.values()) if isinstance(tree, dict) else list(tree)
-
-
-def _like(tree: Tree, leaves: list) -> Tree:
+def tree_leaves(tree: Tree) -> list:
+    """The tensors of ``tree`` in ``jax.tree.flatten``'s order."""
     if isinstance(tree, dict):
-        return dict(zip(tree.keys(), leaves))
-    return type(tree)(leaves)
+        return [leaf for key in sorted(tree)
+                for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_like(tree: Tree, leaves: list) -> Tree:
+    """``tree``'s structure with its leaves replaced, in :func:`tree_leaves`'
+    order."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            new = {key: rebuild(node[key]) for key in sorted(node)}
+            return {key: new[key] for key in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(sub) for sub in node)
+        return next(it)
+
+    return rebuild(tree)
 
 
 def adamw_init(params: Tree, moment_dtype=torch.float32) -> AdamWState:
-    leaves = _leaves(params)
+    leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        mu=_like(params, [torch.zeros(p.shape, dtype=moment_dtype,
+        mu=tree_like(params, [torch.zeros(p.shape, dtype=moment_dtype,
                                       device=p.device) for p in leaves]),
-        nu=_like(params, [torch.zeros(p.shape, dtype=moment_dtype,
+        nu=tree_like(params, [torch.zeros(p.shape, dtype=moment_dtype,
                                       device=p.device) for p in leaves]))
 
 
@@ -66,7 +85,7 @@ def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of
     squares."""
     total = 0
-    for leaf in _leaves(tree):
+    for leaf in tree_leaves(tree):
         total = total + torch.sum(torch.square(leaf.float()))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
@@ -75,7 +94,8 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree,
                                                               torch.Tensor]:
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
-    return _like(tree, [g * scale.to(g.dtype) for g in _leaves(tree)]), norm
+    return tree_like(tree, [g * scale.to(g.dtype)
+                            for g in tree_leaves(tree)]), norm
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,
@@ -108,8 +128,8 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
     b2c = 1 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
 
     new_p, new_m, new_v = [], [], []
-    for g, m, v, p in zip(_leaves(grads), _leaves(state.mu),
-                          _leaves(state.nu), _leaves(params)):
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                          tree_leaves(state.nu), tree_leaves(params)):
         g32 = g.float()
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g32)
@@ -119,5 +139,6 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
         new_p.append((p.float() - lr * delta).to(p.dtype))
         new_m.append(m32.to(m.dtype))
         new_v.append(v32.to(v.dtype))
-    return (_like(params, new_p),
-            AdamWState(step, _like(grads, new_m), _like(grads, new_v)), gnorm)
+    return (tree_like(params, new_p),
+            AdamWState(step, tree_like(params, new_m),
+                       tree_like(params, new_v)), gnorm)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain twins on the card: the
-min-plus kernels K1/K2 bitwise, RMSNorm (K3) and flash attention (K4) within
-the tolerances stated at their tests.
+min-plus kernels K1/K2 bitwise, RMSNorm (K3) and flash attention (K4) and
+their gradients (K3b, K4b) within the tolerances stated at their tests.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false.  The file imports
@@ -17,11 +17,13 @@ from repro_torch.core.diameter import adjacency_from_rings
 from repro_torch.core.topology import make_latency
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.minplus import kernel, ops, ref
 from repro_torch.kernels.rmsnorm import kernel as rn_kernel
 from repro_torch.kernels.rmsnorm import ops as rn_ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -415,6 +417,141 @@ def test_flash_attention_kernel_takes_transposed_views(cuda):
     got = fa_ops.flash_attention(q, k, v, window=64)
     want = attention_ref(q, k, v, window=64)
     assert float((got - want).abs().max()) < 2e-5
+
+
+# --- K4 with L, K4b -----------------------------------------------------------
+
+def grad_close(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Gradients against their plain twin: fp32 within 5e-5 x max(1,
+    max |want|) (sums of up to Tq x D products taken in another order);
+    bf16 within one bf16 ulp of each value plus 1e-3 x max(1, max |want|)
+    (fp32 sums rounded to bf16 once, the last bits moved by the order)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs()
+    top = max(1.0, float(want.float().abs().max()))
+    if got.dtype == torch.float32:
+        ok = bool((err <= 5e-5 * top).all())
+    else:
+        ok = bool((err <= _bf16_ulp(want) + 1e-3 * top).all())
+    assert ok and bool(torch.isfinite(got.float()).all()), float(err.max())
+    return float(err.max())
+
+
+BWD_CASES = FLASH_CASES[:6] + [FLASH_RAGGED[i] for i in (2, 5, 8, 9, 11, 13)]
+
+
+def _attn_inputs(cuda, case, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)) \
+            .to(cuda, dtype)
+
+    return (rand(case["b"], case["hq"], case["tq"], case["d"]),
+            rand(case["b"], case["hkv"], case["tk"], case["d"]),
+            rand(case["b"], case["hkv"], case["tk"], case["d"]),
+            rand(case["b"], case["hq"], case["tq"], case["d"]))
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_leaves_the_output_bitwise(cuda, case, dtype):
+    """K4 with its L written gives the serving output bit for bit; L holds
+    to the plain version's within 1e-5 x max(1, |L|) (fp32) or 1e-2
+    (bf16 inputs), -1e30 on a fully masked row alike."""
+    q, k, v, _ = _attn_inputs(cuda, case, dtype, case["tq"] + case["d"])
+    kw = dict(scale=case["d"] ** -0.5, causal=case["causal"],
+              window=case["window"])
+    plain_out = fa_kernel.flash_attention(q, k, v, **kw)
+    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, plain_out)
+    _, want = attention_fwd_ref(q, k, v, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    assert bool(((lse - want).abs() <= tol * want.abs().clamp_min(1.0))
+                .all()), float((lse - want).abs().max())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
+    """K4b against ``attention_bwd_ref`` on the same q, k, v, K4's o and L,
+    and dO; two calls bitwise equal; a fully masked row's dq zero."""
+    q, k, v, do = _attn_inputs(cuda, case, dtype, 7 * case["tq"] + case["d"])
+    kw = dict(scale=case["d"] ** -0.5, causal=case["causal"],
+              window=case["window"])
+    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+    before = fa_kernel.launches["flash_attention_bwd"]
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert fa_kernel.launches["flash_attention_bwd"] == before + 1
+    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        grad_close(g, w)
+    again = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case["window"] and case["tq"] > case["tk"] + case["window"]:
+        assert not got[0][:, :, case["tk"] + case["window"]:].any()
+
+
+def test_flash_attention_function_grads_through_transposed_views(cuda):
+    """``ops.flash_attention`` under autograd, on the (B, T, H, D) views
+    the model hands it: K4 + K4b against autograd of the plain forward."""
+    torch.manual_seed(0)
+    base = [torch.randn(2, 300, h, 256, device=cuda, requires_grad=True)
+            for h in (4, 1, 1)]
+    do = torch.randn(2, 4, 300, 256, device=cuda)
+    before = dict(fa_kernel.launches)
+    out = fa_ops.flash_attention(*(x.transpose(1, 2) for x in base),
+                                 window=64)
+    got = torch.autograd.grad(out, base, do)
+    assert fa_kernel.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert fa_kernel.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = torch.autograd.grad(attention_ref(
+        *(x.transpose(1, 2) for x in base), window=64), base, do)
+    for g, w in zip(got, want):
+        grad_close(g, w)
+
+
+# --- K3b --------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,off", [(7, 1152, 0), (4096, 1152, 0),
+                                        (16384, 256, 0), (300, 256, 1),
+                                        (5, 8192, 0), (9, 3, 0),
+                                        (33, 1150, 0)])
+def test_rmsnorm_bwd_matches_plain(cuda, dtype, rows, d, off):
+    """K3b against ``rmsnorm_bwd_ref`` (dx and dscale, see
+    :func:`grad_close`), rows on and one element off a 16-byte boundary;
+    two calls bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows * d + off, device=cuda, generator=gen) * 2) \
+        .to(dtype)[off:].view(rows, d)
+    g = torch.randn(rows, d, device=cuda, generator=gen).to(dtype)
+    s = (torch.randn(d, device=cuda, generator=gen) * 0.1).to(dtype)
+    before = rn_kernel.launches["rmsnorm_bwd"]
+    got = rn_kernel.rmsnorm_rows_bwd(x, s, g)
+    assert rn_kernel.launches["rmsnorm_bwd"] == before + 1
+    for a, b in zip(got, rmsnorm_bwd_ref(x, s, g)):
+        grad_close(a, b)
+    again = rn_kernel.rmsnorm_rows_bwd(x, s, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rmsnorm_function_grads_match_autograd_of_plain(cuda):
+    """``ops.rmsnorm`` under autograd (K3 + K3b) on q-norm-shaped input
+    against autograd of the plain forward."""
+    torch.manual_seed(1)
+    x = torch.randn(4, 64, 4, 256, device=cuda, requires_grad=True)
+    s = (torch.randn(256, device=cuda) * 0.1).requires_grad_()
+    g = torch.randn(4, 64, 4, 256, device=cuda)
+    got = torch.autograd.grad(rn_ops.rmsnorm(x, s, 1e-6), (x, s), g)
+    want = torch.autograd.grad(rmsnorm_ref(x, s, 1e-6), (x, s), g)
+    for a, b in zip(got, want):
+        grad_close(a, b)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -35,7 +35,9 @@ def test_import_leaves_jax_out():
             "repro_torch.membership.gossip, "
             "repro_torch.membership.elastic, repro_torch.dynamics, "
             "repro_torch.routing, repro_torch.hier, repro_torch.service, "
-            "repro_torch.service.client; "
+            "repro_torch.service.client, repro_torch.train.train_step, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.checkpoint, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -76,7 +78,9 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "service/__init__.py", "service/__main__.py",
                 "service/client.py", "service/reoptimizer.py",
                 "service/server.py", "service/snapshots.py",
-                "service/state.py"):
+                "service/state.py", "train/train_step.py",
+                "data/pipeline.py", "checkpoint/checkpoint.py",
+                "launch/train.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
