@@ -1,8 +1,8 @@
-// K4b `flash_attention_bwd`: the gradient of K4's online-softmax attention,
-// fp32 math, for q / dq (B, Hq, Tq, D), k / v / dk / dv (B, Hkv, Tk, D),
-// D <= 256, fp32 or bf16 storage, with K4's masks letter for letter: causal
+// K4b `flash_attention_bwd`: the gradient of K4's online-softmax attention
+// for q / dq (B, Hq, Tq, D), k / v / dk / dv (B, Hkv, Tk, D), D <= 256, fp32
+// or bf16 storage, with K4's masks letter for letter: causal
 // (kpos <= qpos), sliding window (qpos - kpos < window), keys at or past the
-// true Tk, and GQA (query head h reads KV head h * Hkv / Hq).
+// true Tk, and GQA (query head h reads KV head h * Hkv / Hq in place).
 //
 // The JAX package has no Pallas kernel for this: its training path takes
 // the gradient of the plain jnp attention (models/layers.py
@@ -17,36 +17,84 @@
 //   dQ = scale * dS K      dK = scale * dS^T Q
 //
 // What bounds it on an H100: operations.  Per live (query, key) pair it does
-// 7 D fp32 FMAs (S and dP twice, once in each of the two main kernels, and
-// dV, dK, dQ once), 3.5x K4's 2 D, on the CUDA cores; the bytes it moves
-// are a few times K4's.  This first version keeps fp32 on the CUDA cores as
-// K4 does; tensor cores are for a later version.
+// 7 D multiply-adds: S and dP twice (once for dK / dV, once for dQ), dV,
+// dK and dQ once.  On the CUDA cores (67 TFLOP/s fp32) that is ~6x the
+// bytes' time at the training shape.  So every product runs on the tensor
+// cores, as `mma.sync.m16n8k8` TF32 with the 3xTF32 split: each fp32
+// operand x is cut into hi = x with its low 13 bits cleared (a TF32 value)
+// and lo = x - hi (exact in fp32; the tensor core reads its top 19 bits),
+// and a product is hi*hi + lo*hi + hi*lo in fp32 (lo*lo, ~2^-20 of the
+// product, is dropped).  That keeps each product within ~2^-20 relative
+// of fp32's, where one TF32 product would keep ~2^-11: the 3xTF32 sum
+// holds fp32's tolerance (5e-5 x max |grad|), one TF32 product would not.
+// bf16 inputs widen exactly into TF32, so their lo parts are 0 and those
+// products are skipped (S and dP take one product, dV / dK / dQ two: P
+// and dS are fp32 values and keep their split).  The tensor core does not
+// round its accumulator to nearest: a sum kept in one accumulator drifts
+// toward zero by ~2^-23 of the sum a product, ~1e-5 over dV's 512 k steps
+// (4 heads x 1024 rows), which a model's gradient norm shows.  So no
+// accumulator runs longer than 12 products: each 32 columns of S and dP,
+// and each 16-row step of dV, dK and dQ, start from zero and are added to
+// the fp32 total by an fp32 add (a lean of ~1e-6 is left).
 //
-// Design: three kernels on the caller's stream, one call.
-//   * delta: one warp per query row, rowsum(dO * O) in fp32.
-//   * dK / dV: one block of 8 warps per (KV tile of BKV = 32 keys, KV head,
-//     batch).  K and V of the tile are staged once; the block walks every
-//     query head of its GQA group and, for each, the live query tiles of
-//     BQ = 64 rows (tiles wholly outside the mask are skipped, as in K4), so
-//     dK and dV are summed in registers without atomics.  Per query tile:
-//     Q and dO are staged; warp w computes S and dP for rows 8 w .. 8 w + 7
-//     (lane (rg, kg) = (lane / 8, lane % 8) a 2 x 4 micro-tile: rows
-//     2 rg + i, keys kg + 8 j) and writes P and dS to shared memory; after a
-//     barrier warp w accumulates dV and dK for keys 4 w .. 4 w + 3 over the
-//     tile's rows, lane l columns 4 l + 128 j.  Blocks are dispatched in
-//     index order, the first KV tiles (the heaviest under a causal mask)
-//     first.
-//   * dQ: one block per (query tile of BQ = 64 rows, query head, batch),
-//     heaviest tiles first as in K4.  Q and dO are staged once; the block
-//     walks the live KV tiles of BKV = 32 keys: S and dP as above, dS to
-//     shared memory, then warp w accumulates dQ for rows 8 w .. 8 w + 7.
-// Every sum runs in a fixed order, so two calls on the same inputs give
-// bitwise-equal dQ, dK and dV.  Shared memory: K and V tiles, Q and dO
-// tiles, P and dS, L and delta, in fp32: 218,624 B at D <= 256 (one block an
-// SM), above the 48 KB default, hence cudaFuncSetAttribute on every launch.
-// Ragged Tq, Tk and D are masked in the kernels (zeros staged past them, no
-// row past Tq or Tk written).  bf16 is widened to fp32 on load and dQ, dK,
-// dV are rounded to bf16 on store; L and delta stay fp32.
+// Design: three kernels on the caller's stream, one call, no atomics.
+//   * delta: one warp per query row, rowsum(dO * O) in fp32 (4-wide loads
+//     where D, strides and pointers allow).
+//   * main: one launch of two kinds of block, interleaved heavy-first in
+//     block order so that the light blocks of both fill the wave's tail.
+//     Both kinds keep a resident tile of 64 rows of two operands in shared
+//     memory and stream 16-row tiles of the other two through a ring of
+//     two stages filled by 16-byte cp.async (zero fill past T and D):
+//       dK / dV block, per (64-key tile, query head, batch): K and V stay,
+//         Q and dO stream over the tile's live query rows;
+//       dQ block, per (64-row query tile, query head, batch): Q, dO, L and
+//         delta stay, K and V stream over the tile's live keys.
+//     8 warps in 4 pairs; pair p owns 16 of the 64 resident rows.  Warp A
+//     of a pair computes the scores (S^T for dK / dV, S for dQ) and P;
+//     warp B computes dP and, from A's P, dS.  P (and for dQ, dS back)
+//     goes between the two through a 1 KB slot of shared memory in the
+//     fragment's own register order, behind a 64-thread named barrier.
+//     The score fragment (C layout: rows g, g + 8, columns 2t, 2t + 1 of
+//     each 8-column block) is the next product's A operand as it stands:
+//     its k index t is taken to be column 2t and t + 4 column 2t + 1, and
+//     the B operand is read from shared memory in the same order.  So:
+//       dK / dV: A: S^T, P^T, dV += P^T dO (16 x D in registers);
+//                B: dP^T, dS^T, dK += dS^T Q.  2 D products each a pair.
+//       dQ:      A: S, P, then dQ[:, :D/2] += dS K;
+//                B: dP, dS, then dQ[:, D/2:] += dS K.  1.5 D each.
+//     A and B run one copy of the products' code on selected operands, and
+//     the fully unrolled k loops run over all of D_MAX (zeros past D) with
+//     no branch: the hot code of a block then fits the instruction cache,
+//     and the compiler can schedule the loads of one step under the
+//     products of the one before.  A pair whose 16 rows see no live entry
+//     of a streamed tile skips it.
+//     The dK / dV block of query head h writes its fp32 partial dK and dV
+//     (B, Hq, Tk, D) when Hq > Hkv; with Hq == Hkv it writes dK and dV.
+//   * reduce (Hq > Hkv only): one thread per 4 elements of dK and dV (per
+//     element when D % 4 != 0) adds the group's heads' partials in head
+//     order.
+// Every sum runs in a fixed order (k steps, tiles, heads), with no
+// atomics, so two calls on the same inputs give bitwise-equal dQ, dK, dV.
+// At the training shape (4, 4, 1024, 256), Hkv 1, causal, the grid is 256
+// dK / dV and 256 dQ blocks of 4 to 64 streamed tiles each, one block an
+// SM, heaviest first: the heaviest is ~1.9x the mean, and the light ones
+// of both kinds fill the tail (with a launch per kind, the local layer's
+// blocks of at most 36 tiles would run in two uneven waves).
+//
+// Shared memory, fp32, row stride D_MAX with no pad: the column of a row r
+// is XORed with ((r & 6) << 2) | ((r & 1) << 2), which keeps 16-byte chunks
+// whole and makes both read patterns conflict-free: ldmatrix rows (8 rows,
+// one 16-byte chunk each) and the transposed B loads (row 2t or 2t + 1,
+// column g).  At D_MAX = 256: two resident 64-row tiles (128 KB), two
+// stages of two 16-row tiles (64 KB), two 4 x 1 KB exchange slots, 64 L and
+// 64 delta: 205,568 B of the 232,448 an H100 block may take; one block of
+// 256 threads per SM (up to 255 registers a thread: a warp's 16 x 256
+// accumulator is 128 of them).  At D_MAX = 128: 102,784 B.  Ragged Tq, Tk
+// and D are masked in the kernel (zeros staged past them, no row past Tq or
+// Tk written).  bf16 is widened to fp32 on load (plain loads, not
+// cp.async) and dQ, dK, dV are rounded to bf16 once on store; L, delta and
+// the partials stay fp32.  When D, a stride or a pointer is not a multiple
+// of 4 elements, the staging loads element by element.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,15 +102,16 @@
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per tile
-constexpr int BKV = 32;                // keys per tile
-constexpr int WARPS = 8;
+constexpr int BR = 64;                 // resident rows per block
+constexpr int BS = 16;                 // streamed rows per step
+constexpr int PAIRS = 4;
+constexpr int WARPS = 2 * PAIRS;       // 8
 constexpr int THREADS = 32 * WARPS;    // 256
-constexpr int ROWS_W = BQ / WARPS;     // 8 query rows per warp
-constexpr int KEYS_W = BKV / WARPS;    // 4 keys per warp (dK / dV)
-constexpr int LDS = BKV + 4;           // row stride of the P and dS tiles
+constexpr int XF = 256;                // floats of one pair's exchange slot
 
-enum Mode { VEC = 0, SCALAR = 1 };
+// How tiles reach shared memory: cp.async (fp32, 16-byte aligned rows),
+// 4-wide plain loads (bf16, aligned) or element by element.
+enum Mode { ASYNC = 0, VEC = 1, SCALAR = 2 };
 
 struct Params {
   const void* q;
@@ -75,7 +124,10 @@ struct Params {
   void* dq;                            // (B, Hq, Tq, D), contiguous
   void* dk;                            // (B, Hkv, Tk, D), contiguous
   void* dv;
+  float* part_k;                       // (B, Hq, Tk, D) fp32 when Hq > Hkv
+  float* part_v;                       //   (else null)
   int batch, hq, hkv, tq, tk, d;
+  int ntq, ntk;                        // 64-row tiles of Tq and of Tk
   long long sq_b, sq_h, sq_t;          // element strides (last dim is 1)
   long long sk_b, sk_h, sk_t;
   long long sv_b, sv_h, sv_t;
@@ -88,8 +140,9 @@ struct Params {
 
 template <int DMAX>
 constexpr int smem_floats() {
-  return (2 * BKV + 2 * BQ) * (DMAX + 4) + 2 * BQ * LDS + 2 * BQ;
+  return (2 * BR + 4 * BS) * DMAX + 2 * PAIRS * XF + 2 * BR;
 }
+// an H100 block may take at most 232,448 bytes of shared memory
 static_assert(smem_floats<256>() * 4 <= 232448,
               "K4b's shared memory at D = 256 exceeds an H100 block's");
 
@@ -114,11 +167,62 @@ __device__ __forceinline__ float4 load4_aligned(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// The two warps of pair p (warps p and p + PAIRS) meet; barrier 0 is
+// __syncthreads.
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(pair + 1), "r"(64) : "memory");
+}
+
+// The swizzle of row r: XORed into bits 2..4 of the column.
+__device__ __forceinline__ int swz(int r) {
+  return ((r & 6) << 2) | ((r & 1) << 2);
+}
+
+// Four 8 x 4 fp32 blocks (8 x 8 b16 to ldmatrix) into one register each:
+// lane l gets row l / 4, word l % 4 of block j in r[j]; lanes 8 j .. 8 j + 7
+// give block j's row addresses.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col), TF32 in,
+// fp32 accumulate.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x with its low 13 bits cleared (TF32), lo the rest.
+__device__ __forceinline__ void split(unsigned x, unsigned& hi,
+                                      unsigned& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
 }
 
 // K4's predicates, plus the row bound (rows past Tq are staged as zeros).
@@ -138,120 +242,226 @@ __device__ __forceinline__ bool any_live(const Params& p, int q_lo, int nq,
   return any;
 }
 
-// Rows [lo, lo + ROWS) of a (T, D) head into shared memory with row stride
-// DMAX + 4, zeros past t and past d.  All of a thread's loads are issued
-// before its first store.
+// Rows [lo, lo + ROWS) of a (T, D) head into a swizzled ROWS x DMAX tile,
+// zeros past t and past d.  The plain-load modes issue all of a thread's
+// loads before its first store.
 template <typename T, int DMAX, int ROWS, int MODE>
 __device__ __forceinline__ void stage(float* dst, const T* src, long long st,
                                       int lo, int t, int d) {
-  constexpr int ld = DMAX + 4;
   constexpr int C4 = DMAX / 4;
   constexpr int PER = ROWS * C4 / THREADS;
   static_assert(ROWS * C4 % THREADS == 0, "stage: uneven split");
-  float4 buf[PER];
+  if constexpr (MODE == ASYNC) {
+    static_assert(sizeof(T) == 4, "cp.async stages fp32 only");
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = threadIdx.x + u * THREADS;
-    const int r = i / C4, c = (i - r * C4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (lo + r < t && c < d) {
-      const T* row = src + (lo + r) * st;
-      if (MODE == VEC) {
-        x = load4_aligned(row + c);
-      } else {
-        x.x = load_f(row + c);
-        if (c + 1 < d) x.y = load_f(row + c + 1);
-        if (c + 2 < d) x.z = load_f(row + c + 2);
-        if (c + 3 < d) x.w = load_f(row + c + 3);
-      }
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int r = i / C4, c = (i - r * C4) * 4;
+      const bool in = lo + r < t && c < d;
+      cp_async16(dst + r * DMAX + (c ^ swz(r)),
+                 in ? src + (lo + r) * st + c : src, in ? 16 : 0);
     }
-    buf[u] = x;
-  }
+  } else {
+    float4 buf[PER];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = threadIdx.x + u * THREADS;
-    const int r = i / C4, c = (i - r * C4) * 4;
-    *reinterpret_cast<float4*>(dst + r * ld + c) = buf[u];
-  }
-}
-
-// L and delta of rows [lo, lo + BQ) (zeros past Tq).
-__device__ __forceinline__ void stage_rows(float* sL, float* sD,
-                                           const float* lse,
-                                           const float* delta, int lo,
-                                           int tq) {
-  if (threadIdx.x < BQ) {
-    const int r = lo + threadIdx.x;
-    sL[threadIdx.x] = r < tq ? lse[r] : 0.f;
-    sD[threadIdx.x] = r < tq ? delta[r] : 0.f;
-  }
-}
-
-// P and dS of a BQ x BKV tile into shared memory: warp w, rows
-// 8 w .. 8 w + 7; lane (rg, kg) rows 2 rg + i, keys kg + 8 j.  Masked
-// entries (and every entry of a warp whose rows see no key of the tile) are
-// zero.  sP may be null (dQ needs dS only).
-template <int DMAX>
-__device__ __forceinline__ void scores_and_ds(
-    const Params& p, const float* sQ, const float* sG, const float* sK,
-    const float* sV, const float* sL, const float* sD, float* sP, float* sS,
-    int q_lo, int k_lo) {
-  constexpr int ld = DMAX + 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = lane >> 3, kg = lane & 7;
-  const int wr = warp * ROWS_W;                 // the warp's first row
-  const int nc4 = (p.d + 3) / 4;
-  float s[2][4], dp[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  if (any_live(p, q_lo + wr, ROWS_W, k_lo, BKV)) {   // warp-uniform
-    const float* qrow = sQ + (wr + 2 * rg) * ld;
-    const float* grow = sG + (wr + 2 * rg) * ld;
-    const float* krow = sK + kg * ld;
-    const float* vrow = sV + kg * ld;
-#pragma unroll 2
-    for (int c4 = 0; c4 < nc4; ++c4) {
-      float4 qa[2], ga[2], kb[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        qa[i] = *reinterpret_cast<const float4*>(qrow + i * ld + 4 * c4);
-        ga[i] = *reinterpret_cast<const float4*>(grow + i * ld + 4 * c4);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = *reinterpret_cast<const float4*>(krow + 8 * j * ld + 4 * c4);
-        vb[j] = *reinterpret_cast<const float4*>(vrow + 8 * j * ld + 4 * c4);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(qa[i], kb[j], s[i][j]);
-          dp[i][j] = dot4(ga[i], vb[j], dp[i][j]);
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int r = i / C4, c = (i - r * C4) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (lo + r < t && c < d) {
+        const T* row = src + (lo + r) * st;
+        if (MODE == VEC) {
+          x = load4_aligned(row + c);
+        } else {
+          x.x = load_f(row + c);
+          if (c + 1 < d) x.y = load_f(row + c + 1);
+          if (c + 2 < d) x.z = load_f(row + c + 2);
+          if (c + 3 < d) x.w = load_f(row + c + 3);
         }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = wr + 2 * rg + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = kg + 8 * j;
-      float pv = 0.f, ds = 0.f;
-      if (live(p, q_lo + r, k_lo + key)) {
-        pv = expf(s[i][j] * p.scale - sL[r]);
-        ds = pv * (dp[i][j] - sD[r]);
       }
-      if (sP != nullptr) sP[r * LDS + key] = pv;
-      sS[r * LDS + key] = ds;
+      buf[u] = x;
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int r = i / C4, c = (i - r * C4) * 4;
+      *reinterpret_cast<float4*>(dst + r * DMAX + (c ^ swz(r))) = buf[u];
     }
   }
 }
 
-// delta = rowsum(dO * O), one warp per row of the (B * Hq * Tq) rows.
-template <typename T>
+// n fp32 values [lo, lo + n) of a length-t row (zeros past t).
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int lo, int n, int t) {
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const bool in = lo + i < t;
+    cp_async4(dst + i, in ? src + lo + i : src, in ? 4 : 0);
+  }
+}
+
+// c (16 x 16) = rows [xr, xr + 16) of tile X times rows [0, 16) of tile Y,
+// transposed, over all DMAX columns (zeros past d): c[nb] is the C fragment
+// of columns 8 nb .. 8 nb + 7 (lane (g, t) = (lane / 4, lane % 4): rows g
+// and g + 8, columns 2 t and 2 t + 1).  The tensor core adds into its
+// accumulator without rounding to nearest, so a long chain of products in
+// one accumulator drifts toward zero (~2^-23 of the sum a product): the
+// products of each 32 columns start from zero and their sum is added to
+// the total by an fp32 add.
+template <int DMAX, bool SPLIT>
+__device__ __forceinline__ void scores16(float (&c)[2][4], const float* X,
+                                         int xr, const float* Y, int lane) {
+  const int j = lane >> 3, r = lane & 7;
+  const int ra = xr + r + 8 * (j & 1);      // A: rows 0-7 / 8-15, k 0-3 / 4-7
+  const int rb = r + 8 * (j >> 1);          // B: n 0-7 / 8-15, k 0-3 / 4-7
+  const float* pa = X + ra * DMAX;
+  const float* pb = Y + rb * DMAX;
+  int oa[4], ob[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    oa[m] = (8 * m + 4 * (j >> 1)) ^ swz(ra);
+    ob[m] = (8 * m + 4 * (j & 1)) ^ swz(rb);
+  }
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
+#pragma unroll
+  for (int k32 = 0; k32 < DMAX / 32; ++k32) {
+    float part[2][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      unsigned a[4], b[4];
+      ldsm4(a, pa + 32 * k32 + oa[m]);
+      ldsm4(b, pb + 32 * k32 + ob[m]);
+      if constexpr (SPLIT) {
+        unsigned ah[4], al[4], bh[4], bl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split(a[i], ah[i], al[i]);
+          split(b[i], bh[i], bl[i]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          mma(part[nb], al, bh[2 * nb], bh[2 * nb + 1]);
+          mma(part[nb], ah, bl[2 * nb], bl[2 * nb + 1]);
+          mma(part[nb], ah, bh[2 * nb], bh[2 * nb + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          mma(part[nb], a, b[2 * nb], b[2 * nb + 1]);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nb][e] += part[nb][e];
+  }
+}
+
+// acc[n] += a (16 x 16, the C fragments of scores16) times rows [0, 16) of
+// tile Y, columns 8 (nb0 + n) .. + 7.  The A fragment's k index t is column
+// 2 t of a and t + 4 column 2 t + 1, so B's row of k index t is 2 t and of
+// t + 4 is 2 t + 1.  a is fp32 (split); Y's values are split when SPLIT_Y.
+// Each column block's products of the 16 rows start from zero and are
+// added to acc by an fp32 add (see scores16): acc sums every streamed tile
+// of the block, up to 4 heads x Tq rows.
+template <int DMAX, int NB, bool SPLIT_Y>
+__device__ __forceinline__ void accum16(float (&acc)[NB][4],
+                                        const float (&a)[2][4],
+                                        const float* Y, int nb0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  unsigned ah[2][4], al[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    split(__float_as_uint(a[ks][0]), ah[ks][0], al[ks][0]);
+    split(__float_as_uint(a[ks][2]), ah[ks][1], al[ks][1]);
+    split(__float_as_uint(a[ks][1]), ah[ks][2], al[ks][2]);
+    split(__float_as_uint(a[ks][3]), ah[ks][3], al[ks][3]);
+  }
+  // B's rows 8 ks + 2 t and 8 ks + 2 t + 1: the swizzle of a row depends
+  // on its index mod 8 only, so both k steps share the column offsets
+  const float* y0 = Y + 2 * t * DMAX;
+  const float* y1 = y0 + DMAX;
+  int o0[4], o1[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    o0[m] = (8 * m + g) ^ swz(2 * t);
+    o1[m] = (8 * m + g) ^ swz(2 * t + 1);
+  }
+  // nb0 is a multiple of 4: column block nb0 + n reads o0 / o1[n & 3]
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int col = 32 * ((nb0 + n) >> 2);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int row = 8 * ks * DMAX + col;
+      const unsigned b0 = __float_as_uint(y0[row + o0[n & 3]]);
+      const unsigned b1 = __float_as_uint(y1[row + o1[n & 3]]);
+      if constexpr (SPLIT_Y) {
+        unsigned b0h, b0l, b1h, b1l;
+        split(b0, b0h, b0l);
+        split(b1, b1h, b1l);
+        mma(part, al[ks], b0h, b1h);
+        mma(part, ah[ks], b0l, b1l);
+        mma(part, ah[ks], b0h, b1h);
+      } else {
+        mma(part, al[ks], b0, b1);
+        mma(part, ah[ks], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// A pair's exchange slot: lane l's 8 values as two float4, conflict-free.
+__device__ __forceinline__ void put8(float* slot, const float (&c)[2][4],
+                                     int lane) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+    *reinterpret_cast<float4*>(slot + (nb * 32 + lane) * 4) =
+        make_float4(c[nb][0], c[nb][1], c[nb][2], c[nb][3]);
+}
+__device__ __forceinline__ void get8(float (&c)[2][4], const float* slot,
+                                     int lane) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(slot + (nb * 32 + lane) * 4);
+    c[nb][0] = x.x;
+    c[nb][1] = x.y;
+    c[nb][2] = x.z;
+    c[nb][3] = x.w;
+  }
+}
+
+template <int DMAX>
+struct Smem {
+  float *r1, *r2, *ring, *xp, *xs, *rowl, *rowd;
+  __device__ explicit Smem(float* base) {
+    r1 = base;                           // resident 64 x DMAX
+    r2 = r1 + BR * DMAX;
+    ring = r2 + BR * DMAX;               // streamed 16 x DMAX, 2 x 2 stages
+    xp = ring + 4 * BS * DMAX;           // P, a slot per pair
+    xs = xp + PAIRS * XF;                // dS (dQ blocks)
+    rowl = xs + PAIRS * XF;              // L: 64 resident or 2 x 16 rows
+    rowd = rowl + BR;                    // delta, alike
+  }
+  // the two streamed tiles of stage buf
+  __device__ float* s1(int buf) const { return ring + buf * 2 * BS * DMAX; }
+  __device__ float* s2(int buf) const { return s1(buf) + BS * DMAX; }
+};
+
+// delta = rowsum(dO * O), one warp per row of the (B * Hq * Tq) rows: 4-wide
+// loads when VEC (D, the strides of O and dO and their pointers multiples
+// of 4 elements), else element by element.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 delta_kernel(const Params p) {
   const long long row =
@@ -267,260 +477,392 @@ delta_kernel(const Params p) {
   const T* g = static_cast<const T*>(p.dout) + b * p.sg_b + h * p.sg_h +
                t * p.sg_t;
   float acc = 0.f;
-  for (int c = lane; c < p.d; c += 32)
-    acc = fmaf(load_f(g + c), load_f(o + c), acc);
+  if constexpr (VEC) {
+    for (int c = 4 * lane; c < p.d; c += 128) {
+      const float4 x = load4_aligned(g + c), y = load4_aligned(o + c);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+      acc = fmaf(x.z, y.z, acc);
+      acc = fmaf(x.w, y.w, acc);
+    }
+  } else {
+    for (int c = lane; c < p.d; c += 32)
+      acc = fmaf(load_f(g + c), load_f(o + c), acc);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[row] = acc;
 }
 
-template <int DMAX>
-struct Smem {
-  float *sK, *sV, *sQ, *sG, *sP, *sS, *sL, *sD;
-  __device__ explicit Smem(float* base) {
-    constexpr int ld = DMAX + 4;
-    sK = base;
-    sV = sK + BKV * ld;
-    sQ = sV + BKV * ld;
-    sG = sQ + BQ * ld;
-    sP = sG + BQ * ld;
-    sS = sP + BQ * LDS;
-    sL = sS + BQ * LDS;
-    sD = sL + BQ;
-  }
-};
-
+// dK and dV of keys [64 tile, 64 tile + 64) from query head h of batch b.
 template <typename T, int DMAX, int MODE>
-__global__ void __launch_bounds__(THREADS, 1)
-dkdv_kernel(const Params p) {
-  constexpr int ld = DMAX + 4;
-  constexpr int NJ = DMAX / 128;                // 4-wide column strips
-  extern __shared__ float4 smem4[];
-  const Smem<DMAX> sm(reinterpret_cast<float*>(smem4));
+__device__ __forceinline__ void dkdv_block(const Params& p,
+                                           const Smem<DMAX>& sm, int tile,
+                                           int h, int b) {
+  constexpr bool SPLIT = sizeof(T) == 4;
+  constexpr int NB = DMAX / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  const int heads = p.hkv * p.batch;
-  const int k_lo = static_cast<int>(blockIdx.x / heads) * BKV;
-  const int hk = static_cast<int>(blockIdx.x % heads) % p.hkv;
-  const int b = static_cast<int>(blockIdx.x % heads) / p.hkv;
-  const int group = p.hq / p.hkv;
+  const int pair = warp % PAIRS;
+  const bool is_a = warp < PAIRS;
+  const int g = lane >> 2, t = lane & 3;
+  const int k_lo = tile * BR;
+  const int kw = 16 * pair;                     // the pair's keys in the tile
+  const int hk = static_cast<int>(static_cast<long long>(h) * p.hkv / p.hq);
   const T* k = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
   const T* v = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
+  const T* q = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
+  const T* gq = static_cast<const T*>(p.dout) + b * p.sg_b + h * p.sg_h;
+  const long long rbase = (static_cast<long long>(b) * p.hq + h) * p.tq;
 
-  // the live query rows of this KV tile: [q_start, q_end)
-  int q_start = 0, q_end = p.tq;
-  if (p.causal) q_start = k_lo;
-  if (p.window > 0) q_end = min(q_end, k_lo + BKV - 1 + p.window);
-  q_start = (q_start / BQ) * BQ;
+  // the live query rows of this key tile: [q_start, q_end)
+  int q_start = p.causal ? k_lo : 0, q_end = p.tq;
+  if (p.window > 0) q_end = min(q_end, k_lo + BR - 1 + p.window);
+  q_start = (q_start / BS) * BS;
+  const int nsteps = q_end > q_start ? (q_end - q_start + BS - 1) / BS : 0;
 
-  stage<T, DMAX, BKV, MODE>(sm.sK, k, p.sk_t, k_lo, p.tk, p.d);
-  stage<T, DMAX, BKV, MODE>(sm.sV, v, p.sv_t, k_lo, p.tk, p.d);
-
-  // acc*[kk][j][e]: key k_lo + 4 warp + kk, column 4 lane + 128 j + e
-  float accK[KEYS_W][NJ][4], accV[KEYS_W][NJ][4];
-#pragma unroll
-  for (int kk = 0; kk < KEYS_W; ++kk)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) accK[kk][j][e] = accV[kk][j][e] = 0.f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;              // h * Hkv / Hq == hk
-    const T* q = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
-    const T* g = static_cast<const T*>(p.dout) + b * p.sg_b + h * p.sg_h;
-    const long long rbase = (static_cast<long long>(b) * p.hq + h) * p.tq;
-    for (int q_lo = q_start; q_lo < q_end; q_lo += BQ) {
-      if (!any_live(p, q_lo, BQ, k_lo, BKV)) continue;   // block-uniform
-      stage<T, DMAX, BQ, MODE>(sm.sQ, q, p.sq_t, q_lo, p.tq, p.d);
-      stage<T, DMAX, BQ, MODE>(sm.sG, g, p.sg_t, q_lo, p.tq, p.d);
-      stage_rows(sm.sL, sm.sD, p.lse + rbase, p.delta + rbase, q_lo, p.tq);
-      __syncthreads();
-      scores_and_ds<DMAX>(p, sm.sQ, sm.sG, sm.sK, sm.sV, sm.sL, sm.sD, sm.sP,
-                          sm.sS, q_lo, k_lo);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's rows
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        const float4 pp =
-            *reinterpret_cast<const float4*>(sm.sP + r * LDS + 4 * warp);
-        const float4 dd =
-            *reinterpret_cast<const float4*>(sm.sS + r * LDS + 4 * warp);
-        const float pk[4] = {pp.x, pp.y, pp.z, pp.w};
-        const float dk[4] = {dd.x, dd.y, dd.z, dd.w};
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float4 g4 = *reinterpret_cast<const float4*>(
-              sm.sG + r * ld + 4 * lane + 128 * j);
-          const float4 q4 = *reinterpret_cast<const float4*>(
-              sm.sQ + r * ld + 4 * lane + 128 * j);
-#pragma unroll
-          for (int kk = 0; kk < KEYS_W; ++kk) {
-            accV[kk][j][0] = fmaf(pk[kk], g4.x, accV[kk][j][0]);
-            accV[kk][j][1] = fmaf(pk[kk], g4.y, accV[kk][j][1]);
-            accV[kk][j][2] = fmaf(pk[kk], g4.z, accV[kk][j][2]);
-            accV[kk][j][3] = fmaf(pk[kk], g4.w, accV[kk][j][3]);
-            accK[kk][j][0] = fmaf(dk[kk], q4.x, accK[kk][j][0]);
-            accK[kk][j][1] = fmaf(dk[kk], q4.y, accK[kk][j][1]);
-            accK[kk][j][2] = fmaf(dk[kk], q4.z, accK[kk][j][2]);
-            accK[kk][j][3] = fmaf(dk[kk], q4.w, accK[kk][j][3]);
-          }
-        }
-      }
-      __syncthreads();                          // before the next staging
-    }
+  if (nsteps > 0) {
+    stage<T, DMAX, BR, MODE>(sm.r1, k, p.sk_t, k_lo, p.tk, p.d);
+    stage<T, DMAX, BR, MODE>(sm.r2, v, p.sv_t, k_lo, p.tk, p.d);
+    stage<T, DMAX, BS, MODE>(sm.s1(0), q, p.sq_t, q_start, p.tq, p.d);
+    stage<T, DMAX, BS, MODE>(sm.s2(0), gq, p.sg_t, q_start, p.tq, p.d);
+    stage_row(sm.rowl, p.lse + rbase, q_start, BS, p.tq);
+    stage_row(sm.rowd, p.delta + rbase, q_start, BS, p.tq);
   }
+  cp_async_commit();
 
-  T* dk = static_cast<T*>(p.dk) +
-          (static_cast<long long>(b) * p.hkv + hk) * p.tk * p.d;
-  T* dv = static_cast<T*>(p.dv) +
-          (static_cast<long long>(b) * p.hkv + hk) * p.tk * p.d;
+  // acc[nb]: keys k_lo + kw + g (+ 8), columns 8 nb + 2 t (+ 1); dV in
+  // warp A, dK (unscaled) in warp B
+  float acc[NB][4];
 #pragma unroll
-  for (int kk = 0; kk < KEYS_W; ++kk) {
-    const int key = k_lo + KEYS_W * warp + kk;
-    if (key >= p.tk) continue;
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int buf = step & 1;
+    const int q_lo = q_start + step * BS;
+    // stage `step` is in, and every warp is done with stage step - 1:
+    // stage step + 1 goes into its buffer while this one is computed
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < nsteps) {
+      const int nq = q_lo + BS;
+      stage<T, DMAX, BS, MODE>(sm.s1(buf ^ 1), q, p.sq_t, nq, p.tq, p.d);
+      stage<T, DMAX, BS, MODE>(sm.s2(buf ^ 1), gq, p.sg_t, nq, p.tq, p.d);
+      stage_row(sm.rowl + (buf ^ 1) * BS, p.lse + rbase, nq, BS, p.tq);
+      stage_row(sm.rowd + (buf ^ 1) * BS, p.delta + rbase, nq, BS, p.tq);
+    }
+    cp_async_commit();
+    if (!any_live(p, q_lo, BS, k_lo + kw, 16)) continue;   // pair-uniform
+
+    const float* sl = sm.rowl + buf * BS;
+    const float* sd = sm.rowd + buf * BS;
+    float* slot = sm.xp + pair * XF;
+    // A: S^T = K Q^T, then P^T = exp(scale S^T - L) where live, dV += P^T dO;
+    // B: dP^T = V dO^T, then dS^T = P^T (dP^T - delta), dK += dS^T Q.  One
+    // copy of the products' code for both (selected operands), so that the
+    // block's hot code stays small.
+    float c[2][4];
+    scores16<DMAX, SPLIT>(c, is_a ? sm.r1 : sm.r2, kw,
+                          is_a ? sm.s1(buf) : sm.s2(buf), lane);
+    if (is_a) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 4 * lane + 128 * j + e;
-        if (c < p.d) {
-          store_f(dk + static_cast<long long>(key) * p.d + c,
-                  accK[kk][j][e] * p.scale);
-          store_f(dv + static_cast<long long>(key) * p.d + c,
-                  accV[kk][j][e]);
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k_lo + kw + g + 8 * (e >> 1);
+          const int qi = 8 * nb + 2 * t + (e & 1);
+          c[nb][e] = live(p, q_lo + qi, key)
+                         ? expf(c[nb][e] * p.scale - sl[qi])
+                         : 0.f;
         }
-      }
+      put8(slot, c, lane);
+      pair_sync(pair);
+    } else {
+      pair_sync(pair);
+      float pt[2][4];
+      get8(pt, slot, lane);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          c[nb][e] = pt[nb][e] * (c[nb][e] - sd[8 * nb + 2 * t + (e & 1)]);
+    }
+    accum16<DMAX, NB, SPLIT>(acc, c, is_a ? sm.s2(buf) : sm.s1(buf), 0,
+                             lane);
+  }
+  cp_async_wait_all();
+
+  // warp A writes dV, warp B dK: the fp32 partial of head h, or the
+  // result when Hq == Hkv
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k_lo + kw + g + 8 * half;
+    if (key >= p.tk) continue;
+    if (p.part_k != nullptr) {
+      float* out = (is_a ? p.part_v : p.part_k) +
+                   ((static_cast<long long>(b) * p.hq + h) * p.tk + key) *
+                       p.d;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * nb + 2 * t + e;
+          if (col < p.d) out[col] = acc[nb][2 * half + e];
+        }
+    } else {
+      T* out = static_cast<T*>(is_a ? p.dv : p.dk) +
+               ((static_cast<long long>(b) * p.hkv + hk) * p.tk + key) * p.d;
+      const float f = is_a ? 1.f : p.scale;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * nb + 2 * t + e;
+          if (col < p.d) store_f(out + col, acc[nb][2 * half + e] * f);
+        }
+    }
   }
 }
 
+// dQ of query rows [64 tile, 64 tile + 64) of head h, batch b.
 template <typename T, int DMAX, int MODE>
-__global__ void __launch_bounds__(THREADS, 1)
-dq_kernel(const Params p) {
-  constexpr int ld = DMAX + 4;
-  constexpr int NJ = DMAX / 128;
-  extern __shared__ float4 smem4[];
-  const Smem<DMAX> sm(reinterpret_cast<float*>(smem4));
+__device__ __forceinline__ void dq_block(const Params& p,
+                                         const Smem<DMAX>& sm, int tile,
+                                         int h, int b) {
+  constexpr bool SPLIT = sizeof(T) == 4;
+  constexpr int NH = DMAX / 16;                 // 8-column blocks a warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // the heaviest query tiles (the last, under a causal mask) go first
-  const int ntq = (p.tq + BQ - 1) / BQ;
-  const int heads = p.hq * p.batch;
-  const int q_lo = (ntq - 1 - static_cast<int>(blockIdx.x / heads)) * BQ;
-  const int h = static_cast<int>(blockIdx.x % heads) % p.hq;
-  const int b = static_cast<int>(blockIdx.x % heads) / p.hq;
+  const int pair = warp % PAIRS;
+  const bool is_a = warp < PAIRS;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_lo = tile * BR;
+  const int rw = 16 * pair;                     // the pair's rows in the tile
   const int hk = static_cast<int>(static_cast<long long>(h) * p.hkv / p.hq);
   const T* q = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const T* g = static_cast<const T*>(p.dout) + b * p.sg_b + h * p.sg_h;
+  const T* gq = static_cast<const T*>(p.dout) + b * p.sg_b + h * p.sg_h;
   const T* k = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
   const T* v = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
   const long long rbase = (static_cast<long long>(b) * p.hq + h) * p.tq;
 
-  // the live KV tiles of this query tile, as in K4
+  // the live keys of this query tile, as in K4
   int kv_lo = 0, kv_hi = p.tk;
-  if (p.causal) kv_hi = min(kv_hi, q_lo + BQ);
+  if (p.causal) kv_hi = min(kv_hi, q_lo + BR);
   if (p.window > 0) kv_lo = max(0, q_lo - (p.window - 1));
-  kv_lo = (kv_lo / BKV) * BKV;
+  kv_lo = (kv_lo / BS) * BS;
+  const int nsteps = kv_hi > kv_lo ? (kv_hi - kv_lo + BS - 1) / BS : 0;
 
-  stage<T, DMAX, BQ, MODE>(sm.sQ, q, p.sq_t, q_lo, p.tq, p.d);
-  stage<T, DMAX, BQ, MODE>(sm.sG, g, p.sg_t, q_lo, p.tq, p.d);
-  stage_rows(sm.sL, sm.sD, p.lse + rbase, p.delta + rbase, q_lo, p.tq);
-
-  // acc[r][j][e]: row q_lo + 8 warp + r, column 4 lane + 128 j + e
-  float acc[ROWS_W][NJ][4];
-#pragma unroll
-  for (int r = 0; r < ROWS_W; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
-
-  for (int k_lo = kv_lo; k_lo < kv_hi; k_lo += BKV) {
-    if (!any_live(p, q_lo, BQ, k_lo, BKV)) continue;     // block-uniform
-    stage<T, DMAX, BKV, MODE>(sm.sK, k, p.sk_t, k_lo, p.tk, p.d);
-    stage<T, DMAX, BKV, MODE>(sm.sV, v, p.sv_t, k_lo, p.tk, p.d);
-    __syncthreads();
-    scores_and_ds<DMAX>(p, sm.sQ, sm.sG, sm.sK, sm.sV, sm.sL, sm.sD, nullptr,
-                        sm.sS, q_lo, k_lo);
-    __syncthreads();
-    // dQ += dS K over the tile's keys
-#pragma unroll 2
-    for (int c = 0; c < BKV; c += 4) {
-      float ds[ROWS_W][4];
-#pragma unroll
-      for (int r = 0; r < ROWS_W; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            sm.sS + (warp * ROWS_W + r) * LDS + c);
-        ds[r][0] = x.x;
-        ds[r][1] = x.y;
-        ds[r][2] = x.z;
-        ds[r][3] = x.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float4 kb = *reinterpret_cast<const float4*>(
-              sm.sK + (c + cc) * ld + 4 * lane + 128 * j);
-#pragma unroll
-          for (int r = 0; r < ROWS_W; ++r) {
-            acc[r][j][0] = fmaf(ds[r][cc], kb.x, acc[r][j][0]);
-            acc[r][j][1] = fmaf(ds[r][cc], kb.y, acc[r][j][1]);
-            acc[r][j][2] = fmaf(ds[r][cc], kb.z, acc[r][j][2]);
-            acc[r][j][3] = fmaf(ds[r][cc], kb.w, acc[r][j][3]);
-          }
-        }
-    }
-    __syncthreads();                            // before the next staging
+  if (nsteps > 0) {
+    stage<T, DMAX, BR, MODE>(sm.r1, q, p.sq_t, q_lo, p.tq, p.d);
+    stage<T, DMAX, BR, MODE>(sm.r2, gq, p.sg_t, q_lo, p.tq, p.d);
+    stage_row(sm.rowl, p.lse + rbase, q_lo, BR, p.tq);
+    stage_row(sm.rowd, p.delta + rbase, q_lo, BR, p.tq);
+    stage<T, DMAX, BS, MODE>(sm.s1(0), k, p.sk_t, kv_lo, p.tk, p.d);
+    stage<T, DMAX, BS, MODE>(sm.s2(0), v, p.sv_t, kv_lo, p.tk, p.d);
   }
+  cp_async_commit();
+
+  // acc[n]: rows q_lo + rw + g (+ 8), columns 8 (nb0 + n) + 2 t (+ 1),
+  // warp A the first half of D, warp B the second
+  const int nb0 = is_a ? 0 : NH;
+  float acc[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int buf = step & 1;
+    const int k_lo = kv_lo + step * BS;
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < nsteps) {
+      stage<T, DMAX, BS, MODE>(sm.s1(buf ^ 1), k, p.sk_t, k_lo + BS, p.tk,
+                               p.d);
+      stage<T, DMAX, BS, MODE>(sm.s2(buf ^ 1), v, p.sv_t, k_lo + BS, p.tk,
+                               p.d);
+    }
+    cp_async_commit();
+    if (!any_live(p, q_lo + rw, 16, k_lo, BS)) continue;   // pair-uniform
+
+    float* pslot = sm.xp + pair * XF;
+    float* sslot = sm.xs + pair * XF;
+    // A: S = Q K^T, P = exp(scale S - L) where live, to B; dS back from B.
+    // B: dP = dO V^T, dS = P (dP - delta), to A.  Both: dQ += dS K, A the
+    // first half of D, B the second.  One copy of the products' code.
+    float c[2][4];
+    scores16<DMAX, SPLIT>(c, is_a ? sm.r1 : sm.r2, rw,
+                          is_a ? sm.s1(buf) : sm.s2(buf), lane);
+    if (is_a) {
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = rw + g + 8 * (e >> 1);
+          const int key = k_lo + 8 * nb + 2 * t + (e & 1);
+          c[nb][e] = live(p, q_lo + ri, key)
+                         ? expf(c[nb][e] * p.scale - sm.rowl[ri])
+                         : 0.f;
+        }
+      put8(pslot, c, lane);
+      pair_sync(pair);
+      pair_sync(pair);
+      get8(c, sslot, lane);
+    } else {
+      pair_sync(pair);
+      float pr[2][4];
+      get8(pr, pslot, lane);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          c[nb][e] = pr[nb][e] * (c[nb][e] - sm.rowd[rw + g + 8 * (e >> 1)]);
+      put8(sslot, c, lane);
+      pair_sync(pair);
+    }
+    accum16<DMAX, NH, SPLIT>(acc, c, sm.s1(buf), nb0, lane);  // dQ
+  }
+  cp_async_wait_all();
 
   T* dq = static_cast<T*>(p.dq) + rbase * p.d;
 #pragma unroll
-  for (int r = 0; r < ROWS_W; ++r) {
-    const int row = q_lo + warp * ROWS_W + r;
+  for (int half = 0; half < 2; ++half) {
+    const int row = q_lo + rw + g + 8 * half;
     if (row >= p.tq) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int n = 0; n < NH; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 4 * lane + 128 * j + e;
-        if (c < p.d)
-          store_f(dq + static_cast<long long>(row) * p.d + c,
-                  acc[r][j][e] * p.scale);
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * (nb0 + n) + 2 * t + e;
+        if (col < p.d)
+          store_f(dq + static_cast<long long>(row) * p.d + col,
+                  acc[n][2 * half + e] * p.scale);
       }
   }
+}
+
+// One launch, both kinds of block: blocks 2 i and 2 i + 1 are the i-th
+// heaviest dK / dV and dQ blocks (the first key tiles and the last query
+// tiles under a causal mask, of every head and batch), the rest of the
+// longer kind after them, so that the light blocks of both fill the tail.
+template <typename T, int DMAX, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  const Smem<DMAX> sm(reinterpret_cast<float*>(smem4));
+  const int heads = p.hq * p.batch;
+  const int n_kv = p.ntk * heads, n_q = p.ntq * heads;
+  const int both = min(n_kv, n_q);
+  const int bid = static_cast<int>(blockIdx.x);
+  bool kv;
+  int idx;
+  if (bid < 2 * both) {
+    kv = (bid & 1) == 0;
+    idx = bid >> 1;
+  } else {
+    kv = n_kv > n_q;
+    idx = bid - both;
+  }
+  const int order = idx / heads;
+  const int h = (idx % heads) % p.hq, b = (idx % heads) / p.hq;
+  if (kv)
+    dkdv_block<T, DMAX, MODE>(p, sm, order, h, b);
+  else
+    dq_block<T, DMAX, MODE>(p, sm, p.ntq - 1 - order, h, b);
+}
+
+// dK = scale * sum of the group's partials, dV = their sum, heads in order;
+// W consecutive elements a thread (4 when D is a multiple of 4, else 1).
+template <typename T, int W>
+__global__ void __launch_bounds__(THREADS)
+reduce_kernel(const Params p) {
+  const int group = p.hq / p.hkv;
+  const long long per_head = static_cast<long long>(p.tk) * p.d;
+  const long long n = static_cast<long long>(p.batch) * p.hkv * per_head;
+  for (long long i = (static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x) * W;
+       i < n; i += static_cast<long long>(gridDim.x) * THREADS * W) {
+    const long long bh = i / per_head;          // b * Hkv + hk
+    const long long src = bh * group * per_head + (i - bh * per_head);
+    float sk[W], sv[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) sk[e] = sv[e] = 0.f;
+    for (int j = 0; j < group; ++j) {
+      float xk[W], xv[W];
+      if constexpr (W == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            p.part_k + src + j * per_head);
+        const float4 c = *reinterpret_cast<const float4*>(
+            p.part_v + src + j * per_head);
+        xk[0] = a.x; xk[1] = a.y; xk[2] = a.z; xk[3] = a.w;
+        xv[0] = c.x; xv[1] = c.y; xv[2] = c.z; xv[3] = c.w;
+      } else {
+        xk[0] = p.part_k[src + j * per_head];
+        xv[0] = p.part_v[src + j * per_head];
+      }
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        sk[e] += xk[e];
+        sv[e] += xv[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      store_f(static_cast<T*>(p.dk) + i + e, sk[e] * p.scale);
+      store_f(static_cast<T*>(p.dv) + i + e, sv[e]);
+    }
+  }
+}
+
+// The delta pre-pass's 4-wide loads: D, the strides of O and dO and their
+// pointers multiples of four elements.
+template <typename T>
+bool delta_vec_ok(const Params& p) {
+  const uintptr_t align = 4 * sizeof(T);
+  return p.d % 4 == 0 && p.so_b % 4 == 0 && p.so_h % 4 == 0 &&
+         p.so_t % 4 == 0 && p.sg_b % 4 == 0 && p.sg_h % 4 == 0 &&
+         p.sg_t % 4 == 0 && reinterpret_cast<uintptr_t>(p.o) % align == 0 &&
+         reinterpret_cast<uintptr_t>(p.dout) % align == 0;
 }
 
 template <typename T, int DMAX, int MODE>
 int launch(const Params& p, cudaStream_t s) {
   constexpr int bytes = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
+  // set on every launch: the attribute is per device, and the call is cheap
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, DMAX, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_kernel<T, DMAX, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+      bwd_kernel<T, DMAX, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(p.batch) * p.hq * p.tq;
   const long long n_delta = (rows + WARPS - 1) / WARPS;
-  const long long n_dkdv =
-      static_cast<long long>((p.tk + BKV - 1) / BKV) * p.hkv * p.batch;
-  const long long n_dq =
-      static_cast<long long>((p.tq + BQ - 1) / BQ) * p.hq * p.batch;
-  if (n_delta > 0x7fffffffLL || n_dkdv > 0x7fffffffLL ||
-      n_dq > 0x7fffffffLL)
+  const long long n_main =
+      static_cast<long long>(p.ntk + p.ntq) * p.hq * p.batch;
+  if (n_delta > 0x7fffffffLL || n_main > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  delta_kernel<T><<<static_cast<unsigned>(n_delta), THREADS, 0, s>>>(p);
+  if (delta_vec_ok<T>(p))
+    delta_kernel<T, true><<<static_cast<unsigned>(n_delta), THREADS, 0, s>>>(
+        p);
+  else
+    delta_kernel<T, false><<<static_cast<unsigned>(n_delta), THREADS, 0, s>>>(
+        p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<T, DMAX, MODE>
-      <<<static_cast<unsigned>(n_dkdv), THREADS, bytes, s>>>(p);
+  bwd_kernel<T, DMAX, MODE>
+      <<<static_cast<unsigned>(n_main), THREADS, bytes, s>>>(p);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<T, DMAX, MODE>
-      <<<static_cast<unsigned>(n_dq), THREADS, bytes, s>>>(p);
+  if (err != cudaSuccess || p.part_k == nullptr)
+    return static_cast<int>(err);
+  const int w = p.d % 4 == 0 ? 4 : 1;
+  const long long n = static_cast<long long>(p.batch) * p.hkv * p.tk * p.d;
+  const long long per_block = static_cast<long long>(THREADS) * w;
+  const long long n_red = (n + per_block - 1) / per_block < 4096
+                              ? (n + per_block - 1) / per_block
+                              : 4096;
+  if (w == 4)
+    reduce_kernel<T, 4><<<static_cast<unsigned>(n_red), THREADS, 0, s>>>(p);
+  else
+    reduce_kernel<T, 1><<<static_cast<unsigned>(n_red), THREADS, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,15 +891,18 @@ bool vector_ok(const Params& p) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v, o, dout, dq, dk, dv alike; lse and
-// delta fp32).  Strides are in elements; each input's last dimension is
-// contiguous; dq, dk, dv, lse and delta are contiguous.  window <= 0 means
-// no window.  Runs the delta pre-pass, then dK / dV, then dQ.  Returns the
+// dtype: 0 = fp32, 1 = bf16 (q, k, v, o, dout, dq, dk, dv alike; lse,
+// delta and the partials fp32).  Strides are in elements; each input's last
+// dimension is contiguous; dq, dk, dv, lse, delta and the partials are
+// contiguous.  part_k / part_v: (B, Hq, Tk, D) fp32 scratch, required when
+// Hq > Hkv, else null.  window <= 0 means no window.  Runs the delta
+// pre-pass, the dK / dV and dQ blocks, and the partials' sum.  Returns the
 // launches' cudaError_t.
 extern "C" int flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int batch, int hq, int hkv, int tq, int tk, int d,
+    void* dv, float* part_k, float* part_v, int batch, int hq, int hkv,
+    int tq, int tk, int d,
     long long sq_b, long long sq_h, long long sq_t,
     long long sk_b, long long sk_h, long long sk_t,
     long long sv_b, long long sv_h, long long sv_t,
@@ -565,14 +910,16 @@ extern "C" int flash_attention_bwd(
     long long sg_b, long long sg_h, long long sg_t,
     float scale, int causal, int window, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || tq < 1 || tk < 1 ||
-      d < 1 || d > 256)
+      d < 1 || d > 256 || ((hq > hkv) != (part_k != nullptr)) ||
+      ((part_k == nullptr) != (part_v == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, tq, tk,
-           d, sq_b, sq_h, sq_t, sk_b, sk_h, sk_t, sv_b, sv_h, sv_t, so_b,
+  Params p{q, k, v, o, dout, lse, delta, dq, dk, dv, part_k, part_v,
+           batch, hq, hkv, tq, tk, d, (tq + BR - 1) / BR, (tk + BR - 1) / BR,
+           sq_b, sq_h, sq_t, sk_b, sk_h, sk_t, sv_b, sv_h, sv_t, so_b,
            so_h, so_t, sg_b, sg_h, sg_t, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vector_ok<float>(p) ? by_width<float, VEC>(p, s)
+    return vector_ok<float>(p) ? by_width<float, ASYNC>(p, s)
                                : by_width<float, SCALAR>(p, s);
   if (dtype == 1)
     return vector_ok<__nv_bfloat16>(p) ? by_width<__nv_bfloat16, VEC>(p, s)

@@ -9,7 +9,11 @@ tensors and launch the kernels for CUDA tensors -- or raise: there is no
 fallback.  They take q, k, v (and o, dO) with any strides but a contiguous
 last dim (the model hands them transposed views), pad nothing (the kernels
 mask ragged T and D), allocate contiguous outputs and count launches in
-:data:`launches` (K4b: one per call of its three kernels).
+:data:`launches`.  K4 runs fp32 FMAs on the CUDA cores; K4b runs every
+product on the tensor cores in 3xTF32 (fp32 accuracy), as a delta
+pre-pass, one launch of dK / dV and dQ blocks, and, when Hq > Hkv, a sum
+of per-query-head fp32 partials that the wrapper allocates (2 x B Hq Tk D
+floats); one count per call of its kernels.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
     {"flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
      + [_L] * 12 + [_F, _I, _I, _P],
-     "flash_attention_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15
+     "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 6 + [_L] * 15
      + [_F, _I, _I, _P]})
 launches = FAMILY.launches
 
@@ -129,13 +133,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    # each query head's fp32 dK / dV, summed over its group in head order
+    part_k, part_v = (torch.empty((b, hq, tk, d), dtype=torch.float32,
+                                  device=q.device) if hq > hkv else None
+                      for _ in range(2))
     fn = FAMILY.fn("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, hq, hkv, tq, tk, d, *q.stride()[:3],
+                 dv.data_ptr(), None if part_k is None else part_k.data_ptr(),
+                 None if part_v is None else part_v.data_ptr(),
+                 b, hq, hkv, tq, tk, d, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  *do.stride()[:3], float(scale), int(causal),
                  0 if window is None else int(window), stream)

@@ -12,7 +12,10 @@ takes the plain version (``ref.rmsnorm_ref``) for a CPU tensor and launches
 the kernel for a CUDA tensor -- or raises: there is no fallback.  Launches
 are counted in :data:`launches`, one per call whatever the variant.
 :func:`rmsnorm_rows_bwd` does the same for the gradient (K3b, one count
-per call of its three kernels; ``ref.rmsnorm_bwd_ref`` on the CPU).
+per call of its kernels; ``ref.rmsnorm_bwd_ref`` on the CPU), with
+:func:`variant` given g too: its "warp" variant keeps the rows of x and g
+in registers, reads each once and folds the partial dscale into the same
+kernel; "loop" and "scalar" make two strided passes and a partial pass.
 """
 from __future__ import annotations
 
@@ -36,22 +39,25 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
     {"rmsnorm": [_I, _I, _I, _P, _L, _P, _P, _L, _I, _I, _F, _P],
-     "rmsnorm_bwd": [_I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                     _P]})
+     "rmsnorm_bwd": [_I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _F, _P]})
 launches = FAMILY.launches
 
 
-def variant(x: torch.Tensor, scale: torch.Tensor) -> tuple:
-    """The K3 variant for ``x`` (rows, d) and ``scale``, and its 16-byte
-    vectors per lane: ``("warp", nv)`` when every row and ``scale`` are
+def variant(x: torch.Tensor, scale: torch.Tensor,
+            *others: torch.Tensor) -> tuple:
+    """The K3 (or, given g, K3b) variant for ``x`` (rows, d), ``scale`` and
+    the ``others`` of x's shape, and its 16-byte vectors per lane:
+    ``("warp", nv)`` when the rows of x and of the others and ``scale`` are
     16-byte aligned, d is a multiple of the vector width and d <= D_MAX;
     ``("loop", 0)`` when only d is too long; ``("scalar", 0)`` otherwise.
-    (The output is a fresh allocation, always aligned.)"""
+    (Outputs are fresh allocations, always aligned.)"""
     d = x.shape[1]
     size = x.element_size()
     epv = 16 // size
-    aligned = (d % epv == 0 and x.stride(0) * size % 16 == 0
-               and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    aligned = (d % epv == 0 and scale.data_ptr() % 16 == 0
+               and all(t.stride(0) * size % 16 == 0 and t.data_ptr() % 16 == 0
+                       for t in (x, *others)))
     if not aligned:
         return "scalar", 0
     if d > D_MAX:
@@ -101,13 +107,34 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _bwd_chunks(rows: int, d: int, device: torch.device) -> int:
-    """Row chunks of K3b's partial ds pass: enough (column strip, chunk)
-    blocks to fill the card (~4 a streaming multiprocessor), at least 8
-    rows each."""
+_WARP_BLOCKS: dict = {}     # (device, dtype code, nv) -> blocks an SM
+
+
+def _bwd_chunks(rows: int, d: int, device: torch.device, kind: str,
+                dtype: int, nv: int) -> int:
+    """Row chunks of K3b's partial dscale, from the card's streaming
+    multiprocessors (SMs).  "warp": the rows kernel's blocks, as many as
+    the card holds at once (``rmsnorm_bwd_blocks_per_sm``, by registers
+    and shared memory: one an SM at d = 1152 fp32), so one wave; each a
+    contiguous chunk of at least 8 rows (a row a warp) and a partial row of
+    d floats.  "loop" / "scalar": enough (column strip of 32, chunk) blocks
+    of the partial pass to fill the card (~4 an SM), at least 8 rows each."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if kind == "warp":
+        key = (device.index, dtype, nv)
+        if key not in _WARP_BLOCKS:
+            out = ctypes.c_int(0)
+            query = FAMILY.symbol("rmsnorm_bwd", "rmsnorm_bwd_blocks_per_sm",
+                                  [_I, _I, ctypes.POINTER(ctypes.c_int)])
+            with torch.cuda.device(device):
+                err = query(dtype, nv, ctypes.byref(out))
+            if err != 0 or out.value < 1:
+                raise RuntimeError(f"rmsnorm_bwd_blocks_per_sm: cudaError "
+                                   f"{err}, {out.value} blocks")
+            _WARP_BLOCKS[key] = out.value
+        return max(1, min(-(-rows // 8), _WARP_BLOCKS[key] * sms))
     strips = -(-d // 32)
-    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-rows // 8), -(-blocks // strips), 65535))
+    return max(1, min(-(-rows // 8), -(-4 * sms // strips), 65535))
 
 
 def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
@@ -128,17 +155,21 @@ def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if g.stride(1) != 1:
         g = g.contiguous()
     rows, d = x.shape
-    chunks = _bwd_chunks(rows, d, x.device)
+    kind, nv = variant(x, scale, g)
+    chunks = _bwd_chunks(rows, d, x.device, kind, _DTYPE_CODE[x.dtype], nv)
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
-    rinv = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    rinv = None if kind == "warp" else torch.empty(
+        (rows,), dtype=torch.float32, device=x.device)
     partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
     fn = FAMILY.fn("rmsnorm_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0),
-                 g.data_ptr(), g.stride(0), scale.data_ptr(), dx.data_ptr(),
-                 rinv.data_ptr(), partial.data_ptr(), dscale.data_ptr(), rows,
-                 d, chunks, float(eps), stream)
+        err = fn(_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv,
+                 x.data_ptr(), x.stride(0), g.data_ptr(), g.stride(0),
+                 scale.data_ptr(), dx.data_ptr(),
+                 None if rinv is None else rinv.data_ptr(),
+                 partial.data_ptr(), dscale.data_ptr(), rows, d, chunks,
+                 float(eps), stream)
     FAMILY.launched("rmsnorm_bwd", err)
     return dx, dscale

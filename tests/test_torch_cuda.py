@@ -437,7 +437,18 @@ def grad_close(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(err.max())
 
 
-BWD_CASES = FLASH_CASES[:6] + [FLASH_RAGGED[i] for i in (2, 5, 8, 9, 11, 13)]
+BWD_CASES = FLASH_CASES[:6] + [FLASH_RAGGED[i]
+                                for i in (2, 5, 8, 9, 11, 13)] + [
+    # K4b's tiles (64 resident rows, 16-row steps): an odd count of key
+    # tiles under the causal mask, Tk one past a tile, 8:1 GQA at D = 256
+    # (the per-head partials' fixed-order sum), a window ending inside a
+    # step, and the training shape (its bf16 case has a bf16 dO)
+    dict(b=1, hq=2, hkv=1, tq=320, tk=320, d=256, causal=True, window=None),
+    dict(b=2, hq=2, hkv=2, tq=65, tk=65, d=128, causal=True, window=None),
+    dict(b=1, hq=8, hkv=1, tq=200, tk=200, d=256, causal=True, window=None),
+    dict(b=1, hq=4, hkv=2, tq=300, tk=300, d=128, causal=True, window=100),
+    dict(b=4, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
+]
 
 
 def _attn_inputs(cuda, case, dtype, seed):
@@ -495,6 +506,24 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
         assert not got[0][:, :, case["tk"] + case["window"]:].any()
 
 
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_attention_bwd_does_not_lean(cuda, window):
+    """At the training shape K4b's fp32 gradients lean from the float64
+    ones by at most 5e-6 (|sum(got exact) / sum(exact^2) - 1|): a sum kept
+    in one tensor-core accumulator drifts toward zero, which max |diff|
+    does not show and a model's gradient norm does."""
+    case = dict(b=4, hq=4, hkv=1, tq=1024, tk=1024, d=256)
+    q, k, v, do = _attn_inputs(cuda, case, torch.float32, 19)
+    kw = dict(scale=0.0625, causal=True, window=window)
+    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    exact = attention_bwd_ref(*(x.double() for x in (q, k, v, out, lse, do)),
+                              **kw)
+    for g, e in zip(got, exact):
+        lean = float((g.double() * e).sum() / (e * e).sum() - 1.0)
+        assert abs(lean) <= 5e-6, lean
+
+
 def test_flash_attention_function_grads_through_transposed_views(cuda):
     """``ops.flash_attention`` under autograd, on the (B, T, H, D) views
     the model hands it: K4 + K4b against autograd of the plain forward."""
@@ -522,7 +551,12 @@ def test_flash_attention_function_grads_through_transposed_views(cuda):
 @pytest.mark.parametrize("rows,d,off", [(7, 1152, 0), (4096, 1152, 0),
                                         (16384, 256, 0), (300, 256, 1),
                                         (5, 8192, 0), (9, 3, 0),
-                                        (33, 1150, 0)])
+                                        (33, 1150, 0),
+                                        # rows no multiple of a block's
+                                        # chunk; d either side of D_MAX
+                                        (4097, 1152, 0), (9, 256, 0),
+                                        (1001, rn_kernel.D_MAX, 0),
+                                        (1001, rn_kernel.D_MAX + 8, 0)])
 def test_rmsnorm_bwd_matches_plain(cuda, dtype, rows, d, off):
     """K3b against ``rmsnorm_bwd_ref`` (dx and dscale, see
     :func:`grad_close`), rows on and one element off a 16-byte boundary;
@@ -539,6 +573,30 @@ def test_rmsnorm_bwd_matches_plain(cuda, dtype, rows, d, off):
         grad_close(a, b)
     again = rn_kernel.rmsnorm_rows_bwd(x, s, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rmsnorm_bwd_takes_each_variant(cuda):
+    """The three variants of K3b are chosen as documented, and each holds:
+    "scalar" also when only g's rows are off a 16-byte boundary."""
+    x = torch.randn(64, 301, device=cuda)               # row stride 301
+    s = torch.randn(301, device=cuda) * 0.1
+    g = torch.randn(64, 301, device=cuda)
+    cases = [
+        ("warp", x[:, :256].contiguous(), s[:256].contiguous(),
+         g[:, :256].contiguous()),
+        ("loop", torch.randn(9, 4096, device=cuda),
+         torch.randn(4096, device=cuda) * 0.1,
+         torch.randn(9, 4096, device=cuda)),
+        ("scalar", x[:, :256], s[:256].contiguous(), g[:, :256].contiguous()),
+        ("scalar", x[:, :256].contiguous(), s[:256].contiguous(), g[:, :256]),
+    ]
+    for kind, xx, ss, gg in cases:
+        assert rn_kernel.variant(xx, ss, gg)[0] == kind
+        before = rn_kernel.launches["rmsnorm_bwd"]
+        got = rn_kernel.rmsnorm_rows_bwd(xx, ss, gg)
+        assert rn_kernel.launches["rmsnorm_bwd"] == before + 1
+        for a, b in zip(got, rmsnorm_bwd_ref(xx, ss, gg)):
+            grad_close(a, b)
 
 
 def test_rmsnorm_function_grads_match_autograd_of_plain(cuda):

@@ -48,6 +48,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 from repro_torch.models import convert
@@ -86,6 +87,36 @@ def test_rmsnorm_bwd_ref_matches_jax_grad(shape):
     dx, ds = rmsnorm_bwd_ref(_t(x), _t(s), _t(g), 1e-6)
     close(dx, jdx)
     close(ds, jds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_variant_choice(dtype):
+    """Which K3b variant a shape and the alignment of x and g take (decided
+    on the host before the launch, so it is checked here on CPU tensors):
+    "warp" only when the rows of both are 16-byte aligned."""
+    epv = 16 // torch.empty((), dtype=dtype).element_size()
+    dmax = rn_kernel.D_MAX
+
+    def view(rows, d, offset=0, ld=None):
+        ld = d if ld is None else ld
+        buf = torch.zeros(rows * ld + offset, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0
+        return buf[offset:].view(rows, ld)[:, :d]
+
+    def pick(rows, d, x_off=0, g_off=0, x_ld=None, g_ld=None):
+        s = torch.zeros(d, dtype=dtype)
+        return rn_kernel.variant(view(rows, d, x_off, x_ld), s,
+                                     view(rows, d, g_off, g_ld))
+
+    assert pick(4096, 1152) == ("warp", -(-1152 // (32 * epv)))
+    assert pick(16384, 256) == ("warp", -(-256 // (32 * epv)))
+    assert pick(9, dmax) == ("warp", dmax // (32 * epv))
+    assert pick(9, dmax + epv) == ("loop", 0)
+    assert pick(9, 1152, x_off=1) == ("scalar", 0)
+    assert pick(9, 1152, g_off=1) == ("scalar", 0)
+    assert pick(9, 256, g_ld=301) == ("scalar", 0)
+    assert pick(9, 1150) == ("scalar", 0)
+    assert pick(9, dmax + 1) == ("scalar", 0)
 
 
 SELF_CASES = [   # self-attention: (B, Hq, Hkv, T, D, window)
