@@ -50,7 +50,19 @@ and read just after:
   card, remat against none, two backward passes bitwise, the loss after 8
   steps below step 0's, an async checkpoint at step 4 restored into a fresh
   state and replayed bit for bit, the K3 / K3b / K4 / K4b launches of a
-  step held to the layer pattern, and a chunked-CE step's loss.
+  step held to the layer pattern, and a chunked-CE step's loss;
+* MoE serving (m) -- moonshot-v1-16b-a3b at full width with 24 of its 48
+  layers: (m-a) one MoE layer (T = 8,192) on the card against the CPU
+  port, (m-b) ``launch.serve.generate`` as for gemma3-1b, with its K3 / K4
+  launches and peak memory, (m-c) every layer's kernel-path input through
+  the kernels and the plain versions (routing flips allowed only at near
+  ties of the router; the whole prefill's logits are printed, and held to
+  1e-4 only where no token's dispatch differs, since one flip moves its
+  token by O(1) in every later layer), (m-f) a profile of the prefill with
+  4 decode steps and of 4 decode steps alone, (m-d) ``train_step`` through
+  the dispatch at depth 2: kernels against plain (loss, grad norm, and
+  every leaf where no routing flip parts the paths), two passes and remat
+  bitwise.
 
 It times every kernel at its path's shapes (K2 in every cluster size and
 pivots per barrier it is built for, beside a probe of the cluster
@@ -61,6 +73,7 @@ when any phase fails.  Needs one card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1905,6 +1918,8 @@ FLASH_CASES = [   # the JAX package's kernel test cases, then the served shapes
     dict(b=1, hq=8, hkv=2, tq=64, tk=64, d=32, causal=True, window=32),
     dict(b=8, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=512),
     dict(b=8, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
+    dict(b=8, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
+         window=None),                                  # moonshot prefill
 ]
 
 
@@ -1948,7 +1963,8 @@ def phase_lm_kernels(rng, errs: dict) -> None:
         key = "rmsnorm" + ("" if dt == torch.float32 else "_bf16")
         for rows, d, off in ((8 * 1024, 1152, 0), (8 * 1024 * 4, 256, 0),
                              (1, 1152, 0), (7, 1152, 0), (300, 256, 0),
-                             (5, 8192, 0), (7, 1150, 0), (300, 256, 1)):
+                             (5, 8192, 0), (7, 1150, 0), (300, 256, 1),
+                             (8 * 1024, 2048, 0), (8, 2048, 0)):
             # off = 1: rows one element off a 16-byte boundary
             x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
             s = rand((d,), dt, 0.1)
@@ -1976,6 +1992,9 @@ BWD_CASES = [   # K4b: ragged T and D, GQA, the training shapes
     dict(b=1, hq=4, hkv=2, tq=300, tk=300, d=128, causal=True, window=100),
     dict(b=4, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=512),
     dict(b=4, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
+    # moonshot-v1-16b-a3b's training shape, phase (m-d)
+    dict(b=4, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
+         window=None),
 ]
 
 
@@ -2086,7 +2105,7 @@ def phase_lm_bwd_kernels(rng, errs: dict) -> None:
                     *(x.double() for x in (q, k, v, out, lse, do)), **kw))
         for rows, d, off in ((4096, 1152, 0), (16384, 256, 0), (7, 1150, 0),
                              (300, 256, 1), (5, 8192, 0), (1001, 2048, 0),
-                             (1001, 2056, 0)):
+                             (1001, 2056, 0), (4096, 2048, 0)):
             x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
             g = rand((rows, d), dt)
             sc = rand((d,), dt, 0.1)
@@ -2388,9 +2407,413 @@ def phase_train(counts: dict, card: str) -> dict:
             "ms": ms, "peak": peak}
 
 
+MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24, batch=8, prompt_len=1024,
+           max_new=32, max_len=1056, layer_tokens=8192, train_layers=2,
+           train_batch=4, train_seq=1024, peak_limit=80e9)
+
+
+@contextlib.contextmanager
+def router_probs():
+    """Yield a list that gathers the router probabilities of every
+    ``moe.moe_apply`` call made inside the block, in call order (a
+    remat'd block's recomputation included)."""
+    from repro_torch.models import moe
+
+    seen, apply = [], moe.moe_apply
+
+    def recording(*args, **kw):
+        y, probs = apply(*args, **kw)
+        seen.append(probs.detach())
+        return y, probs
+
+    moe.moe_apply = recording
+    try:
+        yield seen
+    finally:
+        moe.moe_apply = apply
+
+
+def other_dispatch(probs_a, probs_b, cfg) -> tuple:
+    """(tokens routed to another expert set, tokens with any other
+    dispatch) summed over pairs of router probabilities."""
+    from repro_torch.models.moe import dispatch_codes
+
+    flips = diff = 0
+    for a, b in zip(probs_a, probs_b):
+        ca, cb = dispatch_codes(a, cfg), dispatch_codes(b, cfg)
+        flips += int(((ca > 0) != (cb > 0)).any(-1).sum())
+        diff += int((ca != cb).any(-1).sum())
+    return flips, diff
+
+
+def topk_gap(probs, k: int):
+    """(T,) gap between each row's k-th and (k+1)-th probability over the
+    row's largest."""
+    top = probs.topk(k + 1, dim=-1).values
+    return (top[:, k - 1] - top[:, k]) / top[:, 0]
+
+
+def routing_parts(what: str, probs_a, probs_b, cfg, tie: float) -> tuple:
+    """Where two runs of one MoE layer routed alike.  A token whose routed
+    expert set differs (a flip) must be a near tie in run a: gap <= ``tie``
+    (``topk_gap``).  A token whose set agrees but whose drops differ is a
+    flip's knock-on (an earlier copy took or freed a slot), allowed only
+    beside a flip.  Returns (mask of tokens routed alike, flips, knock-ons,
+    share of copies dropped in run a)."""
+    from repro_torch.models.moe import dispatch_codes
+
+    a = dispatch_codes(probs_a, cfg)
+    b = dispatch_codes(probs_b.to(probs_a.device), cfg)
+    flip = ((a > 0) != (b > 0)).any(-1)
+    knock = (a != b).any(-1) & ~flip
+    n_flip, n_knock = int(flip.sum()), int(knock.sum())
+    if n_flip:
+        gap = topk_gap(probs_a, cfg.top_k)[flip]
+        if float(gap.max()) > tie:
+            raise AssertionError(
+                f"{what}: {n_flip} tokens routed to other experts, one at a "
+                f"k-th / (k+1)-th gap of {float(gap.max()):.3g} of the max "
+                f"probability, beyond the near-tie bound {tie}")
+    elif n_knock:
+        raise AssertionError(f"{what}: {n_knock} tokens drop other copies "
+                             f"with no routing flip")
+    dropped = float((a == 1).sum()) / (probs_a.shape[0] * cfg.top_k)
+    return ~(a != b).any(-1), n_flip, n_knock, dropped
+
+
+def rows_close(what: str, got, want, agree, rtol: float, atol: float) -> float:
+    """Fail unless the rows of ``agree`` hold |got - want| <= atol + rtol
+    |want| (and are finite); returns their max |diff|."""
+    import torch
+
+    g = got.reshape(agree.shape[0], -1)[agree]
+    w = want.to(got.device).reshape(agree.shape[0], -1)[agree]
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or \
+            not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max |diff| {err} beyond rtol {rtol} "
+                             f"atol {atol} on tokens routed alike")
+    return err
+
+
+def moe_layer_card_vs_cpu(cfg, dev) -> None:
+    """(m-a) One MoE layer at full width, T = 8,192 tokens from numpy
+    default_rng(1) (unit RMS, as after a norm), weights from a torch
+    Generator seeded 1 carried to the CPU: the card against the CPU port.
+    Expert ids equal but at near ties (gap <= 1e-6 x the max probability);
+    tokens routed alike within rtol 1e-4 / atol 1e-5; two card runs
+    bitwise."""
+    import torch
+
+    from repro_torch.models import moe
+
+    p = moe.init_moe(torch.Generator(device=dev).manual_seed(1), cfg,
+                     torch.float32, dev)
+    x = np.random.default_rng(1).normal(
+        0, 1, (1, MOE["layer_tokens"], cfg.d_model)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    y, probs = moe.moe_apply(p, xd, cfg)
+    y2, probs2 = moe.moe_apply(p, xd, cfg)
+    same = torch.equal(y, y2) and torch.equal(probs, probs2)
+    t0 = time.perf_counter()
+    yc, probsc = moe.moe_apply({k: v.cpu() for k, v in p.items()},
+                               torch.from_numpy(x), cfg)
+    cpu_s = time.perf_counter() - t0
+    agree, flips, knock, dropped = routing_parts(
+        "(m-a) card vs CPU", probs, probsc, cfg, 1e-6)
+    err = rows_close("(m-a) card vs CPU", y, yc, agree, 1e-4, 1e-5)
+    gap = topk_gap(probs, cfg.top_k)
+    log(f"  (m-a) MoE layer T={x.shape[1]}, E={cfg.n_experts}, top-"
+        f"{cfg.top_k}, C={moe._capacity(x.shape[1], cfg)}: card vs CPU "
+        f"(CPU {cpu_s:.2f} s) max |dy| {err:.3g} on {int(agree.sum())} "
+        f"tokens routed alike; {flips} routing flips, {knock} knock-on "
+        f"drops; {int((gap <= 1e-6).sum())} tokens at a near tie (gap <= "
+        f"1e-6 of the max), smallest gap {float(gap.min()):.3g}; copies "
+        f"dropped {dropped:.6f}; two card runs bitwise: {same}")
+    if not same:
+        raise AssertionError("(m-a) two card runs of the MoE layer differ")
+
+
+def moe_layer(cfg, params, i: int, x, impl: str) -> tuple:
+    """Layer i of an all-MoE stack on prefill input x, through
+    ``model._attn_mlp_layer`` (what ``forward`` runs): (output, router
+    probabilities)."""
+    import torch
+
+    from repro_torch.models import model as Mdl
+
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    with router_probs() as probs:
+        out, _ = Mdl._attn_mlp_layer(
+            cfg, Mdl.layer_kind(cfg, 0),
+            Mdl._index(params["blocks"]["pos0"], i), x, positions=positions,
+            cache=None, cache_pos=None, mode="train", impl=impl)
+    return out, probs[0]
+
+
+def moe_chain(cfg, params, tokens, impl: str) -> tuple:
+    """The prefill layer by layer: every layer's input and the last one's
+    output (L + 1 hidden states), each layer's router probabilities, and
+    the last position's logits."""
+    from repro_torch.models.layers import rms_norm
+
+    xs, probs = [params["embed"][tokens]], []
+    for i in range(cfg.n_layers):
+        x, pr = moe_layer(cfg, params, i, xs[-1], impl)
+        xs.append(x)
+        probs.append(pr)
+    x = rms_norm(xs[-1], params["final_norm"], cfg.norm_eps, impl == "ref")
+    return xs, probs, x[:, -1, :] @ params["lm_head"]
+
+
+def phase_moe(counts: dict, errs: dict, card: str, dev) -> dict:
+    """(m) The MoE serving path: moonshot-v1-16b-a3b at full width with 24
+    of its 48 layers (all 48 hold 115.6 GB in fp32), fp32 with TF32 off,
+    random weights from a torch.Generator seeded 0, 8 prompts of 1024
+    tokens from numpy default_rng(0), 32 new tokens, greedy.  (m-a) one
+    MoE layer on the card against the CPU port; (m-b) ``generate``, its
+    K3 / K4 launches, peak memory under 80 GB and tokens; (m-c) each
+    layer's input (the kernel path's) through the kernels and the plain
+    versions: tokens routed alike within rtol = atol = 1e-4, every routing
+    flip a near tie (gap <= 1e-5 x the max probability); the whole
+    prefill's logits kernels vs plain, held to 1e-4 only where no layer's
+    routing flipped.  Returns what (m-f) profiles."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as Mdl
+
+    cfg = dataclasses.replace(get_arch(MOE["arch"]),
+                              n_layers=MOE["n_layers"])
+    b, plen, new, max_len = (MOE[k] for k in
+                             ("batch", "prompt_len", "max_new", "max_len"))
+    log(f"  memory_allocated at the start of the phase: "
+        f"{torch.cuda.memory_allocated()} B [{card}]")
+    moe_layer_card_vs_cpu(cfg, dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Mdl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {Mdl.param_count(params)} parameters (fp32, "
+        f"{cfg.n_layers} of 48 layers) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(b, plen))
+    t0 = time.perf_counter()
+    generate(cfg, params, prompts, 3, max_len)     # warm-up, not counted
+    log(f"  warm-up generate (prefill + 2 decode steps): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (m-b) the counted run
+    reset_all_launches()
+    tokens, t = generate(cfg, params, prompts, new, max_len)
+    counts["moe_serve"] = {**rn.launches, **fa.launches}
+    want = expected_lm_launches(cfg, new)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (m-b) generate: prefill {t['prefill_s']:.4f} s "
+        f"({b * plen / t['prefill_s']:.1f} tok/s), decode {t['decode_s']:.4f}"
+        f" s for {new - 1} steps ({b * (new - 1) / t['decode_s']:.1f} tok/s,"
+        f" {t['decode_s'] / (new - 1) * 1e3:.2f} ms a step); launches "
+        f"{counts['moe_serve']} (expected {want}); max_memory_allocated "
+        f"{peak} B [{card}]")
+    if counts["moe_serve"] != want:
+        raise AssertionError(f"(m-b) launches {counts['moe_serve']} != "
+                             f"{want}")
+    if peak >= MOE["peak_limit"]:
+        raise AssertionError(f"(m-b) peak {peak} B is not under 80 GB")
+    tok = tokens.cpu().numpy()
+    if tok.shape != (b, new) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"(m-b) bad tokens: {tok.shape} {tok.min()} "
+                             f"{tok.max()}")
+    log(f"  first request continuation: {tok[0][:16].tolist()}")
+
+    # (m-c) kernels against plain, layer by layer, then the whole prefill
+    toks = torch.as_tensor(prompts, device=dev)
+    caches = Mdl.init_caches(cfg, b, max_len, device=dev)
+    kern = Mdl.forward(cfg, params, toks, mode="prefill", caches=caches)[0]
+    del caches
+    if not torch.equal(kern.argmax(-1).cpu(), tokens[:, 0].cpu()):
+        raise AssertionError("(m-b) generate's first tokens are not the "
+                             "argmax of the kernel path's prefill logits")
+    xs, probs_k, chain = moe_chain(cfg, params, toks, "flash")
+    if not torch.equal(chain, kern):
+        raise AssertionError("(m-c) the layer-by-layer kernel path does not "
+                             "reproduce forward's prefill logits bitwise")
+    flips = knocks = 0
+    worst = 0.0
+    drops = []
+    for i in range(cfg.n_layers):
+        y_ref, pr_ref = moe_layer(cfg, params, i, xs[i], "ref")
+        agree, f, kn, dropped = routing_parts(
+            f"(m-c) layer {i}", probs_k[i], pr_ref, cfg, 1e-5)
+        worst = max(worst, rows_close(f"(m-c) layer {i}", xs[i + 1], y_ref,
+                                      agree, 1e-4, 1e-4))
+        flips, knocks = flips + f, knocks + kn
+        drops.append(dropped)
+    log(f"  (m-c) {cfg.n_layers} layers, kernels vs plain on the kernel "
+        f"path's inputs: max |diff| {worst:.3g} on tokens routed alike; "
+        f"{flips} routing flips (each a near tie, gap <= 1e-5), {knocks} "
+        f"knock-on drops; copies dropped by layer "
+        f"{[round(d, 6) for d in drops]}")
+    errs["moe_layers"] = worst
+    del xs
+    _, probs_r, plain = moe_chain(cfg, params, toks, "ref")
+    whole_flips, whole_diff = other_dispatch(probs_k, probs_r, cfg)
+    err = float((kern - plain).abs().max())
+    same_top = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    log(f"  (m-c) whole prefill, kernels vs plain: logits max |diff| "
+        f"{err:.3g} (max |logit| {float(plain.abs().max()):.4g}), argmax "
+        f"agrees on {same_top} of {b}; {whole_flips} tokens routed to other "
+        f"experts and {whole_diff} with other dispatch over the "
+        f"{cfg.n_layers} layers")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("(m-c) prefill logits are not finite")
+    if whole_diff == 0 and not torch.allclose(kern, plain, rtol=1e-4,
+                                              atol=1e-4):
+        raise AssertionError(f"(m-c) prefill logits: kernels vs plain max "
+                             f"|diff| {err} beyond 1e-4 with no routing flip")
+    return {"cfg": cfg, "params": params, "prompts": prompts}
+
+
+def moe_decode(served: dict, steps: int):
+    """Prefill the served prompts into fresh caches, and return a function
+    that runs ``steps`` greedy decode steps on them from the prompts' end
+    ((m-f)'s decode-only profile; a second call rewrites the same cache
+    positions)."""
+    import torch
+
+    from repro_torch.models import model as Mdl
+
+    cfg, params, prompts = (served[k] for k in ("cfg", "params", "prompts"))
+    dev = params["embed"].device
+    caches = Mdl.init_caches(cfg, prompts.shape[0], MOE["max_len"],
+                             device=dev)
+    logits, caches, _ = Mdl.forward(cfg, params, torch.as_tensor(
+        prompts, device=dev), mode="prefill", caches=caches)
+    first = logits.argmax(-1)
+
+    def decode():
+        x = first
+        for i in range(steps):
+            lg, _ = Mdl.forward(cfg, params, x[:, None], mode="decode",
+                                caches=caches, pos=prompts.shape[1] + i)
+            x = lg.argmax(-1)
+
+    return decode
+
+
+def phase_moe_train(counts: dict, card: str, dev) -> None:
+    """(m-d) Training through the dispatch: moonshot-v1-16b-a3b at full
+    width, 2 layers, global batch 4 x 1024 of the port's Markov data,
+    remat, fp32 (TF32 off).  One counted ``train_step`` (K3 / K3b / K4 /
+    K4b launches held to the layer pattern); the kernels' loss and grad
+    norm against the plain path's within rel 1e-5, every leaf's gradient
+    nonzero (router, experts, shared expert among them), and, where both
+    paths dispatched every token alike (no near-tie routing flip), every
+    leaf's max |dg| <= 1e-4 x max |g_plain|, as training check (a); two
+    passes bitwise; remat off bitwise remat on."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import upload
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.models.convert import flatten
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+
+    cfg = dataclasses.replace(get_arch(MOE["arch"]),
+                              n_layers=MOE["train_layers"])
+    b, s = MOE["train_batch"], MOE["train_seq"]
+    tc = TT.TrainConfig(optimizer=AdamWConfig(lr=3e-3, weight_decay=0.1),
+                        remat=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                                  mean_doc_len=s / 2))
+    batch = {k: upload(v, dev) for k, v in data.batch(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    state = TT.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    TT.loss_and_grads(cfg, tc, state.params, batch)        # warm-up
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    m = TT.train_step(cfg, tc, state, batch)[1]
+    loss0 = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    counts["moe_train"] = {**rn.launches, **fa.launches}
+    want = expected_train_launches(cfg)
+    log(f"  (m-d) {cfg.name}, {cfg.n_layers} layers, batch {b} x {s}, remat:"
+        f" step loss {loss0:.6f} (ce {float(m['ce']):.6f}, aux "
+        f"{float(m['aux']):.6f}), grad norm {float(m['grad_norm']):.6f}, "
+        f"{step_s:.3f} s; launches {counts['moe_train']} (expected {want})"
+        f" [{card}]")
+    if counts["moe_train"] != want:
+        raise AssertionError(f"(m-d) launches {counts['moe_train']} != "
+                             f"{want}")
+    with router_probs() as probs_k:
+        lk, mk, gk = TT.loss_and_grads(cfg, tc, state.params, batch)
+    with router_probs() as probs_r:
+        lr_, mr, gr = TT.loss_and_grads(cfg, tc, state.params, batch,
+                                        impl="ref")
+    flips, diff = other_dispatch(probs_k, probs_r, cfg)
+    del probs_k, probs_r
+    nk, nr = float(global_norm(gk)), float(global_norm(gr))
+    fk, fr = flatten(gk), flatten(gr)
+    worst = max((float((fk[n] - fr[n]).abs().max())
+                 / max(float(fr[n].abs().max()), 1e-30), n) for n in fr)
+    log(f"  (m-d) kernels vs plain: loss {float(lk):.7f} vs "
+        f"{float(lr_):.7f}, aux {float(mk['aux']):.7f} vs "
+        f"{float(mr['aux']):.7f}, grad norm {nk:.7f} vs {nr:.7f}, worst "
+        f"leaf max |dg| / max |g| {worst[0]:.3g} ({worst[1]}); {flips} "
+        f"tokens routed to other experts, {diff} with other dispatch, over "
+        f"the MoE calls of the pass")
+    if abs(float(lk) - float(lr_)) > 1e-5 * abs(float(lr_)):
+        raise AssertionError("(m-d) loss: kernels vs plain beyond rel 1e-5")
+    if abs(nk - nr) > 1e-5 * nr:
+        raise AssertionError("(m-d) grad norm: kernels vs plain beyond rel "
+                             "1e-5")
+    if diff == 0 and worst[0] > 1e-4:
+        raise AssertionError(f"(m-d) leaf {worst[1]}: max |dg| beyond 1e-4 "
+                             f"x max |g| with no routing flip")
+    if diff:
+        log(f"  (m-d) worst-leaf gate not applied: routing flips part the "
+            f"two paths")
+    dead = [n for n, g in fk.items() if not bool(g.any())]
+    if dead:
+        raise AssertionError(f"(m-d) no gradient reaches {dead[:8]}")
+    del gr, fr
+    _, _, g2 = TT.loss_and_grads(cfg, tc, state.params, batch)
+    twice = all(torch.equal(x, y) for x, y in zip(fk.values(),
+                                                  flatten(g2).values()))
+    del g2
+    ln, mn, gn = TT.loss_and_grads(cfg, dataclasses.replace(tc, remat=False),
+                                   state.params, batch)
+    no_remat = torch.equal(ln, lk) and all(
+        torch.equal(x, y) for x, y in zip(fk.values(), flatten(gn).values()))
+    log(f"  (m-d) two passes bitwise: {twice}; remat off bitwise remat on: "
+        f"{no_remat}; every leaf's gradient nonzero ({len(fk)} leaves, "
+        f"{sorted(n for n in fk if '/moe/' in n or 'shared' in n)[:3]} "
+        f"...); peak {torch.cuda.max_memory_allocated()} B")
+    if not twice:
+        raise AssertionError("(m-d) two backward passes differ")
+    if not no_remat:
+        raise AssertionError("(m-d) remat changes the loss or gradients")
+
+
 def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
-    """K4 and K3 at the served shapes, K4 with L, K4b and K3b at the
-    training shapes: ms per launch by CUDA events, the plain version's ms,
+    """K4 and K3 at the served shapes (gemma3-1b's and, (m-e),
+    moonshot's), K4 with L, K4b and K3b at the training shapes: ms per
+    launch by CUDA events, the plain version's ms,
     the bound (fp32 FLOPs of the unmasked score pairs only; each input read
     once, each output written once; for K4b also the bound of the route it
     takes, three TF32 products a product on the tensor cores) and one
@@ -2451,11 +2874,34 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f"max |diff| {lib_err:.3g} to plain, bound {b_ms:.4f} ms by "
             f"{b_by})")
 
+    # (m-e) K4 at the MoE serve path's shape: D = 128, Hq = Hkv = 16
+    mh, md = 16, 128
+    q, k, v = (rand(b, mh, t, md) for _ in range(3))
+    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
+    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    want = attention_ref(q, k, v)
+    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        "K4 timed input, moonshot global", fa_ops.flash_attention(q, k, v),
+        want, 2e-5))
+    pairs = t * (t + 1) / 2 * b * mh
+    b_ms, b_by = flop_bound(4.0 * pairs * md, 4.0 * 4 * q.numel())
+    k4["moonshot_global"] = dict(
+        shape=f"({b},{mh},{t},{md}) Hkv {mh} fp32, causal (global)", ms=ms,
+        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  K4 moonshot layer ({b},{mh},{t},{md}) Hkv {mh} fp32: {ms:.4f} ms"
+        f" (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"by {b_by})")
+    del q, k, v, want
+
     k3 = {}
     for label, rows, dd in (("residual", b * t, 1152),
                             ("q_norm", b * t * hq, d),
                             ("decode_residual", b, 1152),
-                            ("decode_q_norm", b * hq, d)):
+                            ("decode_q_norm", b * hq, d),
+                            ("moonshot_residual", b * t, 2048),
+                            ("moonshot_decode_residual", b, 2048)):
         x, s = rand(rows, dd), rand(dd, sd=0.1)
         w = 1.0 + s
         ms = time_ms(lambda: rn_ops.rmsnorm(x, s, 1e-6), reps=50)
@@ -2466,8 +2912,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             rmsnorm_ref(x, s, 1e-6), 1e-6, rel=True))
         b_ms, b_by = flop_bound(4.0 * x.numel(),
                                 4.0 * (2 * x.numel() + dd))
-        k3[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+        k3[label] = dict(shape=f"({rows}, {dd}) fp32", ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by)
         log(f"  K3 {label} ({rows}, {dd}) fp32: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.5f} "
             f"ms by {b_by})")
@@ -2563,6 +3010,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 "replaces": replaces, "shape": shape,
                 "launches": counts[path][name],
                 "launches_train_step": counts["train"][name],
+                "launches_moonshot_serve": counts["moe_serve"][name],
+                "launches_moonshot_train_step": counts["moe_train"][name],
                 "max_abs_err": errs[name],
                 "max_abs_err_bf16": errs[name + "_bf16"], **main,
                 other_label: other}
@@ -2573,7 +3022,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               f"({b * t}, 1152) fp32, the residual", k3["residual"],
               "q_norm", k3["q_norm"])
         | {"decode_residual": k3["decode_residual"],
-           "decode_q_norm": k3["decode_q_norm"]},
+           "decode_q_norm": k3["decode_q_norm"],
+           "moonshot_residual": k3["moonshot_residual"],
+           "moonshot_decode_residual": k3["moonshot_decode_residual"]},
         entry("flash_attention",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention.cu",
@@ -2581,6 +3032,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               f"({b},{hq},{t},{d}) Hkv {hkv} fp32, causal (global layer)",
               k4["global"], "local_window_512", k4["local"])
         | {"also_replaces": ["src/repro/kernels/flash_attention/ops.py:76"],
+           "moonshot_global": k4["moonshot_global"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
                "global": k4l["global"], "local_window_512": k4l["local"]}},
@@ -2696,6 +3148,25 @@ def main() -> int:
                                 trained["state"], trained["batch"]))
     del trained
     log(f"  training phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"phase: (m) MoE serving, {MOE['arch']} at full width "
+        f"({MOE['n_layers']} of 48 layers)")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    served = phase_moe(counts, errs, card, dev)
+    profiled(f"(m-f) serve {MOE['arch']} ({MOE['n_layers']} layers): prefill "
+             f"{MOE['batch']} x {MOE['prompt_len']} + 4 decode steps "
+             f"[{card}]",
+             lambda: generate(served["cfg"], served["params"],
+                              served["prompts"], 5, MOE["max_len"]))
+    decode = moe_decode(served, 4)
+    decode()                                              # warm-up
+    profiled(f"(m-f) the same, 4 decode steps alone [{card}]", decode)
+    del served, decode
+    torch.cuda.empty_cache()
+    phase_moe_train(counts, card, dev)
+    torch.cuda.empty_cache()
+    log(f"  (m) phase: {time.perf_counter() - t0:.1f} s")
     log("phase: kernel timing at the paths' shapes")
     entries = phase_timing(rng, counts, errs)
     entries += phase_lm_timing(rng, counts, errs)

@@ -214,8 +214,9 @@ def restore(directory: str, template: Tree, *,
         def leaf_of(key, leaf):
             arr = data[key]
             if isinstance(leaf, torch.Tensor):
-                return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                    device=leaf.device, dtype=leaf.dtype)
+                # ascontiguousarray makes a 0-d array 1-d: shape it back
+                return torch.from_numpy(np.ascontiguousarray(arr).reshape(
+                    arr.shape)).to(device=leaf.device, dtype=leaf.dtype)
             return np.asarray(arr).astype(np.asarray(leaf).dtype)
 
         tree = _rebuild(template, leaf_of)

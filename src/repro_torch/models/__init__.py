@@ -1,3 +1,3 @@
-"""The dense-family language model of the port: layers (``layers``), the
-decoder stack (``model``) and parameters carried over from the JAX package
-(``convert``)."""
+"""The dense- and MoE-family language models of the port: layers
+(``layers``), the MoE layer (``moe``), the decoder stack (``model``) and
+parameters carried over from the JAX package (``convert``)."""

@@ -54,9 +54,10 @@ def _to_tensor(arr: np.ndarray, device, dtype) -> torch.Tensor:
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device=None,
                     dtype=None) -> Dict[str, Any]:
     """The JAX package's parameters (a nested dict of numpy arrays) as the
-    port's, on ``device`` (None = CUDA) and in ``dtype`` (None = as given).
-    Raises unless names and shapes are exactly the port's layout for
-    ``cfg`` -- a tied config carries no ``lm_head``."""
+    port's, on ``device`` (None = CUDA) and in ``dtype`` (None = as given;
+    an MoE router stays fp32 whatever ``dtype``, as both packages' inits
+    make it).  Raises unless names and shapes are exactly the port's layout
+    for ``cfg`` -- a tied config carries no ``lm_head``."""
     dev = resolve_device(device)
     got = flatten(tree)
     want = param_shapes(cfg)
@@ -68,11 +69,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device=None,
            if tuple(np.shape(got[n])) != s}
     if bad:
         raise ValueError(f"parameter shapes differ (got, want): {bad}")
-    skeleton = init_params(cfg, device="meta")
+    # the skeleton's leaves carry each parameter's dtype under ``dtype``
+    skeleton = init_params(cfg, device="meta", dtype=dtype or torch.float32)
 
     def fill(node, src):
         return {k: fill(v, src[k]) if isinstance(v, dict)
-                else _to_tensor(src[k], dev, dtype) for k, v in node.items()}
+                else _to_tensor(src[k], dev, v.dtype if dtype else None)
+                for k, v in node.items()}
 
     return fill(skeleton, tree)
 

@@ -1,15 +1,20 @@
-"""Model assembly for the dense family: the JAX package's generic decoder
-stack (``models/model.py``) for configs with ``family == "dense"`` and no
-frontend (gemma3-1b, gemma3-27b, granite-8b, qwen1.5-4b).
+"""Model assembly for the dense and MoE families: the JAX package's generic
+decoder stack (``models/model.py``) for configs with ``family`` "dense"
+(gemma3-1b, gemma3-27b, granite-8b, qwen1.5-4b) or "moe"
+(moonshot-v1-16b-a3b; llama4-maverick once its vision frontend is ported)
+and no frontend.
 
 Layer weights are stacked on a leading block axis, as in the JAX package:
 ``params["blocks"]["pos{j}"]`` holds the j-th layer of every repetition of
-the layer pattern (gemma3: 5 local + 1 global), and ``params["rem"]
-["rem{j}"]`` the ``n_layers % period`` remainder layers, which take the
-kinds of pattern positions 0, 1, ...  The JAX ``lax.scan`` over blocks is a
-Python loop over the block axis here; ``shard(...)`` is a no-op without a
-mesh and is dropped.  Local layers get window-sized rolling KV caches,
-global ones full-length caches.
+the layer pattern (gemma3: 5 local + 1 global; llama4: a dense layer, then
+an MoE one), and ``params["rem"]["rem{j}"]`` the ``n_layers % period``
+remainder layers, which take the kinds of pattern positions 0, 1, ...  The
+JAX ``lax.scan`` over blocks is a Python loop over the block axis here;
+``shard(...)`` is a no-op without a mesh and is dropped.  Local layers get
+window-sized rolling KV caches, global ones full-length caches.  An MoE
+layer (``models.moe``) replaces the MLP with routed experts, plus a shared
+expert where the config has one; its router's load-balancing loss is the
+layer's aux, summed over the layers in order.
 
 Modes:
   * train:   full-sequence causal; returns (logits, aux)
@@ -41,6 +46,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .layers import (IMPLS, attention_apply, dense_init, init_attention,
                      init_mlp, mlp_apply, rms_norm, rope, zeros)
+from . import moe
 
 __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
            "init_caches", "forward", "check_supported", "MODES"]
@@ -54,12 +60,12 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
             f"(ROADMAP Queue A item 13d)")
-    if cfg.family != "dense":
-        item = {"moe": "13b", "ssm": "13c", "hybrid": "13c"}.get(cfg.family,
-                                                                 "13d")
+    if cfg.family not in ("dense", "moe"):
+        item = {"ssm": "13c", "hybrid": "13c"}.get(cfg.family, "13d")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue A item {item}); the port runs the dense family")
+            f"Queue A item {item}); the port runs the dense and MoE "
+            f"families")
 
 
 # ---------------------------------------------------------------------------
@@ -67,31 +73,43 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def pattern_period(cfg: ArchConfig) -> int:
-    """Layers per repetition of the dense layer pattern (gemma3: 6)."""
+    """Layers per repetition of the layer pattern (gemma3: 6; llama4: 2)."""
+    if cfg.family == "moe":
+        return max(cfg.moe_period, 1)
     if cfg.sliding_window is not None and cfg.global_period > 0:
         return cfg.global_period
     return 1
 
 
 def layer_kind(cfg: ArchConfig, j: int) -> Dict[str, Any]:
-    """Kind of the dense layer at pattern position j (absolute index
-    i = j mod P): its attention window, None for a global layer."""
+    """Kind of the layer at pattern position j (absolute index i = j mod
+    P): its type, "moe" or "dense", and its attention window, None for a
+    global layer."""
     window = None
     if cfg.sliding_window is not None and not cfg.is_global_layer(j):
         window = cfg.sliding_window
-    return {"window": window}
+    return {"type": "moe" if cfg.is_moe_layer(j) else "dense",
+            "window": window}
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: ArchConfig, generator, dtype, device, lead=()) -> Tree:
-    return {"ln1": zeros(lead + (cfg.d_model,), dtype, device),
-            "attn": init_attention(generator, cfg, dtype, device, lead),
-            "ln2": zeros(lead + (cfg.d_model,), dtype, device),
-            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                            dtype, device, lead)}
+def _init_layer(cfg: ArchConfig, kind, generator, dtype, device,
+                lead=()) -> Tree:
+    p = {"ln1": zeros(lead + (cfg.d_model,), dtype, device),
+         "attn": init_attention(generator, cfg, dtype, device, lead),
+         "ln2": zeros(lead + (cfg.d_model,), dtype, device)}
+    if kind["type"] == "moe":
+        p["moe"] = moe.init_moe(generator, cfg, dtype, device, lead)
+        if cfg.shared_expert:
+            p["shared_mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.mlp_kind, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                            dtype, device, lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -116,9 +134,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                        dtype, dev)
     params["blocks"] = {
-        f"pos{j}": _init_layer(cfg, generator, dtype, dev, (n_blocks,))
+        f"pos{j}": _init_layer(cfg, layer_kind(cfg, j), generator, dtype,
+                               dev, (n_blocks,))
         for j in range(per)} if n_blocks > 0 else {}
-    params["rem"] = {f"rem{j}": _init_layer(cfg, generator, dtype, dev)
+    params["rem"] = {f"rem{j}": _init_layer(cfg, layer_kind(cfg, j),
+                                            generator, dtype, dev)
                      for j in range(n_rem)}
     return params
 
@@ -211,7 +231,10 @@ def _prefill_kv(cfg: ArchConfig, ap: Tree, h: torch.Tensor,
 
 
 def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
-                    positions, cache, cache_pos, mode, impl) -> torch.Tensor:
+                    positions, cache, cache_pos, mode, impl) -> tuple:
+    """One attention + MLP (or MoE) layer: (x, aux), aux the router's
+    load-balancing loss, None for a dense layer (the reference adds a zero
+    aux there)."""
     window = kind["window"]
     plain = impl == "ref"
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plain)
@@ -226,7 +249,12 @@ def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
             _prefill_kv(cfg, lp["attn"], h, positions, cache, plain)
     x = x + attn_out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps, plain)
-    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_kind)
+    if kind["type"] == "moe":
+        moe_out, probs = moe.moe_apply(lp["moe"], h2, cfg)
+        if cfg.shared_expert:
+            moe_out = moe_out + mlp_apply(lp["shared_mlp"], h2, cfg.mlp_kind)
+        return x + moe_out, moe.router_aux_loss(probs)
+    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_kind), None
 
 
 # ---------------------------------------------------------------------------
@@ -274,28 +302,33 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     kw = dict(positions=positions, cache_pos=cache_pos,
               mode="train" if training else mode, impl=impl)
 
-    def block(x_, i):
-        """Repetition i of the layer pattern."""
+    def block(x_, aux_, i):
+        """Repetition i of the layer pattern; aux_ plus its layers' aux."""
         for j in range(per):
             lp = _index(params["blocks"][f"pos{j}"], i)
             cache = None if training else \
                 _index(caches["blocks"][f"pos{j}"], i)
-            x_ = _attn_mlp_layer(cfg, kinds[j], lp, x_, cache=cache, **kw)
-        return x_
+            x_, aj = _attn_mlp_layer(cfg, kinds[j], lp, x_, cache=cache,
+                                     **kw)
+            if aj is not None:
+                aux_ = aux_ + aj
+        return x_, aux_
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_blocks):
         if remat:
-            x = checkpoint(block, x, i, use_reentrant=False)
+            x, aux = checkpoint(block, x, aux, i, use_reentrant=False)
         else:
-            x = block(x, i)
+            x, aux = block(x, aux, i)
     for j in range(n_rem):
         cache = None if training else caches["rem"][f"rem{j}"]
-        x = _attn_mlp_layer(cfg, kinds[j], params["rem"][f"rem{j}"], x,
-                            cache=cache, **kw)
+        x, aj = _attn_mlp_layer(cfg, kinds[j], params["rem"][f"rem{j}"], x,
+                                cache=cache, **kw)
+        if aj is not None:
+            aux = aux + aj
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, impl == "ref")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train_hidden":
         return x, head, aux
     if mode == "train":

@@ -127,3 +127,22 @@ def test_async_save_snapshots_before_the_caller_moves_on(tmp_path):
     ck.wait()
     got, _ = tck.restore(str(tmp_path), {"w": torch.zeros(1000)})
     assert torch.equal(got["w"], torch.ones(1000))
+
+
+def test_moe_state_round_trips_across_packages(tmp_path):
+    """An MoE training state (moonshot smoke: router, experts, shared
+    expert) written by either package restores into the other bitwise."""
+    js, ts = _states("moonshot-v1-16b-a3b")
+    keys = list(tck.flatten_with_keys(ts))
+    assert keys == list(jck._flatten(js)[0])
+    assert "[<flat index 0>]['blocks']['pos0']['moe']['router']" in keys
+    jck.save(str(tmp_path / "j"), 1, js)
+    got, step = tck.restore(str(tmp_path / "j"), ts)
+    assert step == 1 and got.opt.step.shape == ()      # a 0-d counter
+    for a, b in zip(_tleaves(got), _jleaves(js)):
+        np.testing.assert_array_equal(a, b)
+    tck.save(str(tmp_path / "t"), 2, got)
+    back, step = jck.restore(str(tmp_path / "t"), js)
+    assert step == 2
+    for a, b in zip(_jleaves(back), _jleaves(js)):
+        np.testing.assert_array_equal(a, b)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card: the
 min-plus kernels K1/K2 bitwise, RMSNorm (K3) and flash attention (K4) and
-their gradients (K3b, K4b) within the tolerances stated at their tests.
+their gradients (K3b, K4b) within the tolerances stated at their tests;
+and the MoE layer's dispatch on the card against the CPU port and against
+itself (bitwise, forward and backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false.  The file imports
@@ -342,6 +344,9 @@ FLASH_CASES = [
     dict(b=2, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=512),
     dict(b=2, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
     dict(b=1, hq=4, hkv=1, tq=37, tk=37, d=16, causal=True, window=16),
+    # moonshot-v1-16b-a3b's layer: D = 128, Hq = Hkv = 16
+    dict(b=2, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
+         window=None),
 ]
 
 
@@ -448,6 +453,9 @@ BWD_CASES = FLASH_CASES[:6] + [FLASH_RAGGED[i]
     dict(b=1, hq=8, hkv=1, tq=200, tk=200, d=256, causal=True, window=None),
     dict(b=1, hq=4, hkv=2, tq=300, tk=300, d=128, causal=True, window=100),
     dict(b=4, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
+    # moonshot-v1-16b-a3b's training shape (D = 128, Hq = Hkv = 16)
+    dict(b=4, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
+         window=None),
 ]
 
 
@@ -556,7 +564,9 @@ def test_flash_attention_function_grads_through_transposed_views(cuda):
                                         # chunk; d either side of D_MAX
                                         (4097, 1152, 0), (9, 256, 0),
                                         (1001, rn_kernel.D_MAX, 0),
-                                        (1001, rn_kernel.D_MAX + 8, 0)])
+                                        (1001, rn_kernel.D_MAX + 8, 0),
+                                        # moonshot's training rows
+                                        (4096, rn_kernel.D_MAX, 0)])
 def test_rmsnorm_bwd_matches_plain(cuda, dtype, rows, d, off):
     """K3b against ``rmsnorm_bwd_ref`` (dx and dscale, see
     :func:`grad_close`), rows on and one element off a 16-byte boundary;
@@ -961,3 +971,102 @@ def test_service_state_on_card_routes_as_cpu(cuda, policy):
             with batcheval.eval_options(method="squaring"):
                 want = cpu.route(int(a), int(b))
             assert card.route(int(a), int(b)) == want
+
+
+# --- the MoE layer ------------------------------------------------------------
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_layer_on_card_matches_cpu(cuda, cf):
+    """moonshot-v1-16b-a3b's MoE layer at full width, 1,024 tokens; at cf 0.5
+    about half the copies are dropped.  A token routed to another expert set
+    on the card must be a near tie (k-th / (k+1)-th probability gap <= 1e-6
+    of the row's max); other drops may differ only beside such a flip;
+    tokens dispatched alike agree within rtol 1e-4, atol 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b"),
+                              capacity_factor=cf)
+    p = moe.init_moe(torch.Generator().manual_seed(2), cfg, torch.float32,
+                     "cpu")
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, 512, cfg.d_model)).astype(np.float32))
+    y, probs = moe.moe_apply({k: v.to(cuda) for k, v in p.items()},
+                             x.to(cuda), cfg)
+    yc, probsc = moe.moe_apply(p, x, cfg)
+    a = moe.dispatch_codes(probs.cpu(), cfg)
+    b = moe.dispatch_codes(probsc, cfg)
+    flip = ((a > 0) != (b > 0)).any(-1)
+    if flip.any():
+        top = probsc.topk(cfg.top_k + 1, dim=-1).values
+        gap = (top[:, -2] - top[:, -1]) / top[:, 0]
+        assert float(gap[flip].max()) <= 1e-6
+    else:
+        assert torch.equal(a, b)
+    if cf == 0.5:
+        assert int((b == 1).sum()) > 0
+    alike = ~(a != b).any(-1)
+    assert int(alike.sum()) >= 1000
+    torch.testing.assert_close(y.cpu().reshape(1024, -1)[alike],
+                               yc.reshape(1024, -1)[alike], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_moe_layer_forward_and_backward_bitwise_on_card(cuda):
+    """Two runs of moonshot's MoE layer (full width, cf 0.5 so that copies
+    drop) give the same bits, output and every gradient: no atomics."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b"),
+                              capacity_factor=0.5)
+    p = moe.init_moe(torch.Generator(device=cuda).manual_seed(3), cfg,
+                     torch.float32, cuda)
+    x = torch.randn(2, 512, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    out = []
+    for _ in range(2):
+        ps = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        y, probs = moe.moe_apply(ps, xx, cfg)
+        (y.square().mean() + moe.router_aux_loss(probs)).backward()
+        out.append([y.detach(), xx.grad] + [ps[k].grad for k in sorted(ps)])
+    assert all(torch.equal(u, v) for u, v in zip(*out))
+    assert all(bool(g.any()) for g in out[0][1:])
+
+
+def test_moe_train_step_grads_bitwise_and_remat_on_card(cuda):
+    """moonshot smoke through the kernels on the card: two passes of the
+    gradients and remat against none bitwise, and the kernels' loss and
+    gradients against the plain path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke()
+    state = TT.init_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (4, 64))).to(cuda)
+    batch = {"tokens": toks, "labels": toks}
+    tc = TT.TrainConfig(remat=True)
+    runs = [TT.loss_and_grads(cfg, c, state.params, batch) for c in
+            (tc, tc, dataclasses.replace(tc, remat=False))]
+    for loss, m, g in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        assert torch.equal(m["aux"], runs[0][1]["aux"])
+        assert all(torch.equal(u, v) for u, v in
+                   zip(tree_leaves(g), tree_leaves(runs[0][2])))
+    loss, m, g = TT.loss_and_grads(cfg, tc, state.params, batch, impl="ref")
+    assert float(m["aux"]) > 0
+    torch.testing.assert_close(loss, runs[0][0], rtol=1e-5, atol=0)
+    for u, v in zip(tree_leaves(runs[0][2]), tree_leaves(g)):
+        assert bool(u.any())
+        torch.testing.assert_close(u, v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()))

@@ -25,6 +25,7 @@ def test_import_leaves_jax_out():
             "repro_torch.core.batcheval, repro_torch.core.selection, "
             "repro_torch.core.ga, repro_torch.kernels.minplus.ops, "
             "repro_torch.configs, repro_torch.models.model, "
+            "repro_torch.models.moe, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.rmsnorm.ops, "
@@ -61,6 +62,7 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     assert len(files) >= 15, files
     scanned = {str(p.relative_to(PORT)) for p in files}
     for mod in ("models/layers.py", "models/model.py", "models/convert.py",
+                "models/moe.py",
                 "launch/serve.py", "configs/base.py", "kernels/_build.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/flash_attention/ops.py",

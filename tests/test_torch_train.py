@@ -303,10 +303,12 @@ def _trajectories(name):
 
 
 @pytest.mark.parametrize("steps", [1, 3])
-@pytest.mark.parametrize("name", ["gemma3-1b", "granite-8b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-8b",
+                                  "moonshot-v1-16b-a3b"])
 def test_train_step_matches_jax(name, steps):
     jm, tm, jtrees, ttrees, jstep, tstep = _trajectories(name)[steps - 1]
     assert jstep == tstep == steps
+    assert (jm["aux"] > 0) == name.startswith("moonshot")   # MoE aux loss
     for key in ("loss", "ce", "grad_norm", "n_tok", "aux"):
         assert tm[key] == pytest.approx(jm[key], rel=1e-5, abs=1e-7), key
     for what, jt, tt in zip(("params", "mu", "nu"), jtrees, ttrees):
@@ -341,7 +343,8 @@ def test_microbatch_equivalence():
         TT.train_step(cfg, TT.TrainConfig(microbatches=3), state, batch)
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "gemma3-1b"])
+@pytest.mark.parametrize("name", ["granite-8b", "gemma3-1b",
+                                  "moonshot-v1-16b-a3b"])
 def test_remat_equivalence(name):
     """Remat recomputes each block in the backward: the same loss and, on
     the CPU, the same gradients bit for bit."""
