@@ -5,8 +5,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its
 plain-torch twin on the card: the min-plus kernels K1/K2 bitwise, RMSNorm
-K3 and flash attention K4, and their gradients K3b and K4b, within stated
-tolerances.  Then it drives the
+K3 and flash attention K4, their gradients K3b and K4b, and Mamba1's
+selective scan K5, within stated tolerances.  Then it drives the
 port's two paths, each with the kernels' launch counters reset just before
 and read just after:
 
@@ -62,7 +62,15 @@ and read just after:
   4 decode steps and of 4 decode steps alone, (m-d) ``train_step`` through
   the dispatch at depth 2: kernels against plain (loss, grad norm, and
   every leaf where no routing flip parts the paths), two passes and remat
-  bitwise.
+  bitwise;
+* SSM serving (f), (z) -- falcon-mamba-7b (64 Mamba1 layers, K5) and
+  zamba2-7b (81 Mamba2 layers and 13 calls of a shared attention block,
+  K4 at D = 112) at full width and depth: (x-a) one layer on the card
+  against the CPU port (and K5 against its plain version at the prefill's
+  shape), (x-b) ``launch.serve.generate`` with its K3 / K4 / K5 launches
+  and peak memory, (x-c) the prefill's logits through the kernels against
+  the plain versions, (x-d) decode against the train-mode forward, (x-f)
+  profiles of the prefill with 4 decode steps and of 4 decode steps alone.
 
 It times every kernel at its path's shapes (K2 in every cluster size and
 pivots per barrier it is built for, beside a probe of the cluster
@@ -74,6 +82,7 @@ when any phase fails.  Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -136,14 +145,26 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def reset_all_launches() -> None:
-    """Every kernel's launch count to 0 (before a path is driven)."""
+def families() -> tuple:
+    """Every kernel family of the port."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.minplus import kernel as mp
     from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.kernels.selective_scan import kernel as ss
 
-    for fam in (mp.FAMILY, rn.FAMILY, fa.FAMILY):
+    return mp.FAMILY, rn.FAMILY, fa.FAMILY, ss.FAMILY
+
+
+def reset_all_launches() -> None:
+    """Every kernel's launch count to 0 (before a path is driven)."""
+    for fam in families():
         fam.reset_launches()
+
+
+def lm_launches() -> dict:
+    """The LM paths' launch counts: K3, K3b, K4, K4b and K5."""
+    _, rn, fa, ss = families()
+    return {**rn.launches, **fa.launches, **ss.launches}
 
 
 def check_equal(what: str, got, want) -> float:
@@ -1920,6 +1941,8 @@ FLASH_CASES = [   # the JAX package's kernel test cases, then the served shapes
     dict(b=8, hq=4, hkv=1, tq=1024, tk=1024, d=256, causal=True, window=None),
     dict(b=8, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
          window=None),                                  # moonshot prefill
+    dict(b=8, hq=32, hkv=32, tq=1024, tk=1024, d=112, causal=True,
+         window=None),                                  # zamba2's shared block
 ]
 
 
@@ -1964,7 +1987,10 @@ def phase_lm_kernels(rng, errs: dict) -> None:
         for rows, d, off in ((8 * 1024, 1152, 0), (8 * 1024 * 4, 256, 0),
                              (1, 1152, 0), (7, 1152, 0), (300, 256, 0),
                              (5, 8192, 0), (7, 1150, 0), (300, 256, 1),
-                             (8 * 1024, 2048, 0), (8, 2048, 0)):
+                             (8 * 1024, 2048, 0), (8, 2048, 0),
+                             (8 * 1024, 4096, 0), (8, 4096, 0),
+                             (8 * 1024, 3584, 0), (8, 3584, 0),
+                             (8 * 1024, 7168, 0), (8, 7168, 0)):
             # off = 1: rows one element off a 16-byte boundary
             x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
             s = rand((d,), dt, 0.1)
@@ -2127,17 +2153,33 @@ SERVE = dict(arch="gemma3-1b", batch=8, prompt_len=1024, max_new=32,
 
 
 def expected_lm_launches(cfg, max_new: int) -> dict:
-    """K3 / K4 launches of one ``generate``.  Per layer, prefill runs ln1
-    and ln2 and, with qk_norm, q_norm, k_norm and ``_prefill_kv``'s
-    k_norm; decode runs ln1, ln2 (+ q_norm, k_norm); every forward ends in
-    the final norm.  K4 runs once per layer in prefill only: decode attends
-    over the cache with the plain masked softmax."""
+    """K3 / K4 / K5 launches of one ``generate``.  Attention families: per
+    layer, prefill runs ln1 and ln2 and, with qk_norm, q_norm, k_norm and
+    ``_prefill_kv``'s k_norm; decode runs ln1, ln2 (+ q_norm, k_norm);
+    every forward ends in the final norm.  K4 runs once per layer in
+    prefill only: decode attends over the cache with the plain masked
+    softmax.  SSM families: every forward runs each layer's ln (and a
+    Mamba2 layer's gate norm), ln1 and ln2 of each shared attention call
+    and the final norm; K4 runs once per shared attention call and K5 once
+    per Mamba1 layer, in prefill only (decode steps the recurrence in plain
+    torch)."""
+    from repro_torch.models.model import layer_kind, pattern_period
+
+    if cfg.family in ("ssm", "hybrid"):
+        per = pattern_period(cfg)
+        kinds = [layer_kind(cfg, i % per) for i in range(cfg.n_layers)]
+        attn = sum(k["shared_attn"] for k in kinds)
+        mamba1 = sum(k["type"] == "mamba1" for k in kinds)
+        forward = 2 * cfg.n_layers - mamba1 + 2 * attn + 1
+        return {"rmsnorm": forward * max_new, "flash_attention": attn,
+                "selective_scan": mamba1, "rmsnorm_bwd": 0,
+                "flash_attention_bwd": 0}
     qk = 2 if cfg.qk_norm else 0
     prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
     decode = cfg.n_layers * (2 + qk) + 1
     return {"rmsnorm": prefill + (max_new - 1) * decode,
             "flash_attention": cfg.n_layers, "rmsnorm_bwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "selective_scan": 0}
 
 
 def phase_serve(counts: dict, errs: dict) -> dict:
@@ -2150,8 +2192,6 @@ def phase_serve(counts: dict, errs: dict) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as Mdl
 
@@ -2174,7 +2214,7 @@ def phase_serve(counts: dict, errs: dict) -> dict:
 
     reset_all_launches()
     tokens, t = generate(cfg, params, prompts, new, max_len)
-    counts["serve"] = {**rn.launches, **fa.launches}
+    counts["serve"] = lm_launches()
     want = expected_lm_launches(cfg, new)
     log(f"  generate: prefill {t['prefill_s']:.4f} s "
         f"({b * plen / t['prefill_s']:.1f} tok/s), decode {t['decode_s']:.4f}"
@@ -2229,7 +2269,7 @@ def expected_train_launches(cfg) -> dict:
     k3 = cfg.n_layers * norms + 1
     return {"rmsnorm": k3 + again * norms, "rmsnorm_bwd": k3,
             "flash_attention": cfg.n_layers + again,
-            "flash_attention_bwd": cfg.n_layers}
+            "flash_attention_bwd": cfg.n_layers, "selective_scan": 0}
 
 
 def phase_train(counts: dict, card: str) -> dict:
@@ -2257,8 +2297,6 @@ def phase_train(counts: dict, card: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.device import upload
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.models.convert import flatten
     from repro_torch.train import train_step as TT
     from repro_torch.train.optimizer import (AdamWConfig, global_norm,
@@ -2290,7 +2328,7 @@ def phase_train(counts: dict, card: str) -> dict:
     m0 = TT.train_step(cfg, tc, state, batches[0])[1]
     loss0 = float(m0["loss"])
     step0_s = time.perf_counter() - t0
-    counts["train"] = {**rn.launches, **fa.launches}
+    counts["train"] = lm_launches()
     want = expected_train_launches(cfg)
     log(f"  (f) step 0: loss {loss0:.6f}, grad norm "
         f"{float(m0['grad_norm']):.6f}, {step0_s:.3f} s; launches "
@@ -2583,8 +2621,6 @@ def phase_moe(counts: dict, errs: dict, card: str, dev) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as Mdl
 
@@ -2614,7 +2650,7 @@ def phase_moe(counts: dict, errs: dict, card: str, dev) -> dict:
     # (m-b) the counted run
     reset_all_launches()
     tokens, t = generate(cfg, params, prompts, new, max_len)
-    counts["moe_serve"] = {**rn.launches, **fa.launches}
+    counts["moe_serve"] = lm_launches()
     want = expected_lm_launches(cfg, new)
     peak = torch.cuda.max_memory_allocated()
     log(f"  (m-b) generate: prefill {t['prefill_s']:.4f} s "
@@ -2682,19 +2718,18 @@ def phase_moe(counts: dict, errs: dict, card: str, dev) -> dict:
     return {"cfg": cfg, "params": params, "prompts": prompts}
 
 
-def moe_decode(served: dict, steps: int):
+def decode_steps(served: dict, steps: int, max_len: int):
     """Prefill the served prompts into fresh caches, and return a function
     that runs ``steps`` greedy decode steps on them from the prompts' end
-    ((m-f)'s decode-only profile; a second call rewrites the same cache
-    positions)."""
+    (the decode-only profiles; a second call rewrites the same cache
+    positions, and an SSM state steps on from where the first left it)."""
     import torch
 
     from repro_torch.models import model as Mdl
 
     cfg, params, prompts = (served[k] for k in ("cfg", "params", "prompts"))
     dev = params["embed"].device
-    caches = Mdl.init_caches(cfg, prompts.shape[0], MOE["max_len"],
-                             device=dev)
+    caches = Mdl.init_caches(cfg, prompts.shape[0], max_len, device=dev)
     logits, caches, _ = Mdl.forward(cfg, params, torch.as_tensor(
         prompts, device=dev), mode="prefill", caches=caches)
     first = logits.argmax(-1)
@@ -2726,8 +2761,6 @@ def phase_moe_train(counts: dict, card: str, dev) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.device import upload
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.models.convert import flatten
     from repro_torch.train import train_step as TT
     from repro_torch.train.optimizer import AdamWConfig, global_norm
@@ -2750,7 +2783,7 @@ def phase_moe_train(counts: dict, card: str, dev) -> None:
     m = TT.train_step(cfg, tc, state, batch)[1]
     loss0 = float(m["loss"])
     step_s = time.perf_counter() - t0
-    counts["moe_train"] = {**rn.launches, **fa.launches}
+    counts["moe_train"] = lm_launches()
     want = expected_train_launches(cfg)
     log(f"  (m-d) {cfg.name}, {cfg.n_layers} layers, batch {b} x {s}, remat:"
         f" step loss {loss0:.6f} (ce {float(m['ce']):.6f}, aux "
@@ -2810,6 +2843,245 @@ def phase_moe_train(counts: dict, card: str, dev) -> None:
         raise AssertionError("(m-d) remat changes the loss or gradients")
 
 
+SSM = dict(archs=("falcon-mamba-7b", "zamba2-7b"), batch=8, prompt_len=1024,
+           max_new=32, max_len=1056, layer_batch=2, layer_seq=256,
+           check_batch=2, check_prompt=128, check_steps=128,
+           peak_limit=80e9)
+# exp on the special-function units: 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x the H100 SXM's 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def rel_close(what: str, got, want, tol: float = 1e-5) -> float:
+    """Fail unless ``got`` is finite and max |got - want| <= tol x
+    max |want|; returns max |diff|."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float().to(got.device)
+    if g.shape != w.shape:
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} != "
+                             f"{tuple(w.shape)}")
+    err = float((g - w).abs().max())
+    top = float(w.abs().max())
+    if not bool(torch.isfinite(g).all()) or err > tol * top:
+        raise AssertionError(f"{what}: max |diff| {err} beyond {tol} x max "
+                             f"|want| {top}")
+    log(f"  {what}: max |diff| {err:.3g} = {err / top:.3g} x max |want| "
+        f"{top:.4g}")
+    return err
+
+
+def scan_inputs(shape: tuple, seed: int, dev) -> tuple:
+    """K5's inputs at (B, S, d, N), made on the card from a torch Generator:
+    dt = softplus(N(0, 1) - 4.6) (the layers' dt_b: dt ~ 0.01), x, B_t,
+    C_t and a nonzero h0 unit normals, A = -(1..N) per channel (the Mamba1
+    init's -exp(A_log))."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, d, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    return (F.softplus(randn(b, s, d) - 4.6), randn(b, s, d), randn(b, s, n),
+            randn(b, s, n), a.expand(d, n).contiguous(), randn(b, d, n))
+
+
+def ssm_layer_card_vs_cpu(cfg, tag: str, dev, errs: dict) -> None:
+    """(x-a) One SSM layer at full width, B = 2, S = 256, weights from a
+    torch Generator seeded 1 carried to the CPU, input unit normals from
+    numpy default_rng(1): the card (Mamba1 through K5, Mamba2 through K3's
+    gate norm) against the CPU port (the plain versions), the output, the
+    conv state and the SSM state within 1e-5 x max |want|.  falcon adds K5
+    against its plain version on the card at the prefill's (8, 1024, 8192,
+    16) with a nonzero h0; zamba2 one shared attention call (K4 at D = 112
+    against the CPU's plain attention), within the same bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.selective_scan import kernel as ss
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.models import layers, mamba
+
+    m1 = cfg.ssm_kind == "mamba1"
+    init = mamba.init_mamba1 if m1 else mamba.init_mamba2
+    apply = mamba.mamba1_apply if m1 else mamba.mamba2_apply
+    p = init(torch.Generator(device=dev).manual_seed(1), cfg, torch.float32,
+             dev)
+    x = np.random.default_rng(1).normal(
+        0, 1, (SSM["layer_batch"], SSM["layer_seq"], cfg.d_model)) \
+        .astype(np.float32)
+    before = ss.launches["selective_scan"]
+    got = apply(p, torch.from_numpy(x).to(dev), cfg)
+    launched = ss.launches["selective_scan"] - before
+    t0 = time.perf_counter()
+    want = apply({k: v.cpu() for k, v in p.items()}, torch.from_numpy(x), cfg)
+    cpu_s = time.perf_counter() - t0
+    what = f"({tag}-a) {cfg.ssm_kind} layer {tuple(x.shape)} card vs CPU"
+    for w, g, ww in (("y", got[0], want[0]),
+                     ("conv state", got[1][0], want[1][0]),
+                     ("SSM state", got[1][1], want[1][1])):
+        rel_close(f"{what} {w}", g, ww)
+    log(f"  {what}: K5 launches {launched}, CPU {cpu_s:.2f} s")
+    if launched != int(m1):
+        raise AssertionError(f"{what}: {launched} K5 launches")
+    del p, got
+    if m1:
+        ins = scan_inputs((SSM["batch"], SSM["prompt_len"], cfg.d_inner,
+                           cfg.ssm_state), 2, dev)
+        got = ss.selective_scan(*ins)
+        want = selective_scan_ref(*ins)
+        errs["selective_scan"] = max(errs.get("selective_scan", 0.0), max(
+            rel_close(f"({tag}-a) K5 {tuple(ins[0].shape)} N="
+                      f"{cfg.ssm_state}, nonzero h0, vs plain {w}", g, ww)
+            for w, g, ww in zip(("y", "h_last"), got, want)))
+        return
+    ap = layers.init_attention(torch.Generator(device=dev).manual_seed(3),
+                               cfg, torch.float32, dev)
+    pos = torch.arange(SSM["layer_seq"], dtype=torch.int32)
+    before = fa.launches["flash_attention"]
+    out, _ = layers.attention_apply(ap, torch.from_numpy(x).to(dev), cfg,
+                                    positions=pos.to(dev), window=None)
+    if fa.launches["flash_attention"] != before + 1:
+        raise AssertionError(f"({tag}-a) the shared attention call did not "
+                             f"run K4")
+    outc, _ = layers.attention_apply({k: v.cpu() for k, v in ap.items()},
+                                     torch.from_numpy(x), cfg, positions=pos,
+                                     window=None)
+    rel_close(
+        f"({tag}-a) shared attention {tuple(x.shape)}, {cfg.n_heads} heads "
+        f"of D = {cfg.hd}, card (K4) vs CPU", out, outc)
+
+
+def phase_ssm(arch: str, counts: dict, errs: dict, card: str, dev) -> dict:
+    """(f) / (z) The SSM serving paths: ``arch`` (falcon-mamba-7b: 64
+    Mamba1 layers; zamba2-7b: 81 Mamba2 layers and 13 calls of the shared
+    attention block) at full width and full depth, fp32 with TF32 off,
+    random weights from a torch.Generator seeded 0, 8 prompts of 1024
+    tokens from numpy default_rng(0), 32 new tokens, greedy.  (x-a) one
+    layer card vs CPU (``ssm_layer_card_vs_cpu``); (x-b) ``generate``: its
+    K3 / K4 / K5 launches equal to ``expected_lm_launches``, peak memory
+    under 80 GB, tokens in range; (x-c) the prefill's last-position logits
+    through the kernels against ``impl="ref"`` on the card within rtol =
+    atol = 1e-4, and generate's first tokens their argmax; (x-d) prefill of
+    128 tokens and 128 decode steps against the train-mode forward over
+    the 256 tokens (B = 2, teacher-forced), every position's logits within
+    the reference's 2e-3 (``tests/test_models.py``).  Returns what (x-f)
+    profiles."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as Mdl
+
+    cfg = get_arch(arch)
+    key = arch.split("-")[0]
+    tag = key[0]
+    b, plen, new, max_len = (SSM[k] for k in
+                             ("batch", "prompt_len", "max_new", "max_len"))
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    log(f"  memory_allocated at the start of the phase: {held} B, "
+        f"{torch.cuda.memory_allocated()} B after a cyclic collection "
+        f"[{card}]")
+    with torch.no_grad():
+        ssm_layer_card_vs_cpu(cfg, tag, dev, errs)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Mdl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {Mdl.param_count(params)} parameters (fp32, all "
+        f"{cfg.n_layers} layers) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(b, plen))
+    t0 = time.perf_counter()
+    generate(cfg, params, prompts, 3, max_len)     # warm-up, not counted
+    log(f"  warm-up generate (prefill + 2 decode steps): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (x-b) the counted run
+    reset_all_launches()
+    tokens, t = generate(cfg, params, prompts, new, max_len)
+    counts[f"{key}_serve"] = got = lm_launches()
+    want = expected_lm_launches(cfg, new)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  ({tag}-b) generate: prefill {t['prefill_s']:.4f} s "
+        f"({b * plen / t['prefill_s']:.1f} tok/s), decode {t['decode_s']:.4f}"
+        f" s for {new - 1} steps ({b * (new - 1) / t['decode_s']:.1f} tok/s,"
+        f" {t['decode_s'] / (new - 1) * 1e3:.2f} ms a step); launches {got} "
+        f"(expected {want}); max_memory_allocated {peak} B [{card}]")
+    if got != want:
+        raise AssertionError(f"({tag}-b) launches {got} != {want}")
+    if peak >= SSM["peak_limit"]:
+        raise AssertionError(f"({tag}-b) peak {peak} B is not under 80 GB")
+    tok = tokens.cpu().numpy()
+    if tok.shape != (b, new) or tok.min() < 0 or tok.max() >= cfg.vocab:
+        raise AssertionError(f"({tag}-b) bad tokens: {tok.shape} "
+                             f"{tok.min()} {tok.max()}")
+    log(f"  first request continuation: {tok[0][:16].tolist()}")
+
+    # (x-c) the prefill's logits, kernels against plain
+    toks = torch.as_tensor(prompts, device=dev)
+
+    def prefill(impl):
+        caches = Mdl.init_caches(cfg, b, max_len, device=dev)
+        return Mdl.forward(cfg, params, toks, mode="prefill", caches=caches,
+                           impl=impl)[0]
+
+    kern = prefill("flash")
+    t0 = time.perf_counter()
+    plain = prefill("ref")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = float((kern - plain).abs().max())
+    log(f"  ({tag}-c) prefill logits ({b} x {plen}), kernels vs plain on the "
+        f"card: max |diff| {err:.3g} (max |logit| "
+        f"{float(plain.abs().max()):.4g}); the plain prefill took "
+        f"{plain_s:.2f} s")
+    if not bool(torch.isfinite(kern).all()) or not torch.allclose(
+            kern, plain, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"({tag}-c) prefill logits: kernels vs plain "
+                             f"max |diff| {err} beyond rtol = atol = 1e-4")
+    if not torch.equal(kern.argmax(-1).cpu(), tokens[:, 0].cpu()):
+        raise AssertionError(f"({tag}-b) generate's first tokens are not the "
+                             f"argmax of the kernel path's prefill logits")
+    del kern, plain
+
+    # (x-d) decode against the train-mode forward
+    cb, cp, cs = (SSM[k] for k in ("check_batch", "check_prompt",
+                                   "check_steps"))
+    seq = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, size=(cb, cp + cs)), device=dev)
+    with torch.no_grad():
+        full, _ = Mdl.forward(cfg, params, seq, mode="train")
+        caches = Mdl.init_caches(cfg, cb, cp + cs, device=dev)
+        lp, caches, _ = Mdl.forward(cfg, params, seq[:, :cp], mode="prefill",
+                                    caches=caches)
+        diffs = [(lp - full[:, cp - 1]).abs().max()]
+        for i in range(cp, cp + cs):
+            ld, caches = Mdl.forward(cfg, params, seq[:, i:i + 1],
+                                     mode="decode", caches=caches, pos=i)
+            diffs.append((ld - full[:, i]).abs().max())
+    worst = float(torch.stack(diffs).max())
+    log(f"  ({tag}-d) prefill {cp} + {cs} decode steps vs the train forward "
+        f"over {cp + cs} tokens (B = {cb}): max |dlogit| {worst:.3g} (max "
+        f"|logit| {float(full.abs().max()):.4g}; the reference's bound 2e-3)")
+    if not worst < 2e-3:
+        raise AssertionError(f"({tag}-d) decode vs train forward max "
+                             f"|dlogit| {worst} not under 2e-3")
+    del full, caches
+    return {"cfg": cfg, "params": params, "prompts": prompts}
+
+
 def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     """K4 and K3 at the served shapes (gemma3-1b's and, (m-e),
     moonshot's), K4 with L, K4b and K3b at the training shapes: ms per
@@ -2831,6 +3103,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
     dev = torch.device("cuda")
     b, hq, hkv, t, d = SERVE["batch"], 4, 1, SERVE["prompt_len"], 256
@@ -2893,7 +3168,60 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     log(f"  K4 moonshot layer ({b},{mh},{t},{md}) Hkv {mh} fp32: {ms:.4f} ms"
         f" (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"by {b_by})")
+
+    # K4 at zamba2-7b's shared attention: D = 112, Hq = Hkv = 32
+    zh, zd = 32, 112
+    q, k, v = (rand(b, zh, t, zd) for _ in range(3))
+    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
+    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    want = attention_ref(q, k, v)
+    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        "K4 timed input, zamba2 shared block", fa_ops.flash_attention(
+            q, k, v), want, 2e-5))
+    pairs = t * (t + 1) / 2 * b * zh
+    b_ms, b_by = flop_bound(4.0 * pairs * zd, 4.0 * 4 * q.numel())
+    k4["zamba2_shared"] = dict(
+        shape=f"({b},{zh},{t},{zd}) Hkv {zh} fp32, causal (global)", ms=ms,
+        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  K4 zamba2 shared block ({b},{zh},{t},{zd}) Hkv {zh} fp32: "
+        f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by})")
     del q, k, v, want
+
+    # K5 at falcon-mamba-7b's prefill layer.  Bytes: dt and x read, y
+    # written, B_t / C_t, A, h0 and h_last.  Operations: per (b, t, c, n)
+    # one exp on the special-function units and dt*A, decay*h + dx*B and
+    # the FMA of y (6 fp32 FLOP, an FMA = 2), plus dt*x per (b, t, c);
+    # the operation floor is the slower of the two pipes.
+    falcon = get_arch(SSM["archs"][0])
+    shape = (SSM["batch"], SSM["prompt_len"], falcon.d_inner,
+             falcon.ssm_state)
+    ins = scan_inputs(shape, 4, dev)
+    ms = time_ms(lambda: ss_kernel.selective_scan(*ins), reps=20)
+    plain = time_ms(lambda: selective_scan_ref(*ins), reps=3, warmup=1)
+    errs["selective_scan"] = max(errs["selective_scan"], max(
+        rel_close(f"K5 timed input {w}", g, ww) for w, g, ww in zip(
+            ("y", "h_last"), ss_kernel.selective_scan(*ins),
+            selective_scan_ref(*ins))))
+    sb, ss_, sd, sn = shape
+    elems = float(sb * ss_ * sd * sn)
+    flops = 6.0 * elems + sb * ss_ * sd
+    nbytes = 4.0 * (3 * sb * ss_ * sd + 2 * sb * ss_ * sn + sd * sn
+                    + 2 * sb * sd * sn)
+    fp32_ms, sfu_ms = flops / FLOP_PER_S * 1e3, elems / SFU_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
+        if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
+    k5 = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+              bound_by=b_by, bound_ms_bytes=bytes_ms, bound_ms_fp32=fp32_ms,
+              bound_ms_exp=sfu_ms)
+    log(f"  K5 falcon prefill layer {shape} fp32: {ms:.4f} ms (plain "
+        f"{plain:.3f} ms, no library call; bound {b_ms:.4f} ms by {b_by}: "
+        f"exps {sfu_ms:.4f} ms on the SFUs, bytes {bytes_ms:.4f} ms, fp32 "
+        f"{fp32_ms:.4f} ms)")
+    del ins
 
     k3 = {}
     for label, rows, dd in (("residual", b * t, 1152),
@@ -2901,7 +3229,13 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                             ("decode_residual", b, 1152),
                             ("decode_q_norm", b * hq, d),
                             ("moonshot_residual", b * t, 2048),
-                            ("moonshot_decode_residual", b, 2048)):
+                            ("moonshot_decode_residual", b, 2048),
+                            ("falcon_residual", b * t, 4096),
+                            ("falcon_decode_residual", b, 4096),
+                            ("zamba2_residual", b * t, 3584),
+                            ("zamba2_decode_residual", b, 3584),
+                            ("zamba2_gate", b * t, 7168),
+                            ("zamba2_decode_gate", b, 7168)):
         x, s = rand(rows, dd), rand(dd, sd=0.1)
         w = 1.0 + s
         ms = time_ms(lambda: rn_ops.rmsnorm(x, s, 1e-6), reps=50)
@@ -2979,6 +3313,41 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f" ms, bound {b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, "
             f"{tc_ms:.4f} ms by {tc_by} as 3xTF32 on the tensor cores)")
 
+    # K4b at moonshot-v1-16b-a3b's training shape: D = 128, Hq = Hkv = 16
+    q, k, v, do = (rand(bt, mh, t, md) for _ in range(4))
+    kw = dict(scale=md ** -0.5, causal=True, window=None)
+    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+    ms = time_ms(lambda: fa_kernel.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw), reps=10)
+    plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                    reps=3, warmup=1)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    lib_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do),
+                     reps=10) - time_ms(lambda: sdpa().detach(), reps=10)
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], max(
+        grad_close(f"K4b timed input, moonshot {w}", g, ww)
+        for w, g, ww in zip(("dq", "dk", "dv"),
+                            fa_kernel.flash_attention_bwd(
+                                q, k, v, out, lse, do, **kw),
+                            attention_bwd_ref(q, k, v, out, lse, do, **kw))))
+    pairs = t * (t + 1) / 2 * bt * mh
+    nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+    b_ms, b_by = flop_bound(10.0 * pairs * md, nbytes)
+    tc_ms, tc_by = flop_bound(30.0 * pairs * md, nbytes, TF32_FLOP_PER_S)
+    k4b["moonshot_train"] = dict(
+        shape=f"({bt},{mh},{t},{md}) Hkv {mh} fp32, causal (global)",
+        ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_ms_3xtf32=tc_ms, bound_by_3xtf32=tc_by)
+    log(f"  K4b moonshot layer ({bt},{mh},{t},{md}) Hkv {mh} fp32: {ms:.4f} "
+        f"ms (plain {plain:.3f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, {tc_ms:.4f} ms "
+        f"by {tc_by} as 3xTF32 on the tensor cores)")
+    del q, k, v, do, out, lse, qg, kg, vg
+
     k3b = {}
     for label, rows, dd in (("residual", bt * t, 1152),
                             ("q_norm", bt * t * hq, d)):
@@ -3012,6 +3381,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 "launches_train_step": counts["train"][name],
                 "launches_moonshot_serve": counts["moe_serve"][name],
                 "launches_moonshot_train_step": counts["moe_train"][name],
+                "launches_falcon_serve": counts["falcon_serve"][name],
+                "launches_zamba2_serve": counts["zamba2_serve"][name],
                 "max_abs_err": errs[name],
                 "max_abs_err_bf16": errs[name + "_bf16"], **main,
                 other_label: other}
@@ -3024,7 +3395,10 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         | {"decode_residual": k3["decode_residual"],
            "decode_q_norm": k3["decode_q_norm"],
            "moonshot_residual": k3["moonshot_residual"],
-           "moonshot_decode_residual": k3["moonshot_decode_residual"]},
+           "moonshot_decode_residual": k3["moonshot_decode_residual"]}
+        | {label: k3[label] for label in (
+            "falcon_residual", "falcon_decode_residual", "zamba2_residual",
+            "zamba2_decode_residual", "zamba2_gate", "zamba2_decode_gate")},
         entry("flash_attention",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention.cu",
@@ -3033,6 +3407,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               k4["global"], "local_window_512", k4["local"])
         | {"also_replaces": ["src/repro/kernels/flash_attention/ops.py:76"],
            "moonshot_global": k4["moonshot_global"],
+           "zamba2_shared": k4["zamba2_shared"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
                "global": k4l["global"], "local_window_512": k4l["local"]}},
@@ -3048,7 +3423,17 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               "src/repro/models/layers.py:79 (jax.grad of "
               "_masked_attention; no Pallas kernel)",
               f"({bt},{hq},{t},{d}) Hkv {hkv} fp32, causal (global layer)",
-              k4b["global"], "local_window_512", k4b["local"], path="train"),
+              k4b["global"], "local_window_512", k4b["local"], path="train")
+        | {"moonshot_train": k4b["moonshot_train"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                   "selective_scan.cu",
+         "replaces": "src/repro/models/mamba.py:82 (_ssm_scan_chunked, "
+                     "plain jnp; no Pallas kernel)",
+         "shape": f"{shape} fp32, falcon-mamba-7b's prefill layer",
+         "launches": counts["falcon_serve"]["selective_scan"],
+         "launches_zamba2_serve": counts["zamba2_serve"]["selective_scan"],
+         "max_abs_err": errs["selective_scan"], **k5},
     ]
 
 
@@ -3063,9 +3448,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.minplus import kernel as mp
-    from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.launch.serve import generate
     from repro_torch.train.train_step import train_step
 
@@ -3080,11 +3462,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    secs = _build.build(mp.FAMILY, rn.FAMILY, fa.FAMILY)
-    n_src = sum(len(f.sources) for f in (mp.FAMILY, rn.FAMILY, fa.FAMILY))
+    secs = _build.build(*families())
+    n_src = sum(len(f.sources) for f in families())
     log(f"kernel build ({n_src} sources, one nvcc each, in parallel): "
         f"{secs:.1f} s")
-    for fam in (mp.FAMILY, rn.FAMILY, fa.FAMILY):
+    for fam in families():
         for name, out in fam.build_log.items():
             function = "?"
             for line in out.splitlines():
@@ -3159,7 +3541,7 @@ def main() -> int:
              f"[{card}]",
              lambda: generate(served["cfg"], served["params"],
                               served["prompts"], 5, MOE["max_len"]))
-    decode = moe_decode(served, 4)
+    decode = decode_steps(served, 4, MOE["max_len"])
     decode()                                              # warm-up
     profiled(f"(m-f) the same, 4 decode steps alone [{card}]", decode)
     del served, decode
@@ -3167,6 +3549,22 @@ def main() -> int:
     phase_moe_train(counts, card, dev)
     torch.cuda.empty_cache()
     log(f"  (m) phase: {time.perf_counter() - t0:.1f} s")
+    for arch in SSM["archs"]:
+        tag = arch[0]
+        log(f"phase: ({tag}) SSM serving, {arch} at full width and depth")
+        t0 = time.perf_counter()
+        served = phase_ssm(arch, counts, errs, card, dev)
+        profiled(f"({tag}-f) serve {arch}: prefill {SSM['batch']} x "
+                 f"{SSM['prompt_len']} + 4 decode steps [{card}]",
+                 lambda: generate(served["cfg"], served["params"],
+                                  served["prompts"], 5, SSM["max_len"]))
+        decode = decode_steps(served, 4, SSM["max_len"])
+        decode()                                          # warm-up
+        profiled(f"({tag}-f) the same, 4 decode steps alone [{card}]",
+                 decode)
+        del served, decode
+        torch.cuda.empty_cache()
+        log(f"  ({tag}) phase: {time.perf_counter() - t0:.1f} s")
     log("phase: kernel timing at the paths' shapes")
     entries = phase_timing(rng, counts, errs)
     entries += phase_lm_timing(rng, counts, errs)

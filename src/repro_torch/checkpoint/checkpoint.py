@@ -58,43 +58,43 @@ def _children(node):
     return None
 
 
+def _walk_keys(node, prefix: str, out: Dict[str, Any]) -> None:
+    kids = _children(node)
+    if kids is None:
+        out[prefix] = node
+        return
+    for key, child in kids:
+        _walk_keys(child, prefix + key, out)
+
+
 def flatten_with_keys(tree: Tree) -> Dict[str, Any]:
-    """``{keystr: leaf}`` in ``jax.tree.flatten``'s order."""
+    """``{keystr: leaf}`` in ``jax.tree.flatten``'s order.  (Module-level
+    recursions here: a nested function that calls itself is a reference
+    cycle, which would hold the leaves until Python's cyclic collector
+    runs.)"""
     out: Dict[str, Any] = {}
-
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            out[prefix] = node
-            return
-        for key, child in kids:
-            walk(child, prefix + key)
-
-    walk(tree, "")
+    _walk_keys(tree, "", out)
     return out
 
 
-def _rebuild(tree: Tree, leaf_of) -> Tree:
-    """``tree`` with each leaf replaced by ``leaf_of(keystr, leaf)``."""
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            return {key: walk(node[key], f"{prefix}[{key!r}]")
-                    for key in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(walk(getattr(node, n), f"{prefix}.{n}")
-                                for n in node._fields))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c, f"{prefix}[{i}]")
-                              for i, c in enumerate(node))
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            return type(node)(**{
-                f.name: walk(getattr(node, f.name),
+def _rebuild(node: Tree, leaf_of, prefix: str = "") -> Tree:
+    """``node`` with each leaf replaced by ``leaf_of(keystr, leaf)``."""
+    if isinstance(node, dict):
+        return {key: _rebuild(node[key], leaf_of, f"{prefix}[{key!r}]")
+                for key in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_rebuild(getattr(node, n), leaf_of,
+                                     f"{prefix}.{n}")
+                            for n in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(c, leaf_of, f"{prefix}[{i}]")
+                          for i, c in enumerate(node))
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return type(node)(**{
+            f.name: _rebuild(getattr(node, f.name), leaf_of,
                              f"{prefix}[<flat index {i}>]")
-                for i, f in enumerate(dataclasses.fields(node))})
-        return leaf_of(prefix, node)
-
-    return walk(tree, "")
+            for i, f in enumerate(dataclasses.fields(node))})
+    return leaf_of(prefix, node)
 
 
 def _to_numpy(leaf) -> np.ndarray:

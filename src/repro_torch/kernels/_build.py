@@ -1,10 +1,10 @@
 """One way to build and bind the port's hand-written CUDA kernels.
 
-Every kernel family (``minplus``, ``rmsnorm``, ``flash_attention``) keeps
-its sources in its own ``csrc/`` and describes them with a
-:class:`KernelFamily`: the C entry point of each source (named like the
-kernel), its ``ctypes`` argument types, a launch counter per kernel and
-nvcc's report of each build.
+Every kernel family (``minplus``, ``rmsnorm``, ``flash_attention``,
+``selective_scan``) keeps its sources in its own ``csrc/`` and describes
+them with a :class:`KernelFamily`: the C entry point of each source (named
+like the kernel), its ``ctypes`` argument types, a launch counter per
+kernel and nvcc's report of each build.
 
 At first use each source is compiled by its own ``nvcc`` process into a
 shared library with a plain C interface under ``build/kernels/`` of the

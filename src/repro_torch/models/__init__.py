@@ -1,3 +1,4 @@
-"""The dense- and MoE-family language models of the port: layers
-(``layers``), the MoE layer (``moe``), the decoder stack (``model``) and
-parameters carried over from the JAX package (``convert``)."""
+"""The dense-, MoE-, SSM- and hybrid-family language models of the port:
+layers (``layers``), the MoE layer (``moe``), the Mamba1 / Mamba2 blocks
+(``mamba``), the decoder stack (``model``) and parameters carried over
+from the JAX package (``convert``)."""

@@ -2,8 +2,9 @@
 
 Both keep the same tree: ``embed``, ``final_norm``, ``lm_head`` (absent when
 the embeddings are tied: the head is ``embed.T``), ``blocks/pos{j}/...``
-stacked on a leading block axis and ``rem/rem{j}/...`` unstacked, each
-applied by its forward in the same order.  Leaves travel as numpy arrays
+stacked on a leading block axis, ``rem/rem{j}/...`` unstacked and, in the
+hybrid family, the one ``shared_attn`` block, each applied by its forward
+in the same order.  Leaves travel as numpy arrays
 (the JAX side: ``jax.tree.map(np.asarray, params)``), so this module needs
 neither package's arrays, only their shapes: :func:`param_shapes` lists the
 port's layout on the ``meta`` device without allocating it, which lets a
@@ -54,9 +55,10 @@ def _to_tensor(arr: np.ndarray, device, dtype) -> torch.Tensor:
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device=None,
                     dtype=None) -> Dict[str, Any]:
     """The JAX package's parameters (a nested dict of numpy arrays) as the
-    port's, on ``device`` (None = CUDA) and in ``dtype`` (None = as given;
-    an MoE router stays fp32 whatever ``dtype``, as both packages' inits
-    make it).  Raises unless names and shapes are exactly the port's layout
+    port's, on ``device`` (None = CUDA) and in ``dtype`` (None = as given).
+    A leaf that both packages' inits make fp32 whatever their dtype stays
+    fp32: an MoE router, and an SSM's ``A_log``, ``D`` and Mamba2's
+    ``dt_b``.  Raises unless names and shapes are exactly the port's layout
     for ``cfg`` -- a tied config carries no ``lm_head``."""
     dev = resolve_device(device)
     got = flatten(tree)

@@ -1,39 +1,48 @@
-"""Model assembly for the dense and MoE families: the JAX package's generic
-decoder stack (``models/model.py``) for configs with ``family`` "dense"
-(gemma3-1b, gemma3-27b, granite-8b, qwen1.5-4b) or "moe"
-(moonshot-v1-16b-a3b; llama4-maverick once its vision frontend is ported)
-and no frontend.
+"""Model assembly: the JAX package's generic decoder stack
+(``models/model.py``) for configs with ``family`` "dense" (gemma3-1b,
+gemma3-27b, granite-8b, qwen1.5-4b), "moe" (moonshot-v1-16b-a3b;
+llama4-maverick once its vision frontend is ported), "ssm"
+(falcon-mamba-7b) or "hybrid" (zamba2-7b), and no frontend.
 
 Layer weights are stacked on a leading block axis, as in the JAX package:
 ``params["blocks"]["pos{j}"]`` holds the j-th layer of every repetition of
 the layer pattern (gemma3: 5 local + 1 global; llama4: a dense layer, then
-an MoE one), and ``params["rem"]["rem{j}"]`` the ``n_layers % period``
+an MoE one; zamba2: 6 Mamba2 layers, the last followed by the shared
+attention block), and ``params["rem"]["rem{j}"]`` the ``n_layers % period``
 remainder layers, which take the kinds of pattern positions 0, 1, ...  The
 JAX ``lax.scan`` over blocks is a Python loop over the block axis here;
 ``shard(...)`` is a no-op without a mesh and is dropped.  Local layers get
 window-sized rolling KV caches, global ones full-length caches.  An MoE
 layer (``models.moe``) replaces the MLP with routed experts, plus a shared
 expert where the config has one; its router's load-balancing loss is the
-layer's aux, summed over the layers in order.
+layer's aux, summed over the layers in order.  An SSM layer
+(``models.mamba``) is a norm and a Mamba1 or Mamba2 block; its cache is
+the conv state (in the cache dtype) and the SSM state (always fp32).  In
+the hybrid family one set of attention + MLP weights,
+``params["shared_attn"]``, runs after every ``shared_attn_period``-th SSM
+layer, each call with its own full-length K/V cache in that layer's cache.
 
 Modes:
   * train:   full-sequence causal; returns (logits, aux)
   * train_hidden: as train, but returns (x, head, aux), the final hidden
              states and the head, for a chunked cross-entropy that never
              holds the (B, S, V) logits
-  * prefill: full-sequence causal + fills the KV caches; returns
+  * prefill: full-sequence causal + fills the caches; returns
              (last-position logits, caches, aux)
   * decode:  one token against the caches; returns (logits, caches)
 
 Unlike the JAX package, prefill and decode write the caches IN PLACE (the
 returned caches are the tensors passed in): one full-width cache is then
 never copied per step.  ``impl`` "flash" runs the kernels (K3 RMSNorm, K4
-prefill attention) on CUDA; "ref" the plain versions throughout.  In the
-train modes the kernels are autograd Functions (K3b and K4b backward).
-``remat`` recomputes each repetition of the layer pattern in the backward
-(``torch.utils.checkpoint``, non-reentrant), saving only its input, as the
-JAX package's ``jax.checkpoint(..., nothing_saveable)`` over its scan body;
-the remainder layers and the final norm are not recomputed, as there.
+prefill attention, K5 Mamba1's scan) on CUDA; "ref" the plain versions
+throughout.  In the train modes K3 and K4 are autograd Functions (K3b and
+K4b backward); K5 has no backward yet, so the SSM families run the train
+modes only without grad on CUDA (training them is ROADMAP Queue A item
+13c′).  ``remat`` recomputes each repetition of the layer pattern in the
+backward (``torch.utils.checkpoint``, non-reentrant), saving only its
+input, as the JAX package's ``jax.checkpoint(..., nothing_saveable)`` over
+its scan body; the remainder layers and the final norm are not
+recomputed, as there.
 """
 from __future__ import annotations
 
@@ -46,12 +55,15 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .layers import (IMPLS, attention_apply, dense_init, init_attention,
                      init_mlp, mlp_apply, rms_norm, rope, zeros)
+from . import mamba as M
 from . import moe
 
 __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
            "init_caches", "forward", "check_supported", "MODES"]
 
 Tree = Dict[str, Any]
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SSM_TYPES = ("mamba1", "mamba2")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -60,12 +72,10 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
             f"(ROADMAP Queue A item 13d)")
-    if cfg.family not in ("dense", "moe"):
-        item = {"ssm": "13c", "hybrid": "13c"}.get(cfg.family, "13d")
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue A item {item}); the port runs the dense and MoE "
-            f"families")
+            f"Queue A item 13d); the port runs the families {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +83,10 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def pattern_period(cfg: ArchConfig) -> int:
-    """Layers per repetition of the layer pattern (gemma3: 6; llama4: 2)."""
+    """Layers per repetition of the layer pattern (gemma3: 6; llama4: 2;
+    zamba2: 6)."""
+    if cfg.family == "hybrid":
+        return max(cfg.shared_attn_period, 1)
     if cfg.family == "moe":
         return max(cfg.moe_period, 1)
     if cfg.sliding_window is not None and cfg.global_period > 0:
@@ -83,8 +96,13 @@ def pattern_period(cfg: ArchConfig) -> int:
 
 def layer_kind(cfg: ArchConfig, j: int) -> Dict[str, Any]:
     """Kind of the layer at pattern position j (absolute index i = j mod
-    P): its type, "moe" or "dense", and its attention window, None for a
-    global layer."""
+    P): its type, "moe" or "dense" and its attention window (None for a
+    global layer); or, in the SSM families, its type, "mamba1" or
+    "mamba2", and whether the shared attention block follows it."""
+    if cfg.family in ("ssm", "hybrid"):
+        return {"type": cfg.ssm_kind,
+                "shared_attn": cfg.family == "hybrid"
+                and cfg.is_attn_block(j)}
     window = None
     if cfg.sliding_window is not None and not cfg.is_global_layer(j):
         window = cfg.sliding_window
@@ -98,6 +116,10 @@ def layer_kind(cfg: ArchConfig, j: int) -> Dict[str, Any]:
 
 def _init_layer(cfg: ArchConfig, kind, generator, dtype, device,
                 lead=()) -> Tree:
+    if kind["type"] in SSM_TYPES:
+        init = M.init_mamba1 if kind["type"] == "mamba1" else M.init_mamba2
+        return {"ln": zeros(lead + (cfg.d_model,), dtype, device),
+                "mamba": init(generator, cfg, dtype, device, lead)}
     p = {"ln1": zeros(lead + (cfg.d_model,), dtype, device),
          "attn": init_attention(generator, cfg, dtype, device, lead),
          "ln2": zeros(lead + (cfg.d_model,), dtype, device)}
@@ -140,6 +162,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     params["rem"] = {f"rem{j}": _init_layer(cfg, layer_kind(cfg, j),
                                             generator, dtype, dev)
                      for j in range(n_rem)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "ln1": zeros((cfg.d_model,), dtype, dev),
+            "attn": init_attention(generator, cfg, dtype, dev),
+            "ln2": zeros((cfg.d_model,), dtype, dev),
+            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                            dtype, dev)}
     return params
 
 
@@ -167,9 +196,11 @@ def _index(tree: Tree, i: int) -> Tree:
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None) -> Tree:
-    """Zeroed KV caches: (n_blocks, B, Hkv, S, hd) per pattern position and
-    (B, Hkv, S, hd) per remainder layer, S = min(window, max_len) for a
-    local layer and max_len for a global one."""
+    """Zeroed caches: KV (n_blocks, B, Hkv, S, hd) per pattern position
+    and (B, Hkv, S, hd) per remainder layer, S = min(window, max_len) for a
+    local layer and max_len for a global one; for an SSM layer its conv
+    state in ``dtype`` and its SSM state in fp32 (``mamba*_state_shape``),
+    plus a full-length K/V where the shared attention block follows it."""
     check_supported(cfg)
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
@@ -180,10 +211,22 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     n_blocks, n_rem = divmod(cfg.n_layers, per)
 
     def one(kind, lead):
-        w = kind["window"]
-        s = max_len if w is None else min(w, max_len)
+        cache = {}
+        if kind["type"] in SSM_TYPES:
+            shp = (M.mamba1_state_shape if kind["type"] == "mamba1"
+                   else M.mamba2_state_shape)(cfg, batch)
+            cache["conv"] = zeros(lead + shp[0], dtype, dev)
+            cache["h"] = zeros(lead + shp[1], torch.float32, dev)
+            if not kind["shared_attn"]:
+                return cache
+            s = max_len
+        else:
+            w = kind["window"]
+            s = max_len if w is None else min(w, max_len)
         shape = lead + (batch, cfg.n_kv_heads, s, cfg.hd)
-        return {"k": zeros(shape, dtype, dev), "v": zeros(shape, dtype, dev)}
+        cache["k"] = zeros(shape, dtype, dev)
+        cache["v"] = zeros(shape, dtype, dev)
+        return cache
 
     return {"blocks": {f"pos{j}": one(layer_kind(cfg, j), (n_blocks,))
                        for j in range(per)} if n_blocks > 0 else {},
@@ -257,6 +300,49 @@ def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
     return x + mlp_apply(lp["mlp"], h2, cfg.mlp_kind), None
 
 
+def _ssm_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
+               positions, cache, cache_pos, mode, impl,
+               shared_params) -> tuple:
+    """One SSM layer (norm + Mamba1 / Mamba2, residual), then the shared
+    attention + MLP block where the kind says so: (x, None), an SSM layer
+    having no aux.  Prefill and decode write the layer's states (and the
+    shared block's K/V) into ``cache`` in place."""
+    plain = impl == "ref"
+    mamba1 = kind["type"] == "mamba1"
+    h = rms_norm(x, lp["ln"], cfg.norm_eps, plain)
+    state = (cache["conv"], cache["h"]) if cache is not None else None
+    if mode == "decode":
+        if mamba1:
+            y, (conv, hh) = M.mamba1_step(lp["mamba"], h[:, 0, :], cfg, state)
+        else:
+            y, (conv, hh) = M.mamba2_step(lp["mamba"], h[:, 0, :], cfg, state,
+                                          impl=impl)
+        y = y[:, None, :]
+    else:
+        apply = M.mamba1_apply if mamba1 else M.mamba2_apply
+        y, (conv, hh) = apply(lp["mamba"], h, cfg, state, impl=impl)
+    if mode != "train":
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hh)
+    x = x + y
+    if kind["shared_attn"]:
+        # the shared block has a dense global layer's weights and steps
+        x, _ = _attn_mlp_layer(cfg, {"type": "dense", "window": None},
+                               shared_params, x, positions=positions,
+                               cache=cache, cache_pos=cache_pos, mode=mode,
+                               impl=impl)
+    return x, None
+
+
+def _apply_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
+                 shared_params, **kw) -> tuple:
+    """The layer of ``kind``: (x, aux or None)."""
+    if kind["type"] in SSM_TYPES:
+        return _ssm_layer(cfg, kind, lp, x, shared_params=shared_params,
+                          **kw)
+    return _attn_mlp_layer(cfg, kind, lp, x, **kw)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -300,7 +386,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
         cache_pos = None
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     kw = dict(positions=positions, cache_pos=cache_pos,
-              mode="train" if training else mode, impl=impl)
+              mode="train" if training else mode, impl=impl,
+              shared_params=params.get("shared_attn"))
 
     def block(x_, aux_, i):
         """Repetition i of the layer pattern; aux_ plus its layers' aux."""
@@ -308,8 +395,7 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             lp = _index(params["blocks"][f"pos{j}"], i)
             cache = None if training else \
                 _index(caches["blocks"][f"pos{j}"], i)
-            x_, aj = _attn_mlp_layer(cfg, kinds[j], lp, x_, cache=cache,
-                                     **kw)
+            x_, aj = _apply_layer(cfg, kinds[j], lp, x_, cache=cache, **kw)
             if aj is not None:
                 aux_ = aux_ + aj
         return x_, aux_
@@ -322,8 +408,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             x, aux = block(x, aux, i)
     for j in range(n_rem):
         cache = None if training else caches["rem"][f"rem{j}"]
-        x, aj = _attn_mlp_layer(cfg, kinds[j], params["rem"][f"rem{j}"], x,
-                                cache=cache, **kw)
+        x, aj = _apply_layer(cfg, kinds[j], params["rem"][f"rem{j}"], x,
+                             cache=cache, **kw)
         if aj is not None:
             aux = aux + aj
 

@@ -54,20 +54,22 @@ def tree_leaves(tree: Tree) -> list:
     return [tree]
 
 
+def _rebuild(node, leaves):
+    """``node`` with its leaves taken from the iterator ``leaves``."""
+    if isinstance(node, dict):
+        new = {key: _rebuild(node[key], leaves) for key in sorted(node)}
+        return {key: new[key] for key in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(sub, leaves) for sub in node)
+    return next(leaves)
+
+
 def tree_like(tree: Tree, leaves: list) -> Tree:
     """``tree``'s structure with its leaves replaced, in :func:`tree_leaves`'
-    order."""
-    it = iter(leaves)
-
-    def rebuild(node):
-        if isinstance(node, dict):
-            new = {key: rebuild(node[key]) for key in sorted(node)}
-            return {key: new[key] for key in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rebuild(sub) for sub in node)
-        return next(it)
-
-    return rebuild(tree)
+    order.  A module-level recursion: a nested function that calls itself
+    is a reference cycle, which would hold ``leaves`` (a step's gradients)
+    until Python's cyclic collector runs."""
+    return _rebuild(tree, iter(leaves))
 
 
 def adamw_init(params: Tree, moment_dtype=torch.float32) -> AdamWState:

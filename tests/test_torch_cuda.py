@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card: the
 min-plus kernels K1/K2 bitwise, RMSNorm (K3) and flash attention (K4) and
-their gradients (K3b, K4b) within the tolerances stated at their tests;
-and the MoE layer's dispatch on the card against the CPU port and against
-itself (bitwise, forward and backward).
+their gradients (K3b, K4b), and Mamba1's selective scan (K5), within the
+tolerances stated at their tests; the MoE layer's dispatch on the card
+against the CPU port and against itself (bitwise, forward and backward);
+and one Mamba1 and one Mamba2 layer on the card against the CPU port.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with a
 reason where ``torch.cuda.is_available()`` is false.  The file imports
@@ -424,7 +425,7 @@ def test_flash_attention_kernel_takes_transposed_views(cuda):
     assert float((got - want).abs().max()) < 2e-5
 
 
-# --- K4 with L, K4b -----------------------------------------------------------
+# --- K4 with L, K4b ----------------------------------------------------------
 
 def grad_close(got: torch.Tensor, want: torch.Tensor) -> float:
     """Gradients against their plain twin: fp32 within 5e-5 x max(1,
@@ -802,7 +803,7 @@ def test_parallel_ring_scored_on_card_matches_cpu(cuda, stitch):
         assert kernel.launches["fw_tile"] > before["fw_tile"]
 
 
-# --- the churn engine (repro_torch.dynamics) ----------------------------------
+# --- the churn engine (repro_torch.dynamics) ---------------------------------
 
 def test_churn_replay_on_card_bitwise_cpu_every_event(cuda):
     """poisson_churn at n0=96 under DGRO, event by event on the card and
@@ -973,7 +974,7 @@ def test_service_state_on_card_routes_as_cpu(cuda, policy):
             assert card.route(int(a), int(b)) == want
 
 
-# --- the MoE layer ------------------------------------------------------------
+# --- the MoE layer -----------------------------------------------------------
 
 @pytest.mark.parametrize("cf", [1.25, 0.5])
 def test_moe_layer_on_card_matches_cpu(cuda, cf):
@@ -1070,3 +1071,103 @@ def test_moe_train_step_grads_bitwise_and_remat_on_card(cuda):
         assert bool(u.any())
         torch.testing.assert_close(u, v, rtol=1e-4,
                                    atol=1e-4 * float(v.abs().max()))
+
+
+# --- K5 selective scan and the SSM layers ------------------------------------
+
+def _scan_inputs(device, b, s, d, n, seed):
+    """dt = softplus(N(-4.6, 1)) (the layers' dt_b: dt ~ 0.01), x, B, C and
+    a nonzero h0 unit normals, A = -exp(log(1..N)) as the Mamba1 init."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    dt = torch.nn.functional.softplus(t(rng.normal(-4.6, 1.0, (b, s, d))))
+    a = -t(np.broadcast_to(np.arange(1, n + 1, dtype=np.float32), (d, n)))
+    return (dt, t(rng.normal(0, 1, (b, s, d))), t(rng.normal(0, 1, (b, s, n))),
+            t(rng.normal(0, 1, (b, s, n))), a.contiguous(),
+            t(rng.normal(0, 1, (b, d, n))))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("s", [24, 256, 1024])
+def test_selective_scan_matches_plain(cuda, n, s):
+    """K5 against its plain version on the card: an odd batch, d = 200 (not
+    a multiple of the 128-channel block), a nonzero h0.  y and h_last
+    within 1e-5 x max |want| (fp32 sums over N in another order, FMAs)."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    ins = _scan_inputs(cuda, 3, s, 200, n, seed=s + n)
+    before = ss_kernel.launches["selective_scan"]
+    y, h = ss_ops.selective_scan(*ins)
+    assert ss_kernel.launches["selective_scan"] == before + 1
+    wy, wh = selective_scan_ref(*ins)
+    for got, want in ((y, wy), (h, wh)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+    y2, h2 = ss_ops.selective_scan(*ins)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_selective_scan_refuses_grad_and_what_it_does_not_take(cuda):
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+
+    dt, x, bm, cm, a, h0 = _scan_inputs(cuda, 2, 16, 64, 8, seed=1)
+    with pytest.raises(NotImplementedError, match="13c′"):
+        ss_ops.selective_scan(dt.requires_grad_(), x, bm, cm, a, h0)
+    dt = dt.detach()
+    with torch.no_grad():
+        ss_ops.selective_scan(dt.requires_grad_(), x, bm, cm, a, h0)
+    dt = dt.detach()
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        ss_ops.selective_scan(dt.double(), x, bm, cm, a, h0)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        ss_ops.selective_scan(dt.transpose(0, 1).contiguous().transpose(
+            0, 1), x, bm, cm, a, h0)
+    n = 17
+    with pytest.raises(ValueError, match="N <= 16"):
+        ss_ops.selective_scan(dt, x, torch.zeros(2, 16, n, device=cuda),
+                              torch.zeros(2, 16, n, device=cuda),
+                              torch.zeros(64, n, device=cuda),
+                              torch.zeros(2, 64, n, device=cuda))
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_layer_on_card_matches_cpu(fp32_matmul, name):
+    """One Mamba1 (falcon-mamba-7b, through K5) or Mamba2 (zamba2-7b,
+    through K3's gate norm) layer at full width, B = 2, S = 128, then one
+    decode step from its state, on the card against the CPU port: outputs
+    and states within 1e-5 x max |want| (fp32 products summed in another
+    order)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.models import mamba
+
+    cuda = fp32_matmul
+    cfg = get_arch(name)
+    m1 = cfg.ssm_kind == "mamba1"
+    init = mamba.init_mamba1 if m1 else mamba.init_mamba2
+    apply = mamba.mamba1_apply if m1 else mamba.mamba2_apply
+    step = mamba.mamba1_step if m1 else mamba.mamba2_step
+    p = init(torch.Generator().manual_seed(5), cfg, torch.float32, "cpu")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 129, cfg.d_model))
+                         .astype(np.float32))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    before = ss_kernel.launches["selective_scan"]
+    with torch.no_grad():
+        got = apply(pc, x[:, :128].to(cuda), cfg)
+        want = apply(p, x[:, :128], cfg)
+        got1 = step(pc, x[:, 128].to(cuda), cfg, got[1])
+        want1 = step(p, x[:, 128], cfg, want[1])
+    assert ss_kernel.launches["selective_scan"] == before + int(m1)
+    for g, w in ((got[0], want[0]), (got[1][0], want[1][0]),
+                 (got[1][1], want[1][1]), (got1[0], want1[0]),
+                 (got1[1][0], want1[1][0]), (got1[1][1], want1[1][1])):
+        assert bool(torch.isfinite(g).all())
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())

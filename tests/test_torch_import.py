@@ -25,7 +25,8 @@ def test_import_leaves_jax_out():
             "repro_torch.core.batcheval, repro_torch.core.selection, "
             "repro_torch.core.ga, repro_torch.kernels.minplus.ops, "
             "repro_torch.configs, repro_torch.models.model, "
-            "repro_torch.models.moe, "
+            "repro_torch.models.moe, repro_torch.models.mamba, "
+            "repro_torch.kernels.selective_scan.ops, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.rmsnorm.ops, "
@@ -62,7 +63,10 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     assert len(files) >= 15, files
     scanned = {str(p.relative_to(PORT)) for p in files}
     for mod in ("models/layers.py", "models/model.py", "models/convert.py",
-                "models/moe.py",
+                "models/moe.py", "models/mamba.py",
+                "kernels/selective_scan/kernel.py",
+                "kernels/selective_scan/ops.py",
+                "kernels/selective_scan/ref.py",
                 "launch/serve.py", "configs/base.py", "kernels/_build.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/flash_attention/ops.py",

@@ -365,12 +365,11 @@ def test_params_from_jax_keeps_the_router_fp32():
 
 
 def test_unported_families_and_frontends_still_raise():
-    for name, item in ((LLAMA4, "13d"), ("falcon-mamba-7b", "13c"),
-                       ("zamba2-7b", "13c"), ("musicgen-large", "13d"),
-                       ("pixtral-12b", "13d")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for name in (LLAMA4, "musicgen-large", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="item 13d"):
             TM.init_params(get_arch(name).smoke(), device="meta")
-    TM.check_supported(get_arch(MOONSHOT))
+    for name in (MOONSHOT, "falcon-mamba-7b", "zamba2-7b"):
+        TM.check_supported(get_arch(name))
 
 
 # --- CLIs --------------------------------------------------------------------

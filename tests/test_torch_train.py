@@ -23,9 +23,11 @@ Tolerances, with their reasons:
 """
 import dataclasses
 import functools
+import gc
 import os
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -341,6 +343,39 @@ def test_microbatch_equivalence():
                                    atol=2e-5)
     with pytest.raises(ValueError, match="multiple"):
         TT.train_step(cfg, TT.TrainConfig(microbatches=3), state, batch)
+
+
+def test_gradients_are_freed_without_the_cycle_collector():
+    """A step's gradients, and the trees the helpers rebuild, are freed as
+    soon as the caller drops them, with Python's cyclic collector off.
+    ``tree_like`` and the checkpoint's key walks used nested functions that
+    called themselves: a reference cycle that held every leaf until a
+    collection (22.2 GB of gradients on the card after a moonshot training
+    check)."""
+    from repro_torch.checkpoint import checkpoint as tck
+
+    cfg = get_arch("gemma3-1b").smoke()
+    state = TT.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 16)))
+    batch = {"tokens": toks, "labels": toks}
+    gc.collect()
+    gc.disable()
+    try:
+        _, _, grads = TT.loss_and_grads(cfg, TT.TrainConfig(remat=False),
+                                        state.params, batch)
+        refs = [weakref.ref(g) for g in tree_leaves(grads)]
+        del grads
+        leaves = [torch.zeros(3) for _ in tree_leaves(state.params)]
+        refs += [weakref.ref(x) for x in leaves]
+        like = tree_like(state.params, leaves)
+        flat = tck.flatten_with_keys(like)
+        rebuilt = tck._rebuild(like, lambda key, leaf: leaf + 1)
+        refs += [weakref.ref(x) for x in tree_leaves(rebuilt)]
+        del leaves, like, flat, rebuilt
+        assert sum(r() is not None for r in refs) == 0
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "gemma3-1b",
