@@ -66,9 +66,10 @@ and read just after:
 * SSM serving (f), (z) -- falcon-mamba-7b (64 Mamba1 layers, K5) and
   zamba2-7b (81 Mamba2 layers and 13 calls of a shared attention block,
   K4 at D = 112) at full width and depth: (x-a) one layer on the card
-  against the CPU port (and K5 against its plain version at the prefill's
-  shape), (x-b) ``launch.serve.generate`` with its K3 / K4 / K5 launches
-  and peak memory, (x-c) the prefill's logits through the kernels against
+  against the CPU port (and K5, scan-only and gated, against its plain
+  versions at the prefill's shape and gated at S = 1), (x-b)
+  ``launch.serve.generate`` with its K3 / K4 / K5 launches and peak
+  memory, (x-c) the prefill's logits through the kernels against
   the plain versions, (x-d) decode against the train-mode forward, (x-f)
   profiles of the prefill with 4 decode steps and of 4 decode steps alone.
 
@@ -85,6 +86,7 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1637,22 +1639,30 @@ def phase_service() -> None:
     repro_torch.service`` twice -- flat DGRO at n0=1,024 and ``dgro-hier``
     at n0=10,000, 200 poisson events each.  The smoke asserts every
     endpoint, the metrics counters against what it streamed and a clean
-    exit; its last line carries the numbers printed here."""
+    exit; its last line carries the numbers printed here.  A smoke that
+    outlives 400 s is killed with its daemon (its own process group), and
+    what both printed is logged."""
     for policy, n0, n_events in SERVICE:
         t0 = time.perf_counter()
-        out = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "tools",
                                           "torch_service_smoke.py"),
              "--policy", policy, "--n0", str(n0), "--events", str(n_events),
              "--device", "cuda"],
-            capture_output=True, text=True, timeout=400, cwd=ROOT)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=400)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
         wall = time.perf_counter() - t0
-        if out.returncode != 0:
-            log(out.stdout[-3000:])
-            log(out.stderr[-6000:])
+        if proc.returncode != 0:
+            log(stdout[-3000:])
+            log(stderr[-6000:])
             raise AssertionError(f"(s) {policy}: smoke exited "
-                                 f"{out.returncode}")
-        lines = out.stdout.strip().splitlines()
+                                 f"{proc.returncode} after {wall:.1f} s")
+        lines = stdout.strip().splitlines()
         r = json.loads(lines[-1])
         log(f"  (s) {lines[-2]}")
         log(f"  (s) {policy} n0={n0} capacity {r['capacity']}: daemon up in "
@@ -2160,9 +2170,10 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
     prefill only: decode attends over the cache with the plain masked
     softmax.  SSM families: every forward runs each layer's ln (and a
     Mamba2 layer's gate norm), ln1 and ln2 of each shared attention call
-    and the final norm; K4 runs once per shared attention call and K5 once
-    per Mamba1 layer, in prefill only (decode steps the recurrence in plain
-    torch)."""
+    and the final norm; K4 runs once per shared attention call, in prefill
+    only, and K5 once per Mamba1 layer in every forward (gated over the
+    prompt in prefill, at S = 1 in each decode step): 64 x 32 = 2,048 for
+    falcon-mamba-7b's serve."""
     from repro_torch.models.model import layer_kind, pattern_period
 
     if cfg.family in ("ssm", "hybrid"):
@@ -2172,7 +2183,7 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
         mamba1 = sum(k["type"] == "mamba1" for k in kinds)
         forward = 2 * cfg.n_layers - mamba1 + 2 * attn + 1
         return {"rmsnorm": forward * max_new, "flash_attention": attn,
-                "selective_scan": mamba1, "rmsnorm_bwd": 0,
+                "selective_scan": mamba1 * max_new, "rmsnorm_bwd": 0,
                 "flash_attention_bwd": 0}
     qk = 2 if cfg.qk_norm else 0
     prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
@@ -2892,20 +2903,33 @@ def scan_inputs(shape: tuple, seed: int, dev) -> tuple:
             randn(b, s, n), a.expand(d, n).contiguous(), randn(b, d, n))
 
 
+def gate_inputs(ins: tuple, seed: int) -> tuple:
+    """Mamba1's D (d,) and z (B, S, d) for K5's gated mode beside
+    ``scan_inputs``: unit normals from a torch Generator on the card."""
+    import torch
+
+    b, s, d = ins[0].shape
+    gen = torch.Generator(device=ins[0].device).manual_seed(seed + 100)
+    return (torch.randn(d, generator=gen, device=ins[0].device),
+            torch.randn((b, s, d), generator=gen, device=ins[0].device))
+
+
 def ssm_layer_card_vs_cpu(cfg, tag: str, dev, errs: dict) -> None:
     """(x-a) One SSM layer at full width, B = 2, S = 256, weights from a
     torch Generator seeded 1 carried to the CPU, input unit normals from
     numpy default_rng(1): the card (Mamba1 through K5, Mamba2 through K3's
     gate norm) against the CPU port (the plain versions), the output, the
     conv state and the SSM state within 1e-5 x max |want|.  falcon adds K5
-    against its plain version on the card at the prefill's (8, 1024, 8192,
-    16) with a nonzero h0; zamba2 one shared attention call (K4 at D = 112
+    against its plain versions on the card with a nonzero h0: scan-only and
+    gated at the prefill's (8, 1024, 8192, 16), gated at decode's (8, 1,
+    8192, 16); zamba2 one shared attention call (K4 at D = 112
     against the CPU's plain attention), within the same bound."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.selective_scan import kernel as ss
-    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_gated_ref, selective_scan_ref)
     from repro_torch.models import layers, mamba
 
     m1 = cfg.ssm_kind == "mamba1"
@@ -2932,14 +2956,21 @@ def ssm_layer_card_vs_cpu(cfg, tag: str, dev, errs: dict) -> None:
         raise AssertionError(f"{what}: {launched} K5 launches")
     del p, got
     if m1:
-        ins = scan_inputs((SSM["batch"], SSM["prompt_len"], cfg.d_inner,
-                           cfg.ssm_state), 2, dev)
-        got = ss.selective_scan(*ins)
-        want = selective_scan_ref(*ins)
-        errs["selective_scan"] = max(errs.get("selective_scan", 0.0), max(
-            rel_close(f"({tag}-a) K5 {tuple(ins[0].shape)} N="
-                      f"{cfg.ssm_state}, nonzero h0, vs plain {w}", g, ww)
-            for w, g, ww in zip(("y", "h_last"), got, want)))
+        for s, seed in ((SSM["prompt_len"], 2), (1, 3)):
+            ins = scan_inputs((SSM["batch"], s, cfg.d_inner, cfg.ssm_state),
+                              seed, dev)
+            gate = gate_inputs(ins, seed)
+            runs = [("gated", ss.selective_scan(*ins, *gate),
+                     selective_scan_gated_ref(*ins, *gate))]
+            if s > 1:
+                runs.append(("scan-only", ss.selective_scan(*ins),
+                             selective_scan_ref(*ins)))
+            for mode, got, want in runs:
+                errs["selective_scan"] = max(errs.get("selective_scan", 0.0),
+                                             max(rel_close(
+                    f"({tag}-a) K5 {mode} {tuple(ins[0].shape)} N="
+                    f"{cfg.ssm_state}, nonzero h0, vs plain {w}", g, ww)
+                    for w, g, ww in zip(("y", "h_last"), got, want)))
         return
     ap = layers.init_attention(torch.Generator(device=dev).manual_seed(3),
                                cfg, torch.float32, dev)
@@ -3105,7 +3136,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
     from repro_torch.configs import get_arch
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
-    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_gated_ref, selective_scan_ref)
 
     dev = torch.device("cuda")
     b, hq, hkv, t, d = SERVE["batch"], 4, 1, SERVE["prompt_len"], 256
@@ -3190,38 +3222,74 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         f"{b_ms:.4f} ms by {b_by})")
     del q, k, v, want
 
-    # K5 at falcon-mamba-7b's prefill layer.  Bytes: dt and x read, y
-    # written, B_t / C_t, A, h0 and h_last.  Operations: per (b, t, c, n)
-    # one exp on the special-function units and dt*A, decay*h + dx*B and
-    # the FMA of y (6 fp32 FLOP, an FMA = 2), plus dt*x per (b, t, c);
-    # the operation floor is the slower of the two pipes.
+    # K5 at falcon-mamba-7b's prefill layer, scan-only and gated (what the
+    # model runs), and the yardstick: scan-only K5 and the four torch passes
+    # of the gate it replaced, timed in turns.  Bytes: dt and x read (and z),
+    # y written, B_t / C_t, A (and D), h0 and h_last.  Operations: per (b,
+    # t, c, n) one exp on the special-function units and dt*A, decay*h +
+    # dx*B and the FMA of y (6 fp32 FLOP, an FMA = 2), plus dt*x per (b, t,
+    # c); the gate adds one exp (the sigmoid's) and 5 FLOP per (b, t, c).
+    # The operation floor is the slower of the two pipes.
     falcon = get_arch(SSM["archs"][0])
     shape = (SSM["batch"], SSM["prompt_len"], falcon.d_inner,
              falcon.ssm_state)
     ins = scan_inputs(shape, 4, dev)
-    ms = time_ms(lambda: ss_kernel.selective_scan(*ins), reps=20)
-    plain = time_ms(lambda: selective_scan_ref(*ins), reps=3, warmup=1)
-    errs["selective_scan"] = max(errs["selective_scan"], max(
-        rel_close(f"K5 timed input {w}", g, ww) for w, g, ww in zip(
-            ("y", "h_last"), ss_kernel.selective_scan(*ins),
-            selective_scan_ref(*ins))))
+    gate = gate_inputs(ins, 4)
+
+    def yardstick():
+        y, h_last = ss_kernel.selective_scan(*ins)
+        y = y + gate[0] * ins[1]
+        return y * F.silu(gate[1]), h_last
+
+    runs = {"scan": lambda: ss_kernel.selective_scan(*ins),
+            "gated": lambda: ss_kernel.selective_scan(*ins, *gate),
+            "yardstick": yardstick}
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k].append(time_ms(runs[k], reps=20))
+    plain = {"scan": time_ms(lambda: selective_scan_ref(*ins), reps=3,
+                             warmup=1),
+             "gated": time_ms(lambda: selective_scan_gated_ref(*ins, *gate),
+                              reps=3, warmup=1)}
+    for mode, got, want in (
+            ("scan-only", ss_kernel.selective_scan(*ins),
+             selective_scan_ref(*ins)),
+            ("gated", ss_kernel.selective_scan(*ins, *gate),
+             selective_scan_gated_ref(*ins, *gate)),
+            ("yardstick", yardstick(),
+             selective_scan_gated_ref(*ins, *gate))):
+        err = max(rel_close(f"K5 timed input, {mode} {w}", g, ww)
+                  for w, g, ww in zip(("y", "h_last"), got, want))
+        if mode != "yardstick":
+            errs["selective_scan"] = max(errs["selective_scan"], err)
     sb, ss_, sd, sn = shape
-    elems = float(sb * ss_ * sd * sn)
-    flops = 6.0 * elems + sb * ss_ * sd
-    nbytes = 4.0 * (3 * sb * ss_ * sd + 2 * sb * ss_ * sn + sd * sn
-                    + 2 * sb * sd * sn)
-    fp32_ms, sfu_ms = flops / FLOP_PER_S * 1e3, elems / SFU_PER_S * 1e3
-    bytes_ms = nbytes / BYTES_PER_S * 1e3
-    b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
-        if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
-    k5 = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-              bound_by=b_by, bound_ms_bytes=bytes_ms, bound_ms_fp32=fp32_ms,
-              bound_ms_exp=sfu_ms)
-    log(f"  K5 falcon prefill layer {shape} fp32: {ms:.4f} ms (plain "
-        f"{plain:.3f} ms, no library call; bound {b_ms:.4f} ms by {b_by}: "
-        f"exps {sfu_ms:.4f} ms on the SFUs, bytes {bytes_ms:.4f} ms, fp32 "
-        f"{fp32_ms:.4f} ms)")
-    del ins
+    elems, rows = float(sb * ss_ * sd * sn), float(sb * ss_ * sd)
+    k5 = {}
+    for mode, tensors, gate_flops in (("scan", 3, 0), ("gated", 4, 5)):
+        fp32_ms = (6.0 * elems + (1 + gate_flops) * rows) / FLOP_PER_S * 1e3
+        sfu_ms = (elems + (rows if gate_flops else 0)) / SFU_PER_S * 1e3
+        bytes_ms = 4.0 * (tensors * rows + 2 * sb * ss_ * sn + sd * sn
+                          + (sd if gate_flops else 0) + 2 * sb * sd * sn) \
+            / BYTES_PER_S * 1e3
+        ms = sum(times[mode]) / len(times[mode])
+        b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
+            if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
+        k5[mode] = dict(ms=ms, plain_ms=plain[mode], library_ms=None,
+                        bound_ms=b_ms, bound_by=b_by, bound_ms_bytes=bytes_ms,
+                        bound_ms_fp32=fp32_ms, bound_ms_exp=sfu_ms)
+        log(f"  K5 {mode} falcon prefill layer {shape} fp32: {ms:.4f} ms "
+            f"(runs {', '.join(f'{t:.4f}' for t in times[mode])}; plain "
+            f"{plain[mode]:.3f} ms, no library call; bound {b_ms:.4f} ms by "
+            f"{b_by}: exps {sfu_ms:.4f} ms on the SFUs, bytes "
+            f"{bytes_ms:.4f} ms, fp32 {fp32_ms:.4f} ms; {b_ms / ms:.1%} of "
+            f"the bound)")
+    yard = sum(times["yardstick"]) / len(times["yardstick"])
+    runs_s = ", ".join(f"{t:.4f}" for t in times["yardstick"])
+    log(f"  K5 yardstick (scan-only K5 + the gate's four torch passes): "
+        f"{yard:.4f} ms (runs {runs_s}); gated K5 "
+        f"{k5['gated']['ms']:.4f} ms")
+    del ins, gate
 
     k3 = {}
     for label, rows, dd in (("residual", b * t, 1152),
@@ -3429,11 +3497,14 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
          "source": "src/repro_torch/kernels/selective_scan/csrc/"
                    "selective_scan.cu",
          "replaces": "src/repro/models/mamba.py:82 (_ssm_scan_chunked, "
-                     "plain jnp; no Pallas kernel)",
-         "shape": f"{shape} fp32, falcon-mamba-7b's prefill layer",
+                     "plain jnp; no Pallas kernel) and the gate of "
+                     "src/repro/models/mamba.py:144-145",
+         "shape": f"{shape} fp32, falcon-mamba-7b's prefill layer, gated "
+                  f"(what the model runs)",
          "launches": counts["falcon_serve"]["selective_scan"],
          "launches_zamba2_serve": counts["zamba2_serve"]["selective_scan"],
-         "max_abs_err": errs["selective_scan"], **k5},
+         "max_abs_err": errs["selective_scan"], **k5["gated"],
+         "scan_only": k5["scan"], "yardstick_ms": yard},
     ]
 
 

@@ -7,12 +7,17 @@ drive tensors; where the reference combines them with a
 The sums are then taken in another order than the associative scan's, so
 the two agree to rounding, not bitwise.  Autograd runs through it (the
 CPU's training path has no kernel to refuse).
+
+``selective_scan_gated_ref`` is the twin of K5's gated mode: the scan,
+then Mamba1's two lines after it (the JAX package's ``mamba1_apply``),
+``y + D x`` and ``* silu(z)``, in that order.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["CHUNK", "selective_scan_ref"]
+__all__ = ["CHUNK", "selective_scan_ref", "selective_scan_gated_ref"]
 
 CHUNK = 128
 
@@ -41,3 +46,18 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
         ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
                                cmat[:, lo:lo + chunk]))
     return torch.cat(ys, dim=1), h
+
+
+def selective_scan_gated_ref(dt: torch.Tensor, x: torch.Tensor,
+                             bmat: torch.Tensor, cmat: torch.Tensor,
+                             a: torch.Tensor, h0: torch.Tensor,
+                             dskip: torch.Tensor, z: torch.Tensor,
+                             chunk: int = CHUNK) -> tuple:
+    """``selective_scan_ref``, then ``(y + dskip * x) * silu(z)``.
+
+    dskip: (d,); z: (B, S, d), fp32.  Returns (out (B, S, d), h_last
+    (B, d, N)).
+    """
+    y, h = selective_scan_ref(dt, x, bmat, cmat, a, h0, chunk)
+    y = y + dskip * x
+    return y * F.silu(z), h

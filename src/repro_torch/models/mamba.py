@@ -3,11 +3,12 @@
 layouts and state shapes.
 
 * mamba1: the recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``,
-  ``y_t = C_t . h_t``.  The reference chunks it into a
-  ``lax.associative_scan`` because the TPU has no recurrent kernel; here,
-  on CUDA with ``impl="flash"``, it is one pass of K5
-  (``kernels.selective_scan``), and on the CPU or with ``impl="ref"`` its
-  plain version, a loop over the steps.
+  ``y_t = C_t . h_t``, then the gate ``(y + D x) * silu(z)``.  The
+  reference chunks the scan into a ``lax.associative_scan`` because the
+  TPU has no recurrent kernel; here, on CUDA with ``impl="flash"``, scan
+  and gate are one pass of K5 (``kernels.selective_scan``), in sequence
+  mode and, at S = 1 from the cached state, in the decode step; on the CPU
+  or with ``impl="ref"`` its plain version, a loop over the steps.
 * mamba2: the SSD block decomposition (intra-chunk quadratic form, state
   passed between chunks), plain torch on either device, as the reference
   computes it outside any Pallas kernel.  Its gate norm is
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.selective_scan.ops import selective_scan
-from ..kernels.selective_scan.ref import CHUNK, selective_scan_ref
+from ..kernels.selective_scan.ref import CHUNK, selective_scan_gated_ref
 from .layers import dense_init, rms_norm, zeros
 
 __all__ = ["CHUNK", "init_mamba1", "init_mamba2", "mamba1_apply",
@@ -107,8 +108,8 @@ def mamba1_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  state: Optional[State] = None,
                  impl: str = "flash") -> Tuple[torch.Tensor, State]:
     """Sequence-mode mamba1.  x: (B, S, d).  state: (conv_state, h) or
-    None.  Returns (y (B, S, d), new_state).  The scan is K5 on CUDA unless
-    ``impl="ref"``."""
+    None.  Returns (y (B, S, d), new_state).  The scan and its gate are K5
+    on CUDA unless ``impl="ref"``."""
     bsz, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     conv_state, h0 = state if state is not None else (None, None)
@@ -126,17 +127,16 @@ def mamba1_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
     if h0 is None:
         h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
     _chunk(s)
-    scan = selective_scan_ref if impl == "ref" else selective_scan
-    y, h_last = scan(dt, xc.float(), bmat, cmat, a, h0)
-    y = y + p["D"] * xc.float()
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], (conv_state, h_last)
+    scan = selective_scan_gated_ref if impl == "ref" else selective_scan
+    y, h_last = scan(dt, xc.float(), bmat, cmat, a, h0, p["D"], z.float())
+    return y.to(x.dtype) @ p["out_proj"], (conv_state, h_last)
 
 
-def mamba1_step(p: Params, x1: torch.Tensor, cfg: ArchConfig,
-                state: State) -> Tuple[torch.Tensor, State]:
+def mamba1_step(p: Params, x1: torch.Tensor, cfg: ArchConfig, state: State,
+                impl: str = "flash") -> Tuple[torch.Tensor, State]:
     """Single-token decode.  x1: (B, d); state = (conv (B, K-1, di),
-    h (B, di, N))."""
+    h (B, di, N)).  The recurrence and the gate are the sequence scan at
+    S = 1 from ``h`` (K5 on CUDA unless ``impl="ref"``)."""
     conv_state, h = state
     xin = x1 @ p["wx"]
     z = x1 @ p["wz"]
@@ -147,11 +147,10 @@ def mamba1_step(p: Params, x1: torch.Tensor, cfg: ArchConfig,
     bmat = (xc @ p["w_b"]).float()                         # (B, N)
     cmat = (xc @ p["w_c"]).float()
     a = -torch.exp(p["A_log"])
-    h = torch.exp(dt[..., None] * a) * h \
-        + (dt * xc.float())[..., None] * bmat[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, cmat) + p["D"] * xc.float()
-    y = (y * F.silu(z.float())).to(x1.dtype)
-    return y @ p["out_proj"], (conv_state, h)
+    scan = selective_scan_gated_ref if impl == "ref" else selective_scan
+    y, h = scan(dt[:, None], xc.float()[:, None], bmat[:, None],
+                cmat[:, None], a, h, p["D"], z.float()[:, None])
+    return y[:, 0].to(x1.dtype) @ p["out_proj"], (conv_state, h)
 
 
 def mamba1_state_shape(cfg: ArchConfig, batch: int):

@@ -312,11 +312,8 @@ def _ssm_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
     h = rms_norm(x, lp["ln"], cfg.norm_eps, plain)
     state = (cache["conv"], cache["h"]) if cache is not None else None
     if mode == "decode":
-        if mamba1:
-            y, (conv, hh) = M.mamba1_step(lp["mamba"], h[:, 0, :], cfg, state)
-        else:
-            y, (conv, hh) = M.mamba2_step(lp["mamba"], h[:, 0, :], cfg, state,
-                                          impl=impl)
+        step = M.mamba1_step if mamba1 else M.mamba2_step
+        y, (conv, hh) = step(lp["mamba"], h[:, 0, :], cfg, state, impl=impl)
         y = y[:, None, :]
     else:
         apply = M.mamba1_apply if mamba1 else M.mamba2_apply

@@ -1090,12 +1090,13 @@ def _scan_inputs(device, b, s, d, n, seed):
             t(rng.normal(0, 1, (b, d, n))))
 
 
-@pytest.mark.parametrize("n", [8, 16])
-@pytest.mark.parametrize("s", [24, 256, 1024])
+@pytest.mark.parametrize("n", [1, 3, 8, 16])
+@pytest.mark.parametrize("s", [1, 24, 256, 1024])
 def test_selective_scan_matches_plain(cuda, n, s):
     """K5 against its plain version on the card: an odd batch, d = 200 (not
-    a multiple of the 128-channel block), a nonzero h0.  y and h_last
-    within 1e-5 x max |want| (fp32 sums over N in another order, FMAs)."""
+    a multiple of the 64-channel block), a nonzero h0, N = 1 and 3 padded
+    to a state a lane.  y and h_last within 1e-5 x max |want| (fp32 sums
+    over N in another order, FMAs, the decay by ex2.approx)."""
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -1114,6 +1115,68 @@ def test_selective_scan_matches_plain(cuda, n, s):
     assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
+@pytest.mark.parametrize("n", [1, 3, 8, 16])
+@pytest.mark.parametrize("s", [1, 24, 256, 1024])
+def test_selective_scan_gated_matches_plain(cuda, n, s):
+    """K5 with Mamba1's gate (D, z) against ``selective_scan_gated_ref`` on
+    the card, as the scan-only test: odd batch, d = 200, nonzero h0, D and
+    z unit normals; the gated output and h_last within 1e-5 x max |want|,
+    and a repeat bitwise equal."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import \
+        selective_scan_gated_ref
+
+    ins = _scan_inputs(cuda, 3, s, 200, n, seed=s + n + 1)
+    rng = np.random.default_rng(s * n)
+    dskip = torch.from_numpy(rng.normal(0, 1, 200).astype(np.float32)) \
+        .to(cuda)
+    z = torch.from_numpy(rng.normal(0, 1, (3, s, 200)).astype(np.float32)) \
+        .to(cuda)
+    before = ss_kernel.launches["selective_scan"]
+    y, h = ss_ops.selective_scan(*ins, dskip, z)
+    assert ss_kernel.launches["selective_scan"] == before + 1
+    wy, wh = selective_scan_gated_ref(*ins, dskip, z)
+    for got, want in ((y, wy), (h, wh)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+    y2, h2 = ss_ops.selective_scan(*ins, dskip, z)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_selective_scan_odd_width_and_offset_views(cuda, gated):
+    """K5 where its 16-byte copies do not apply: d = 61 (not a multiple of
+    4), and the same inputs as views that start one element into a larger
+    buffer (not 16-byte aligned); S = 23 ends inside a tile.  Against the
+    plain versions within 1e-5 x max |want|."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_gated_ref, selective_scan_ref)
+
+    ins = _scan_inputs(cuda, 3, 23, 61, 5, seed=61)
+    rng = np.random.default_rng(61)
+    gate = (torch.from_numpy(rng.normal(0, 1, 61).astype(np.float32))
+            .to(cuda), torch.from_numpy(rng.normal(0, 1, (3, 23, 61))
+                                        .astype(np.float32)).to(cuda))
+    gate = gate if gated else ()
+    plain = selective_scan_gated_ref if gated else selective_scan_ref
+    want = plain(*ins, *gate)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for args in ((*ins, *gate), tuple(shifted(t) for t in (*ins, *gate))):
+        got = ss_ops.selective_scan(*args)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
 def test_selective_scan_refuses_grad_and_what_it_does_not_take(cuda):
     from repro_torch.kernels.selective_scan import ops as ss_ops
 
@@ -1129,6 +1192,19 @@ def test_selective_scan_refuses_grad_and_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous fp32"):
         ss_ops.selective_scan(dt.transpose(0, 1).contiguous().transpose(
             0, 1), x, bm, cm, a, h0)
+    dskip, z = torch.ones(64, device=cuda), torch.ones(2, 16, 64,
+                                                        device=cuda)
+    with pytest.raises(ValueError, match="'z'"):
+        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, z[:, :8])
+    with pytest.raises(ValueError, match="'D'"):
+        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip[:32], z)
+    with pytest.raises(ValueError, match="both D and z"):
+        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, None)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, z.double())
+    with pytest.raises(NotImplementedError, match="13c′"):
+        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip,
+                              z.clone().requires_grad_())
     n = 17
     with pytest.raises(ValueError, match="N <= 16"):
         ss_ops.selective_scan(dt, x, torch.zeros(2, 16, n, device=cuda),
@@ -1143,7 +1219,8 @@ def test_ssm_layer_on_card_matches_cpu(fp32_matmul, name):
     through K3's gate norm) layer at full width, B = 2, S = 128, then one
     decode step from its state, on the card against the CPU port: outputs
     and states within 1e-5 x max |want| (fp32 products summed in another
-    order)."""
+    order).  A Mamba1 layer runs K5 in both: gated over the sequence, and
+    at S = 1 for the step."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.models import mamba
@@ -1165,7 +1242,7 @@ def test_ssm_layer_on_card_matches_cpu(fp32_matmul, name):
         want = apply(p, x[:, :128], cfg)
         got1 = step(pc, x[:, 128].to(cuda), cfg, got[1])
         want1 = step(p, x[:, 128], cfg, want[1])
-    assert ss_kernel.launches["selective_scan"] == before + int(m1)
+    assert ss_kernel.launches["selective_scan"] == before + 2 * int(m1)
     for g, w in ((got[0], want[0]), (got[1][0], want[1][0]),
                  (got[1][1], want[1][1]), (got1[0], want1[0]),
                  (got1[1][0], want1[1][0]), (got1[1][1], want1[1][1])):

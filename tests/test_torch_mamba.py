@@ -35,7 +35,8 @@ from repro.models import model as JM
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.selective_scan import ops as ss_ops
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (selective_scan_gated_ref,
+                                                    selective_scan_ref)
 from repro_torch.launch.serve import generate
 from repro_torch.models import convert
 from repro_torch.models import mamba as TMa
@@ -114,6 +115,42 @@ def test_plain_scan_matches_jax(s):
     assert torch.equal(oy, ty) and torch.equal(oh, th)
 
 
+@pytest.mark.parametrize("s", [24, 256])
+def test_gated_plain_scan_matches_jax(s):
+    """K5's gated twin against ``_ssm_scan_chunked`` followed by the
+    reference's two lines in jnp (``y + D x``, then ``* silu(z)``), at the
+    sizes of ``test_plain_scan_matches_jax``; the public wrapper given D
+    and z takes the same twin on the CPU."""
+    ins = _scan_inputs(3, s, 20, 8, seed=s)
+    rng = np.random.default_rng(s + 1)
+    dskip = rng.normal(0, 1, (20,)).astype(np.float32)
+    z = rng.normal(0, 1, (3, s, 20)).astype(np.float32)
+    jins = tuple(jnp.asarray(a, jnp.float32) for a in ins)
+    jy, jh = JMa._ssm_scan_chunked(*jins, chunk=min(128, s))
+    jy = jy + jnp.asarray(dskip) * jins[1]
+    jy = jy * jax.nn.silu(jnp.asarray(z))
+    tins = tuple(_t(a) for a in ins)
+    ty, th = selective_scan_gated_ref(*tins, _t(dskip), _t(z))
+    _close(ty, jy)
+    _close(th, jh)
+    oy, oh = ss_ops.selective_scan(*tins, _t(dskip), _t(z))
+    assert torch.equal(oy, ty) and torch.equal(oh, th)
+
+
+def test_scan_wrapper_refuses_a_bad_gate():
+    """D and z come together, at (d,) and (B, S, d), on every device."""
+    tins = tuple(_t(a) for a in _scan_inputs(2, 8, 12, 4, seed=3))
+    dskip, z = torch.ones(12), torch.ones(2, 8, 12)
+    with pytest.raises(ValueError, match="both D and z"):
+        ss_ops.selective_scan(*tins, dskip, None)
+    with pytest.raises(ValueError, match="both D and z"):
+        ss_ops.selective_scan(*tins, None, z)
+    with pytest.raises(ValueError, match="'D'"):
+        ss_ops.selective_scan(*tins, torch.ones(13), z)
+    with pytest.raises(ValueError, match="'z'"):
+        ss_ops.selective_scan(*tins, dskip, torch.ones(2, 8, 13))
+
+
 def _block(name, seed=0):
     """One layer's weights of the smoke config, the JAX init carried."""
     jcfg, tcfg = _cfgs(name)
@@ -160,6 +197,29 @@ def test_mamba_apply_and_step_match_jax(name):
     for g, w in zip(tst1, tst_all):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=PIECE,
                                    atol=PIECE)
+
+
+def test_mamba1_apply_and_step_call_the_gated_scan(monkeypatch):
+    """Sequence mode and the decode step both hand the scan and its gate to
+    the one scan wrapper (K5 on CUDA), the step at S = 1 from the cached
+    state; no torch code of the gate or the recurrence is left beside it."""
+    jcfg, tcfg, jp, tp = _block(FALCON)
+    calls = []
+
+    def spy(dt, x, bmat, cmat, a, h0, dskip=None, z=None):
+        calls.append((tuple(dt.shape), h0, dskip, None if z is None
+                      else tuple(z.shape)))
+        return ss_ops.selective_scan(dt, x, bmat, cmat, a, h0, dskip, z)
+
+    monkeypatch.setattr(TMa, "selective_scan", spy)
+    x = _t(np.random.default_rng(4).normal(0, 1, (2, 8, tcfg.d_model)))
+    _, st = TMa.mamba1_apply(tp, x, tcfg)
+    TMa.mamba1_step(tp, x[:, -1], tcfg, st)
+    di = tcfg.d_inner
+    assert [(c[0], c[3]) for c in calls] == [((2, 8, di), (2, 8, di)),
+                                             ((2, 1, di), (2, 1, di))]
+    assert calls[1][1] is st[1]
+    assert all(c[2] is tp["D"] for c in calls)
 
 
 @pytest.mark.parametrize("name", [FALCON, ZAMBA])
