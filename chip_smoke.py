@@ -6,9 +6,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its
 plain-torch twin on the card: the min-plus kernels K1/K2 bitwise, RMSNorm
 K3 and flash attention K4, their gradients K3b and K4b, and Mamba1's
-selective scan K5, within stated tolerances.  Then it drives the
-port's two paths, each with the kernels' launch counters reset just before
-and read just after:
+selective scan K5 and its gradient K5b, within stated tolerances.  Then it
+drives the port's two paths, each with the kernels' launch counters reset
+just before and read just after:
 
 * DGRO -- ``overlay.build("dgro")`` at N=4096 and ``selection.adapt`` at
   N=256 (diameters against scipy's Dijkstra), and fig20's scoring cell;
@@ -71,7 +71,14 @@ and read just after:
   ``launch.serve.generate`` with its K3 / K4 / K5 launches and peak
   memory, (x-c) the prefill's logits through the kernels against
   the plain versions, (x-d) decode against the train-mode forward, (x-f)
-  profiles of the prefill with 4 decode steps and of 4 decode steps alone.
+  profiles of the prefill with 4 decode steps and of 4 decode steps alone;
+* SSM training (f-t), (z-t) -- ``train_step`` on falcon-mamba-7b (4 of
+  64 layers: K5 with its saved states, K5b) and zamba2-7b (6 of 81: one
+  layer pattern and one shared attention call, K4 with L and K4b at D =
+  112) at full width, global batch 4 x 1024, remat: the kernels' loss and
+  gradients against the plain path's on the card, two passes and remat
+  bitwise, the launches of a step held to the layer pattern, step wall,
+  tok/s, peak memory and a profile of one step.
 
 It times every kernel at its path's shapes (K2 in every cluster size and
 pivots per barrier it is built for, beside a probe of the cluster
@@ -2031,6 +2038,9 @@ BWD_CASES = [   # K4b: ragged T and D, GQA, the training shapes
     # moonshot-v1-16b-a3b's training shape, phase (m-d)
     dict(b=4, hq=16, hkv=16, tq=1024, tk=1024, d=128, causal=True,
          window=None),
+    # zamba2-7b's shared block in training, phase (z-t)
+    dict(b=4, hq=32, hkv=32, tq=1024, tk=1024, d=112, causal=True,
+         window=None),
 ]
 
 
@@ -2141,7 +2151,9 @@ def phase_lm_bwd_kernels(rng, errs: dict) -> None:
                     *(x.double() for x in (q, k, v, out, lse, do)), **kw))
         for rows, d, off in ((4096, 1152, 0), (16384, 256, 0), (7, 1150, 0),
                              (300, 256, 1), (5, 8192, 0), (1001, 2048, 0),
-                             (1001, 2056, 0), (4096, 2048, 0)):
+                             (1001, 2056, 0), (4096, 2048, 0),
+                             (4096, 4096, 0), (4096, 3584, 0),
+                             (4096, 7168, 0)):
             x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
             g = rand((rows, d), dt)
             sc = rand((d,), dt, 0.1)
@@ -2156,6 +2168,95 @@ def phase_lm_bwd_kernels(rng, errs: dict) -> None:
             again = rn.rmsnorm_rows_bwd(x, sc, g)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: two K3b calls differ")
+    scan_bwd_checks(errs, dev)
+
+
+# K5b's gradients, each held to 1e-5 x its max |want|, the forward's
+# tolerance.  The sums over the d channels (dB, dC) and over B x S steps
+# (dA, dD) need no looser one: their worst, 2.96e-6 (dA at falcon's
+# training layer; dB 1.35e-6), is under it (this script on an H100 80GB
+# HBM3 at 700 W)
+SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dh0", "dD", "dz")
+SSM_TRAIN = dict(batch=4, seq=1024, layers={"falcon-mamba-7b": 4,
+                                            "zamba2-7b": 6}, steps=6)
+
+
+def scan_grads_close(what: str, got, want) -> float:
+    """Fail unless each of K5b's gradients holds to its plain twin within
+    1e-5 x its max |want|; returns the worst max |diff|."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} gradients, want "
+                             f"{len(want)}")
+    return max(rel_close(f"{what} {n}", g, w)
+               for n, g, w in zip(SCAN_GRADS, got, want))
+
+
+def scan_bwd_checks(errs: dict, dev) -> None:
+    """K5b against ``selective_scan_bwd_ref`` on the card: gated at ragged
+    shapes (B 3, d 200 -- not a multiple of its 64-channel block -- N 1,
+    5 and 16, S 1, 17 and 130), scan-only at one; then gated at
+    falcon-mamba-7b's training layer (4, 1024, 8192, 16) with a nonzero h0
+    and dh_last, against the plain backward and against torch autograd of
+    ``selective_scan_gated_ref``; two K5b calls bitwise; K5 with its saved
+    states bitwise the serving call."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import kernel as ss
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_ref, selective_scan_gated_ref)
+
+    t0 = time.perf_counter()
+
+    def case(shape, seed, gated=True):
+        ins = scan_inputs(shape, seed, dev)
+        gate = gate_inputs(ins, seed) if gated else ()
+        gen = torch.Generator(device=dev).manual_seed(seed + 200)
+        cot = (torch.randn(ins[0].shape, generator=gen, device=dev),
+               torch.randn(ins[5].shape, generator=gen, device=dev))
+        y, h, hs = ss.selective_scan(*ins, *gate, states=True)
+        served = ss.selective_scan(*ins, *gate)
+        if not (torch.equal(y, served[0]) and torch.equal(h, served[1])):
+            raise AssertionError(f"K5 {shape}: saving its states changes "
+                                 f"its output")
+        return ins, gate, hs, cot
+
+    err = 0.0
+    for s in (1, 17, 130):
+        for n in (1, 5, 16):
+            shape = (3, s, 200, n)
+            ins, gate, hs, cot = case(shape, s * n)
+            err = max(err, scan_grads_close(
+                f"K5b gated {shape}", ss.selective_scan_bwd(
+                    *ins, hs, *cot, *gate),
+                selective_scan_bwd_ref(*ins, *cot, *gate)))
+    shape = (3, 130, 200, 5)
+    ins, gate, hs, cot = case(shape, 7, gated=False)
+    err = max(err, scan_grads_close(
+        f"K5b scan-only {shape}", ss.selective_scan_bwd(*ins, hs, *cot),
+        selective_scan_bwd_ref(*ins, *cot)))
+    falcon = get_arch(SSM["archs"][0])
+    shape = (SSM_TRAIN["batch"], SSM_TRAIN["seq"], falcon.d_inner,
+             falcon.ssm_state)
+    ins, gate, hs, cot = case(shape, 11)
+    got = ss.selective_scan_bwd(*ins, hs, *cot, *gate)
+    err = max(err, scan_grads_close(
+        f"K5b gated {shape}, falcon's training layer, vs plain", got,
+        selective_scan_bwd_ref(*ins, *cot, *gate)))
+    again = ss.selective_scan_bwd(*ins, hs, *cot, *gate)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError("two K5b calls differ")
+    log(f"  K5b {shape}: two calls bitwise equal")
+    del again
+    leaves = [t.clone().requires_grad_() for t in (*ins, *gate)]
+    y, h = selective_scan_gated_ref(*leaves)
+    auto = torch.autograd.grad((y * cot[0]).sum() + (h * cot[1]).sum(),
+                               leaves)
+    del y, h
+    scan_grads_close(f"K5b gated {shape} vs torch autograd of the plain "
+                     f"forward", got, auto)
+    errs["selective_scan_bwd"] = err
+    log(f"  K5b checks: {time.perf_counter() - t0:.1f} s")
 
 
 SERVE = dict(arch="gemma3-1b", batch=8, prompt_len=1024, max_new=32,
@@ -2184,13 +2285,14 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
         forward = 2 * cfg.n_layers - mamba1 + 2 * attn + 1
         return {"rmsnorm": forward * max_new, "flash_attention": attn,
                 "selective_scan": mamba1 * max_new, "rmsnorm_bwd": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "selective_scan_bwd": 0}
     qk = 2 if cfg.qk_norm else 0
     prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
     decode = cfg.n_layers * (2 + qk) + 1
     return {"rmsnorm": prefill + (max_new - 1) * decode,
             "flash_attention": cfg.n_layers, "rmsnorm_bwd": 0,
-            "flash_attention_bwd": 0, "selective_scan": 0}
+            "flash_attention_bwd": 0, "selective_scan": 0,
+            "selective_scan_bwd": 0}
 
 
 def phase_serve(counts: dict, errs: dict) -> dict:
@@ -2267,20 +2369,36 @@ TRAIN = dict(arch="gemma3-1b", batch=4, seq=1024, steps=8, lr=3e-3,
 
 
 def expected_train_launches(cfg) -> dict:
-    """K3 / K3b / K4 / K4b launches of one ``train_step`` with remat.  Every
-    layer runs ln1 and ln2 (and, with qk_norm, q_norm and k_norm) forward
-    and attention once, the final norm runs once, and each has one
-    backward; remat runs the forward of the scanned blocks' layers again
-    in the backward (not the remainder layers', nor the final norm)."""
-    from repro_torch.models.model import pattern_period
+    """K3 / K3b / K4 / K4b / K5 / K5b launches of one ``train_step`` with
+    remat.  An attention layer runs ln1 and ln2 (and, with qk_norm, q_norm
+    and k_norm) forward and attention once; an SSM layer its ln (and a
+    Mamba2 layer its gate norm) and a Mamba1 layer K5 once, and a shared
+    attention call ln1, ln2 and attention; the final norm runs once, and
+    each has one backward.  Remat runs the forward of the scanned blocks'
+    layers again in the backward (not the remainder layers', nor the final
+    norm): K5 runs twice a Mamba1 layer, K5b once."""
+    from repro_torch.models.model import layer_kind, pattern_period
 
     per = pattern_period(cfg)
     again = (cfg.n_layers // per) * per
-    norms = 2 + (2 if cfg.qk_norm else 0)
-    k3 = cfg.n_layers * norms + 1
-    return {"rmsnorm": k3 + again * norms, "rmsnorm_bwd": k3,
-            "flash_attention": cfg.n_layers + again,
-            "flash_attention_bwd": cfg.n_layers, "selective_scan": 0}
+    k3 = k4 = k5 = k3_again = k4_again = k5_again = 0
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i % per)
+        if cfg.family in ("ssm", "hybrid"):
+            attn = int(kind["shared_attn"])
+            norms = (1 if kind["type"] == "mamba1" else 2) + 2 * attn
+            scan = int(kind["type"] == "mamba1")
+        else:
+            attn, scan = 1, 0
+            norms = 2 + (2 if cfg.qk_norm else 0)
+        k3, k4, k5 = k3 + norms, k4 + attn, k5 + scan
+        if i < again:
+            k3_again += norms
+            k4_again += attn
+            k5_again += scan
+    return {"rmsnorm": k3 + 1 + k3_again, "rmsnorm_bwd": k3 + 1,
+            "flash_attention": k4 + k4_again, "flash_attention_bwd": k4,
+            "selective_scan": k5 + k5_again, "selective_scan_bwd": k5}
 
 
 def phase_train(counts: dict, card: str) -> dict:
@@ -2755,103 +2873,155 @@ def decode_steps(served: dict, steps: int, max_len: int):
     return decode
 
 
+def train_counted(tag: str, cfg, n_batches: int, key: str, counts: dict,
+                  card: str, dev, b: int, s: int) -> tuple:
+    """The start of a training phase at full width: ``cfg``'s train state
+    (AdamW, remat, fp32 with TF32 off) and ``n_batches`` global batches of
+    b x s of the port's Markov data on the card; after a warm-up pass,
+    check (d): one counted ``train_step`` whose K3 / K3b / K4 / K4b / K5 /
+    K5b launches equal ``expected_train_launches`` (kept in
+    ``counts[key]``).  Returns (tc, state, batches)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import upload
+    from repro_torch.models.convert import flatten
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import AdamWConfig
+
+    tc = TT.TrainConfig(optimizer=AdamWConfig(lr=3e-3, weight_decay=0.1),
+                        remat=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                                  mean_doc_len=s / 2))
+    batches = [{k: upload(v, dev) for k, v in data.batch(i).items()}
+               for i in range(n_batches)]
+    torch.cuda.reset_peak_memory_stats()
+    state = TT.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    n_params = sum(p.numel() for p in flatten(state.params).values())
+    TT.loss_and_grads(cfg, tc, state.params, batches[0])        # warm-up
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    m = TT.train_step(cfg, tc, state, batches[0])[1]
+    loss0 = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    counts[key] = got = lm_launches()
+    want = expected_train_launches(cfg)
+    log(f"  {tag} {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
+        f"(fp32), batch {b} x {s}, remat: step loss {loss0:.6f} (ce "
+        f"{float(m['ce']):.6f}, aux {float(m['aux']):.6f}), grad norm "
+        f"{float(m['grad_norm']):.6f}, {step_s:.3f} s; (d) launches {got} "
+        f"(expected {want}) [{card}]")
+    if got != want:
+        raise AssertionError(f"{tag} launches {got} != {want}")
+    return tc, state, batches
+
+
+def train_checks(tag: str, cfg, tc, params, batch, watch=None,
+                 leaf_gate=None) -> list:
+    """Checks (a)-(c) of a training phase on the card at ``params``: (a)
+    the kernels' loss and grad norm against the plain path's within rel
+    1e-5, every leaf's max |dg| <= 1e-4 x max |g_plain| and every leaf's
+    gradient nonzero; (c) two passes bitwise; (b) remat off bitwise remat
+    on.  ``watch`` (a context manager) records each of the two passes of
+    (a); ``leaf_gate(seen_kernels, seen_plain)`` says whether the leaf
+    check applies and what to log beside it (the MoE phase's routing
+    flips).  Returns the gradient leaves' names."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.convert import flatten
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import global_norm
+
+    watch = watch or contextlib.nullcontext
+    with watch() as seen_k:
+        lk, mk, gk = TT.loss_and_grads(cfg, tc, params, batch)
+    with watch() as seen_r:
+        lr_, mr, gr = TT.loss_and_grads(cfg, tc, params, batch, impl="ref")
+    apply, note = leaf_gate(seen_k, seen_r) if leaf_gate else (True, "")
+    del seen_k, seen_r
+    nk, nr = float(global_norm(gk)), float(global_norm(gr))
+    fk, fr = flatten(gk), flatten(gr)
+    worst = max((float((fk[n] - fr[n]).abs().max())
+                 / max(float(fr[n].abs().max()), 1e-30), n) for n in fr)
+    log(f"  {tag} (a) kernels vs plain on the card: loss {float(lk):.7f} vs "
+        f"{float(lr_):.7f}, aux {float(mk['aux']):.7f} vs "
+        f"{float(mr['aux']):.7f}, grad norm {nk:.7f} vs {nr:.7f}, worst "
+        f"leaf max |dg| / max |g| {worst[0]:.3g} ({worst[1]}){note}")
+    if abs(float(lk) - float(lr_)) > 1e-5 * abs(float(lr_)):
+        raise AssertionError(f"{tag} (a) loss: kernels vs plain beyond rel "
+                             f"1e-5")
+    if abs(nk - nr) > 1e-5 * nr:
+        raise AssertionError(f"{tag} (a) grad norm: kernels vs plain beyond "
+                             f"rel 1e-5")
+    if apply and worst[0] > 1e-4:
+        raise AssertionError(f"{tag} (a) leaf {worst[1]}: max |dg| beyond "
+                             f"1e-4 x max |g|")
+    if not apply:
+        log(f"  {tag} (a) worst-leaf check not applied: the two passes "
+            f"took other paths")
+    dead = [n for n, g in fk.items() if not bool(g.any())]
+    if dead:
+        raise AssertionError(f"{tag} (a) no gradient reaches {dead[:8]}")
+    del gr, fr
+    _, _, g2 = TT.loss_and_grads(cfg, tc, params, batch)
+    twice = all(torch.equal(x, y) for x, y in zip(fk.values(),
+                                                  flatten(g2).values()))
+    del g2
+    ln, _, gn = TT.loss_and_grads(cfg, dataclasses.replace(tc, remat=False),
+                                  params, batch)
+    no_remat = torch.equal(ln, lk) and all(
+        torch.equal(x, y) for x, y in zip(fk.values(), flatten(gn).values()))
+    names = list(fk)
+    del gn, gk, fk
+    log(f"  {tag} (c) two passes bitwise: {twice}; (b) remat off bitwise "
+        f"remat on: {no_remat}; every leaf's gradient nonzero ({len(names)} "
+        f"leaves)")
+    if not twice:
+        raise AssertionError(f"{tag} (c) two backward passes differ")
+    if not no_remat:
+        raise AssertionError(f"{tag} (b) remat changes the loss or "
+                             f"gradients")
+    return names
+
+
 def phase_moe_train(counts: dict, card: str, dev) -> None:
     """(m-d) Training through the dispatch: moonshot-v1-16b-a3b at full
     width, 2 layers, global batch 4 x 1024 of the port's Markov data,
-    remat, fp32 (TF32 off).  One counted ``train_step`` (K3 / K3b / K4 /
-    K4b launches held to the layer pattern); the kernels' loss and grad
-    norm against the plain path's within rel 1e-5, every leaf's gradient
-    nonzero (router, experts, shared expert among them), and, where both
-    paths dispatched every token alike (no near-tie routing flip), every
-    leaf's max |dg| <= 1e-4 x max |g_plain|, as training check (a); two
-    passes bitwise; remat off bitwise remat on."""
+    remat, fp32 (TF32 off).  ``train_counted``'s one counted
+    ``train_step`` (K3 / K3b / K4 / K4b launches held to the layer
+    pattern) and ``train_checks``: the kernels' loss and grad norm against
+    the plain path's within rel 1e-5, every leaf's gradient nonzero
+    (router, experts, shared expert among them), and, where both paths
+    dispatched every token alike (no near-tie routing flip), every leaf's
+    max |dg| <= 1e-4 x max |g_plain|, as training check (a); two passes
+    bitwise; remat off bitwise remat on."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.device import upload
-    from repro_torch.models.convert import flatten
-    from repro_torch.train import train_step as TT
-    from repro_torch.train.optimizer import AdamWConfig, global_norm
 
     cfg = dataclasses.replace(get_arch(MOE["arch"]),
                               n_layers=MOE["train_layers"])
-    b, s = MOE["train_batch"], MOE["train_seq"]
-    tc = TT.TrainConfig(optimizer=AdamWConfig(lr=3e-3, weight_decay=0.1),
-                        remat=True)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
-                                  mean_doc_len=s / 2))
-    batch = {k: upload(v, dev) for k, v in data.batch(0).items()}
-    torch.cuda.reset_peak_memory_stats()
-    state = TT.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
-    TT.loss_and_grads(cfg, tc, state.params, batch)        # warm-up
-    torch.cuda.synchronize()
-    reset_all_launches()
-    t0 = time.perf_counter()
-    m = TT.train_step(cfg, tc, state, batch)[1]
-    loss0 = float(m["loss"])
-    step_s = time.perf_counter() - t0
-    counts["moe_train"] = lm_launches()
-    want = expected_train_launches(cfg)
-    log(f"  (m-d) {cfg.name}, {cfg.n_layers} layers, batch {b} x {s}, remat:"
-        f" step loss {loss0:.6f} (ce {float(m['ce']):.6f}, aux "
-        f"{float(m['aux']):.6f}), grad norm {float(m['grad_norm']):.6f}, "
-        f"{step_s:.3f} s; launches {counts['moe_train']} (expected {want})"
-        f" [{card}]")
-    if counts["moe_train"] != want:
-        raise AssertionError(f"(m-d) launches {counts['moe_train']} != "
-                             f"{want}")
-    with router_probs() as probs_k:
-        lk, mk, gk = TT.loss_and_grads(cfg, tc, state.params, batch)
-    with router_probs() as probs_r:
-        lr_, mr, gr = TT.loss_and_grads(cfg, tc, state.params, batch,
-                                        impl="ref")
-    flips, diff = other_dispatch(probs_k, probs_r, cfg)
-    del probs_k, probs_r
-    nk, nr = float(global_norm(gk)), float(global_norm(gr))
-    fk, fr = flatten(gk), flatten(gr)
-    worst = max((float((fk[n] - fr[n]).abs().max())
-                 / max(float(fr[n].abs().max()), 1e-30), n) for n in fr)
-    log(f"  (m-d) kernels vs plain: loss {float(lk):.7f} vs "
-        f"{float(lr_):.7f}, aux {float(mk['aux']):.7f} vs "
-        f"{float(mr['aux']):.7f}, grad norm {nk:.7f} vs {nr:.7f}, worst "
-        f"leaf max |dg| / max |g| {worst[0]:.3g} ({worst[1]}); {flips} "
-        f"tokens routed to other experts, {diff} with other dispatch, over "
-        f"the MoE calls of the pass")
-    if abs(float(lk) - float(lr_)) > 1e-5 * abs(float(lr_)):
-        raise AssertionError("(m-d) loss: kernels vs plain beyond rel 1e-5")
-    if abs(nk - nr) > 1e-5 * nr:
-        raise AssertionError("(m-d) grad norm: kernels vs plain beyond rel "
-                             "1e-5")
-    if diff == 0 and worst[0] > 1e-4:
-        raise AssertionError(f"(m-d) leaf {worst[1]}: max |dg| beyond 1e-4 "
-                             f"x max |g| with no routing flip")
-    if diff:
-        log(f"  (m-d) worst-leaf gate not applied: routing flips part the "
-            f"two paths")
-    dead = [n for n, g in fk.items() if not bool(g.any())]
-    if dead:
-        raise AssertionError(f"(m-d) no gradient reaches {dead[:8]}")
-    del gr, fr
-    _, _, g2 = TT.loss_and_grads(cfg, tc, state.params, batch)
-    twice = all(torch.equal(x, y) for x, y in zip(fk.values(),
-                                                  flatten(g2).values()))
-    del g2
-    ln, mn, gn = TT.loss_and_grads(cfg, dataclasses.replace(tc, remat=False),
-                                   state.params, batch)
-    no_remat = torch.equal(ln, lk) and all(
-        torch.equal(x, y) for x, y in zip(fk.values(), flatten(gn).values()))
-    log(f"  (m-d) two passes bitwise: {twice}; remat off bitwise remat on: "
-        f"{no_remat}; every leaf's gradient nonzero ({len(fk)} leaves, "
-        f"{sorted(n for n in fk if '/moe/' in n or 'shared' in n)[:3]} "
-        f"...); peak {torch.cuda.max_memory_allocated()} B")
-    if not twice:
-        raise AssertionError("(m-d) two backward passes differ")
-    if not no_remat:
-        raise AssertionError("(m-d) remat changes the loss or gradients")
+    tc, state, batches = train_counted(
+        "(m-d)", cfg, 1, "moe_train", counts, card, dev, MOE["train_batch"],
+        MOE["train_seq"])
+
+    def same_dispatch(probs_k, probs_r) -> tuple:
+        flips, diff = other_dispatch(probs_k, probs_r, cfg)
+        return diff == 0, (f"; {flips} tokens routed to other experts, "
+                           f"{diff} with other dispatch, over the MoE calls "
+                           f"of the pass")
+
+    names = train_checks("(m-d)", cfg, tc, state.params, batches[0],
+                         watch=router_probs, leaf_gate=same_dispatch)
+    log(f"  (m-d) leaves of the router and experts among them: "
+        f"{sorted(n for n in names if '/moe/' in n or 'shared' in n)[:3]} "
+        f"...; peak {torch.cuda.max_memory_allocated()} B")
 
 
 SSM = dict(archs=("falcon-mamba-7b", "zamba2-7b"), batch=8, prompt_len=1024,
@@ -3113,6 +3283,60 @@ def phase_ssm(arch: str, counts: dict, errs: dict, card: str, dev) -> dict:
     return {"cfg": cfg, "params": params, "prompts": prompts}
 
 
+def phase_ssm_train(arch: str, counts: dict, card: str, dev) -> dict:
+    """(f-t) / (z-t) Training an SSM family at full width: falcon-mamba-7b
+    cut to 4 of its 64 layers (K5 / K5b, K3 / K3b), zamba2-7b to 6 of its
+    81 (one layer pattern and one shared attention call: K3 / K3b at d =
+    3584 and the 7168-wide gate norm, K4 with L / K4b at D = 112); global
+    batch 4 x 1024 of the port's Markov data, remat, fp32 with TF32 off,
+    AdamW.  (d) ``train_counted``'s counted ``train_step``; (a)-(c)
+    ``train_checks``; (e) after one untimed step, the wall of each of
+    ``SSM_TRAIN["steps"]`` more steps, their median and mean, tok/s and
+    peak memory, each step's loss and grad norm finite.  Returns what one
+    profiled step needs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import train_step as TT
+
+    cfg = dataclasses.replace(get_arch(arch),
+                              n_layers=SSM_TRAIN["layers"][arch])
+    tag = f"({arch[0]}-t)"
+    b, s, steps = SSM_TRAIN["batch"], SSM_TRAIN["seq"], SSM_TRAIN["steps"]
+    tc, state, batches = train_counted(
+        tag, cfg, steps + 1, f"{arch.split('-')[0]}_train", counts, card,
+        dev, b, s)
+    train_checks(tag, cfg, tc, state.params, batches[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    st = TT.train_step(cfg, tc, state, batches[0])[0]     # untimed, warm
+    walls = []
+    for i in range(1, steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = TT.train_step(cfg, tc, st, batches[i])
+        loss = float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        gnorm = float(m["grad_norm"])
+        log(f"  {tag} step {i}: loss {loss:.6f} gnorm {gnorm:.4f} "
+            f"{walls[-1] * 1e3:.1f} ms")
+        if not np.isfinite([loss, gnorm]).all():
+            raise AssertionError(f"{tag} step {i}: loss {loss}, grad norm "
+                                 f"{gnorm}")
+    ms = float(np.median(walls)) * 1e3
+    mean = sum(walls) / len(walls) * 1e3
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    log(f"  {tag} (e) train step: {ms:.1f} ms median of {len(walls)} after "
+        f"one untimed (mean {mean:.1f}, min {min(walls) * 1e3:.1f}, max "
+        f"{max(walls) * 1e3:.1f}), {b * s / ms * 1e3:.1f} tok/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"allocator retries {retries} [{card}]")
+    return {"cfg": cfg, "tc": tc, "state": st, "batch": batches[0]}
+
+
 def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     """K4 and K3 at the served shapes (gemma3-1b's and, (m-e),
     moonshot's), K4 with L, K4b and K3b at the training shapes: ms per
@@ -3137,7 +3361,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan.ref import (
-        selective_scan_gated_ref, selective_scan_ref)
+        selective_scan_bwd_ref, selective_scan_gated_ref, selective_scan_ref)
 
     dev = torch.device("cuda")
     b, hq, hkv, t, d = SERVE["batch"], 4, 1, SERVE["prompt_len"], 256
@@ -3381,44 +3605,61 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f" ms, bound {b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, "
             f"{tc_ms:.4f} ms by {tc_by} as 3xTF32 on the tensor cores)")
 
-    # K4b at moonshot-v1-16b-a3b's training shape: D = 128, Hq = Hkv = 16
-    q, k, v, do = (rand(bt, mh, t, md) for _ in range(4))
-    kw = dict(scale=md ** -0.5, causal=True, window=None)
-    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
-    ms = time_ms(lambda: fa_kernel.flash_attention_bwd(
-        q, k, v, out, lse, do, **kw), reps=10)
-    plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **kw),
-                    reps=3, warmup=1)
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    # K4b at moonshot-v1-16b-a3b's training shape (D = 128, Hq = Hkv = 16)
+    # and zamba2-7b's shared block (D = 112, Hq = Hkv = 32), with K4's L
+    for label, heads, hd in (("moonshot", mh, md), ("zamba2", zh, zd)):
+        q, k, v, do = (rand(bt, heads, t, hd) for _ in range(4))
+        kw = dict(scale=hd ** -0.5, causal=True, window=None)
+        out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+        ms_l = time_ms(lambda: fa_kernel.flash_attention(
+            q, k, v, with_lse=True, **kw), reps=20)
+        ms = time_ms(lambda: fa_kernel.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw), reps=10)
+        plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do,
+                                                  **kw), reps=3, warmup=1)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=True)
 
-    lib_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do),
-                     reps=10) - time_ms(lambda: sdpa().detach(), reps=10)
-    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], max(
-        grad_close(f"K4b timed input, moonshot {w}", g, ww)
-        for w, g, ww in zip(("dq", "dk", "dv"),
-                            fa_kernel.flash_attention_bwd(
-                                q, k, v, out, lse, do, **kw),
-                            attention_bwd_ref(q, k, v, out, lse, do, **kw))))
-    pairs = t * (t + 1) / 2 * bt * mh
-    nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
-    b_ms, b_by = flop_bound(10.0 * pairs * md, nbytes)
-    tc_ms, tc_by = flop_bound(30.0 * pairs * md, nbytes, TF32_FLOP_PER_S)
-    k4b["moonshot_train"] = dict(
-        shape=f"({bt},{mh},{t},{md}) Hkv {mh} fp32, causal (global)",
-        ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by, bound_ms_3xtf32=tc_ms, bound_by_3xtf32=tc_by)
-    log(f"  K4b moonshot layer ({bt},{mh},{t},{md}) Hkv {mh} fp32: {ms:.4f} "
-        f"ms (plain {plain:.3f} ms, SDPA backward {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, {tc_ms:.4f} ms "
-        f"by {tc_by} as 3xTF32 on the tensor cores)")
-    del q, k, v, do, out, lse, qg, kg, vg
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qg, kg, vg), do), reps=10) - time_ms(
+            lambda: sdpa().detach(), reps=10)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], max(
+            grad_close(f"K4b timed input, {label} {w}", g, ww)
+            for w, g, ww in zip(("dq", "dk", "dv"),
+                                fa_kernel.flash_attention_bwd(
+                                    q, k, v, out, lse, do, **kw),
+                                attention_bwd_ref(q, k, v, out, lse, do,
+                                                  **kw))))
+        pairs = t * (t + 1) / 2 * bt * heads
+        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+        b_ms, b_by = flop_bound(10.0 * pairs * hd, nbytes)
+        tc_ms, tc_by = flop_bound(30.0 * pairs * hd, nbytes,
+                                  TF32_FLOP_PER_S)
+        lb_ms, lb_by = flop_bound(4.0 * pairs * hd, 4.0 * (
+            4 * q.numel() + lse.numel()))
+        shape_s = f"({bt},{heads},{t},{hd}) Hkv {heads} fp32, causal (global)"
+        k4b[f"{label}_train"] = dict(
+            shape=shape_s, ms=ms, plain_ms=plain, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
+            bound_by_3xtf32=tc_by)
+        k4l[label] = dict(shape=shape_s, ms=ms_l, bound_ms=lb_ms,
+                          bound_by=lb_by)
+        log(f"  K4b {label} layer ({bt},{heads},{t},{hd}) Hkv {heads} fp32: "
+            f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA backward {lib_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, "
+            f"{tc_ms:.4f} ms by {tc_by} as 3xTF32 on the tensor cores); K4 "
+            f"with L {ms_l:.4f} ms (bound {lb_ms:.4f} ms by {lb_by})")
+        del q, k, v, do, out, lse, qg, kg, vg
 
     k3b = {}
     for label, rows, dd in (("residual", bt * t, 1152),
-                            ("q_norm", bt * t * hq, d)):
+                            ("q_norm", bt * t * hq, d),
+                            ("falcon_residual", bt * t, 4096),
+                            ("zamba2_residual", bt * t, 3584),
+                            ("zamba2_gate", bt * t, 7168)):
         x, g, sc = rand(rows, dd), rand(rows, dd), rand(dd, sd=0.1)
         ms = time_ms(lambda: rn_kernel.rmsnorm_rows_bwd(x, sc, g), reps=50)
         plain = time_ms(lambda: rmsnorm_bwd_ref(x, sc, g), reps=10)
@@ -3435,11 +3676,82 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         # x and g read once, dx written once, scale and dscale
         b_ms, b_by = flop_bound(10.0 * x.numel(),
                                 4.0 * (3 * x.numel() + 2 * dd))
-        k3b[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by)
+        k3b[label] = dict(shape=f"({rows}, {dd}) fp32", ms=ms,
+                          plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by)
         log(f"  K3b {label} ({rows}, {dd}) fp32: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, autograd of F.rms_norm {lib_ms:.4f} ms, bound"
             f" {b_ms:.5f} ms by {b_by})")
+
+    # K5b at falcon-mamba-7b's training layer, gated, beside K5 with its
+    # saved states (the training forward) and the serving K5.  The bound is
+    # the backward's own work: dt, x, z, dout, B_t, C_t, A, D and h0 read
+    # once and ddt, dx, dz, dB, dC, dA, dD and dh0 written once (no
+    # dh_last: training passes none); one exp per (b, t, c, n) (the decay)
+    # and the sigmoid's per (b, t, c) on the SFUs; ~22 fp32 FLOP per (b, t,
+    # c, n) (an FMA = 2: the state stepped forward, C . h, the reverse
+    # step and the five sums).  What K5b's design adds -- the saved states
+    # read, the dB / dC block partials written, the decay taken twice --
+    # is reported beside it, not in it.  No PyTorch call computes the
+    # scan's backward: library_ms is None.
+    tshape = (SSM_TRAIN["batch"], SSM_TRAIN["seq"], falcon.d_inner,
+              falcon.ssm_state)
+    ins = scan_inputs(tshape, 12, dev)
+    gate = gate_inputs(ins, 12)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dout = torch.randn(ins[0].shape, generator=gen, device=dev)
+    _, _, hs = ss_kernel.selective_scan(*ins, *gate, states=True)
+    runs = {"bwd": lambda: ss_kernel.selective_scan_bwd(
+                *ins, hs, dout, None, *gate),
+            "states": lambda: ss_kernel.selective_scan(*ins, *gate,
+                                                       states=True),
+            "serve": lambda: ss_kernel.selective_scan(*ins, *gate)}
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k].append(time_ms(runs[k], reps=10))
+    plain_bwd = time_ms(lambda: selective_scan_bwd_ref(*ins, dout, None,
+                                                       *gate),
+                        reps=2, warmup=1)
+    errs["selective_scan_bwd"] = max(errs["selective_scan_bwd"],
+                                     scan_grads_close(
+        "K5b timed input", runs["bwd"](),
+        selective_scan_bwd_ref(*ins, dout, None, *gate)))
+    sb, ss_, sd, sn = tshape
+    elems, rows = float(sb * ss_ * sd * sn), float(sb * ss_ * sd)
+    blocks = -(-sd // ss_kernel.BWD_CH)
+    nbytes = 4.0 * (7 * rows + 4 * sb * ss_ * sn + 2 * sd * sn + 2 * sd
+                    + 2 * sb * sd * sn)
+    design = 4.0 * (hs.numel() + 2 * sb * ss_ * blocks * sn)
+    fp32_ms = 22.0 * elems / FLOP_PER_S * 1e3
+    sfu_ms = (elems + rows) / SFU_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
+        if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
+    design_ms = (nbytes + design) / BYTES_PER_S * 1e3
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    k5b = dict(ms=mean["bwd"], plain_ms=plain_bwd, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, bound_ms_bytes=bytes_ms,
+               bound_ms_fp32=fp32_ms, bound_ms_exp=sfu_ms,
+               design_bytes_ms=design_ms,
+               design_exp_ms=(2.0 * elems + rows) / SFU_PER_S * 1e3)
+    log(f"  K5b gated falcon training layer {tshape} fp32: {mean['bwd']:.4f}"
+        f" ms (runs {', '.join(f'{t:.4f}' for t in times['bwd'])}; plain "
+        f"{plain_bwd:.3f} ms, no library call; bound {b_ms:.4f} ms by "
+        f"{b_by}: bytes {bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB), exps "
+        f"{sfu_ms:.4f} ms on the SFUs, fp32 {fp32_ms:.4f} ms; "
+        f"{b_ms / mean['bwd']:.1%} of the bound; the design's own bytes, "
+        f"saved states and block partials included, {design_ms:.4f} ms "
+        f"({(nbytes + design) / 1e6:.1f} MB), its two exps a state "
+        f"{k5b['design_exp_ms']:.4f} ms)")
+    log(f"  K5 gated at the same shape: with its saved states (training) "
+        f"{mean['states']:.4f} ms (runs "
+        f"{', '.join(f'{t:.4f}' for t in times['states'])}), serving "
+        f"{mean['serve']:.4f} ms (runs "
+        f"{', '.join(f'{t:.4f}' for t in times['serve'])})")
+    k5["gated"]["train_with_states"] = dict(
+        shape=f"{tshape} fp32", ms=mean["states"], ms_serving=mean["serve"])
+    del ins, gate, dout, hs
 
     def entry(name, source, replaces, shape, main, other_label, other,
               path="serve"):
@@ -3451,6 +3763,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 "launches_moonshot_train_step": counts["moe_train"][name],
                 "launches_falcon_serve": counts["falcon_serve"][name],
                 "launches_zamba2_serve": counts["zamba2_serve"][name],
+                "launches_falcon_train_step": counts["falcon_train"][name],
+                "launches_zamba2_train_step": counts["zamba2_train"][name],
                 "max_abs_err": errs[name],
                 "max_abs_err_bf16": errs[name + "_bf16"], **main,
                 other_label: other}
@@ -3478,13 +3792,16 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
            "zamba2_shared": k4["zamba2_shared"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
-               "global": k4l["global"], "local_window_512": k4l["local"]}},
+               "global": k4l["global"], "local_window_512": k4l["local"],
+               "moonshot": k4l["moonshot"], "zamba2": k4l["zamba2"]}},
         entry("rmsnorm_bwd",
               "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
               "src/repro/models/layers.py:37 (jax.grad of rms_norm; no "
               "Pallas kernel)",
               f"({bt * t}, 1152) fp32, the residual", k3b["residual"],
-              "q_norm", k3b["q_norm"], path="train"),
+              "q_norm", k3b["q_norm"], path="train")
+        | {label: k3b[label] for label in (
+            "falcon_residual", "zamba2_residual", "zamba2_gate")},
         entry("flash_attention_bwd",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_bwd.cu",
@@ -3492,7 +3809,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               "_masked_attention; no Pallas kernel)",
               f"({bt},{hq},{t},{d}) Hkv {hkv} fp32, causal (global layer)",
               k4b["global"], "local_window_512", k4b["local"], path="train")
-        | {"moonshot_train": k4b["moonshot_train"]},
+        | {"moonshot_train": k4b["moonshot_train"],
+           "zamba2_train": k4b["zamba2_train"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/selective_scan/csrc/"
                    "selective_scan.cu",
@@ -3503,8 +3821,23 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                   f"(what the model runs)",
          "launches": counts["falcon_serve"]["selective_scan"],
          "launches_zamba2_serve": counts["zamba2_serve"]["selective_scan"],
+         "launches_falcon_train_step":
+             counts["falcon_train"]["selective_scan"],
+         "launches_zamba2_train_step":
+             counts["zamba2_train"]["selective_scan"],
          "max_abs_err": errs["selective_scan"], **k5["gated"],
          "scan_only": k5["scan"], "yardstick_ms": yard},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                   "selective_scan_bwd.cu",
+         "replaces": "src/repro/models/mamba.py:82 and :144-145 (jax.grad "
+                     "of _ssm_scan_chunked and the gate; no Pallas kernel)",
+         "shape": f"{tshape} fp32, falcon-mamba-7b's training layer, "
+                  f"gated",
+         "launches": counts["falcon_train"]["selective_scan_bwd"],
+         "launches_zamba2_train_step":
+             counts["zamba2_train"]["selective_scan_bwd"],
+         "max_abs_err": errs["selective_scan_bwd"], **k5b},
     ]
 
 
@@ -3555,7 +3888,8 @@ def main() -> int:
     phase_kernels(rng, errs)
     log("phase: LM kernels (K3, K4) vs plain versions on the card")
     phase_lm_kernels(rng, errs)
-    log("phase: LM backward kernels (K4 with L, K4b, K3b) vs plain versions")
+    log("phase: LM backward kernels (K4 with L, K4b, K3b, K5b) vs plain "
+        "versions")
     phase_lm_bwd_kernels(rng, errs)
     log("phase: main path, overlay.build('dgro') at N=4096")
     built = phase_build(counts)
@@ -3636,6 +3970,20 @@ def main() -> int:
         del served, decode
         torch.cuda.empty_cache()
         log(f"  ({tag}) phase: {time.perf_counter() - t0:.1f} s")
+    for arch in SSM["archs"]:
+        tag = f"({arch[0]}-t)"
+        log(f"phase: {tag} SSM training, {arch} at full width "
+            f"({SSM_TRAIN['layers'][arch]} layers)")
+        t0 = time.perf_counter()
+        trained = phase_ssm_train(arch, counts, card, dev)
+        profiled(f"{tag} train {arch} ({trained['cfg'].n_layers} layers): "
+                 f"one step, batch {SSM_TRAIN['batch']} x "
+                 f"{SSM_TRAIN['seq']}, remat [{card}]",
+                 lambda: train_step(trained["cfg"], trained["tc"],
+                                    trained["state"], trained["batch"]))
+        del trained
+        torch.cuda.empty_cache()
+        log(f"  {tag} phase: {time.perf_counter() - t0:.1f} s")
     log("phase: kernel timing at the paths' shapes")
     entries = phase_timing(rng, counts, errs)
     entries += phase_lm_timing(rng, counts, errs)

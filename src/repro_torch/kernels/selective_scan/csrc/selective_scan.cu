@@ -69,6 +69,12 @@
 // A fixed-trip-count copy path for whole tiles, tried and dropped, faulted
 // at the prefill shape only, the pattern this overread shows.
 
+// Training: given hs, K5 also stores the state at the start of every ring
+// tile (every TILE = STATE_EVERY = 16 steps, h0 first) into hs (batch,
+// ceil(seqlen / 16), d, n).  K5b (selective_scan_bwd.cu) runs each tile
+// forward again from it.  Serving passes hs null; the arithmetic is the
+// same either way, so the output is bitwise unchanged.
+//
 // The order of operations is the plain version's per step (decay, decay *
 // h + dx * B, C . h), with the sum over n taken per lane and then across
 // the lanes, the decay from ex2.approx of a rounded dt * A log2 e, and the
@@ -116,6 +122,7 @@ constexpr int TILE = K5_TILE;          // steps per ring stage
 constexpr int STAGES = K5_STAGES;      // ring stages (STAGES - 1 in flight)
 constexpr int OCC = K5_OCC;            // threads an SM: <= 80 registers
 constexpr int N_MAX = 16;
+constexpr int STATE_EVERY = 16;        // K5b's TILE, kernel.py's STATE_EVERY
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert((LANES & (LANES - 1)) == 0 && LANES <= 32 &&
@@ -274,7 +281,7 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ dskip,
                       const float* __restrict__ z,
                       float* __restrict__ y, float* __restrict__ h_last,
-                      int seqlen, int d, int vec) {
+                      float* __restrict__ hs, int seqlen, int d, int vec) {
   using R = Ring<N, GATED>;
   constexpr int P = R::P, NP = R::NP;
   extern __shared__ __align__(16) unsigned char ring_bytes[];
@@ -323,6 +330,13 @@ selective_scan_kernel(const float* __restrict__ dt,
                         : K5_PROBE == 4 ? TILE
                                         : max(0, min(TILE, seqlen - ahead)),
                         c0, d, vec != 0);
+    if (hs != nullptr) {       // the state before step t0, for K5b
+      float* to = hs + ((static_cast<size_t>(b) * ((seqlen + TILE - 1) / TILE)
+                         + t0 / TILE) * d + c) * N;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (live && g * P + p < N) to[g * P + p] = h[p];
+    }
     const int steps = min(TILE, seqlen - t0);
     float* out = y + (row0 + t0) * d + c;
     if (steps == TILE) {
@@ -344,8 +358,8 @@ selective_scan_kernel(const float* __restrict__ dt,
 
 using KernelPtr = void (*)(const float*, const float*, const float*,
                            const float*, const float*, const float*,
-                           const float*, const float*, float*, float*, int,
-                           int, int);
+                           const float*, const float*, float*, float*,
+                           float*, int, int, int);
 
 template <bool GATED, int... I>
 KernelPtr instance(int n, std::integer_sequence<int, I...>) {
@@ -371,16 +385,20 @@ bool aligned16(const void* p) {
 // h0: (batch, d, n); dskip: (d,) and z: (batch, seqlen, d), both given or
 // both null -- all contiguous fp32 -- into y (batch, seqlen, d) and h_last
 // (batch, d, n), also contiguous fp32.  With dskip and z, y is the gated
-// output.  1 <= n <= 16.  Returns the launch's cudaError_t.
+// output.  hs, null when serving, takes the state at the start of every
+// 16-step tile, (batch, ceil(seqlen / 16), d, n) fp32: what K5b needs (a
+// build with another K5_TILE refuses it).  1 <= n <= 16.  Returns the
+// launch's cudaError_t.
 extern "C" int selective_scan(const void* dt, const void* x,
                               const void* bmat, const void* cmat,
                               const void* a, const void* h0,
                               const void* dskip, const void* z, void* y,
-                              void* h_last, int batch, int seqlen, int d,
-                              int n, void* stream) {
+                              void* h_last, void* hs, int batch, int seqlen,
+                              int d, int n, void* stream) {
   const bool gated = dskip != nullptr;
   if (batch < 1 || batch > 65535 || seqlen < 1 || d < 1 || n < 1 ||
-      n > N_MAX || gated != (z != nullptr))
+      n > N_MAX || gated != (z != nullptr) ||
+      (hs != nullptr && TILE != STATE_EVERY))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto seq = std::make_integer_sequence<int, N_MAX>();
   const KernelPtr k = gated ? instance<true>(n, seq)
@@ -400,6 +418,7 @@ extern "C" int selective_scan(const void* dt, const void* x,
       static_cast<const float*>(bmat), static_cast<const float*>(cmat),
       static_cast<const float*>(a), static_cast<const float*>(h0),
       static_cast<const float*>(dskip), static_cast<const float*>(z),
-      static_cast<float*>(y), static_cast<float*>(h_last), seqlen, d, vec);
+      static_cast<float*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(hs), seqlen, d, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,19 @@
-"""K5 ``selective_scan``: the hand-written CUDA scan of Mamba1, its binding
-and wrapper.
+"""K5 ``selective_scan`` and K5b ``selective_scan_bwd``: the hand-written
+CUDA scan of Mamba1 and its gradient, their bindings and wrappers.
 
-Source ``csrc/selective_scan.cu`` (with its design note), built by the
-port's shared builder (``repro_torch.kernels._build``) at first use.  Two
-lanes per (batch, channel) split its N <= 16 states and walk the sequence
-with them in registers; given Mamba1's D and z it writes the gated output
-``(y + D x) * silu(z)`` in place of y.  The wrapper takes the plain
-versions (``ref.selective_scan_ref`` / ``ref.selective_scan_gated_ref``)
-for CPU tensors and launches the kernel for CUDA tensors -- or raises:
-there is no fallback.  It takes contiguous fp32 tensors only, allocates
-the outputs and counts launches in :data:`launches`.
+Sources ``csrc/selective_scan.cu`` and ``csrc/selective_scan_bwd.cu``
+(each with its design note), built by the port's shared builder
+(``repro_torch.kernels._build``) at first use.  Two lanes per (batch,
+channel) split its N <= 16 states and walk the sequence with them in
+registers; given Mamba1's D and z it writes the gated output
+``(y + D x) * silu(z)`` in place of y.  With ``states=True`` K5 also
+stores the state at the start of every 16-step tile, which K5b runs
+forward again from before it walks each tile in reverse.  The wrappers
+take the plain versions (``ref.selective_scan_ref`` /
+``selective_scan_gated_ref`` / ``selective_scan_bwd_ref``) for CPU tensors
+and launch the kernels for CUDA tensors -- or raise: there is no
+fallback.  They take contiguous fp32 tensors only, allocate the outputs
+and count launches in :data:`launches`.
 """
 from __future__ import annotations
 
@@ -20,16 +24,22 @@ from typing import Optional
 import torch
 
 from .._build import KernelFamily
-from .ref import selective_scan_gated_ref, selective_scan_ref
+from .ref import (selective_scan_bwd_ref, selective_scan_gated_ref,
+                  selective_scan_ref)
 
-__all__ = ["SOURCES", "FAMILY", "N_MAX", "launches", "selective_scan"]
+__all__ = ["SOURCES", "FAMILY", "N_MAX", "STATE_EVERY", "BWD_CH", "launches",
+           "selective_scan", "selective_scan_bwd"]
 
-SOURCES = {"selective_scan": "selective_scan.cu"}
-N_MAX = 16            # the largest state size the kernel is built for
+SOURCES = {"selective_scan": "selective_scan.cu",
+           "selective_scan_bwd": "selective_scan_bwd.cu"}
+N_MAX = 16            # the largest state size the kernels are built for
+STATE_EVERY = 16      # K5's STATE_EVERY, K5b's TILE: steps between states
+BWD_CH = 64           # K5b's channels a block: its dB / dC partials
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
-    {"selective_scan": [_P] * 10 + [_I] * 4 + [_P]})
+    {"selective_scan": [_P] * 11 + [_I] * 4 + [_P],
+     "selective_scan_bwd": [_P] * 18 + [_I] * 5 + [_P]})
 launches = FAMILY.launches
 
 
@@ -74,23 +84,29 @@ def _check_cuda(dt, **others) -> None:
 def selective_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                    cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
                    dskip: Optional[torch.Tensor] = None,
-                   z: Optional[torch.Tensor] = None) -> tuple:
+                   z: Optional[torch.Tensor] = None,
+                   states: bool = False) -> tuple:
     """K5 on dt, x (B, S, d), bmat, cmat (B, S, N), a (d, N), h0 (B, d, N)
     and, for the gated output, dskip (d,) and z (B, S, d): returns (y or
-    the gated output (B, S, d), h_last (B, d, N)), see ``ref``."""
+    the gated output (B, S, d), h_last (B, d, N)), see ``ref``.  With
+    ``states``, also the state at the start of every ``STATE_EVERY``-step
+    tile, (B, ceil(S / 16), d, N), what K5b takes (None on the CPU, where
+    the plain backward runs forward again from h0)."""
     _check_shapes(dt, x, bmat, cmat, a, h0, dskip, z)
     gated = z is not None
     if dt.device.type == "cpu":
-        if gated:
-            return selective_scan_gated_ref(dt, x, bmat, cmat, a, h0, dskip,
-                                            z)
-        return selective_scan_ref(dt, x, bmat, cmat, a, h0)
+        plain = selective_scan_gated_ref(dt, x, bmat, cmat, a, h0, dskip,
+                                         z) if gated \
+            else selective_scan_ref(dt, x, bmat, cmat, a, h0)
+        return (*plain, None) if states else plain
     gate = {"dskip": dskip, "z": z} if gated else {}
     _check_cuda(dt, x=x, bmat=bmat, cmat=cmat, a=a, h0=h0, **gate)
     bsz, s, d = dt.shape
     n = bmat.shape[2]
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=dt.device)
+    hs = torch.empty((bsz, -(-s // STATE_EVERY), d, n), dtype=torch.float32,
+                     device=dt.device) if states else None
     fn = FAMILY.fn("selective_scan")
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -98,6 +114,65 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                  cmat.data_ptr(), a.data_ptr(), h0.data_ptr(),
                  dskip.data_ptr() if gated else None,
                  z.data_ptr() if gated else None, y.data_ptr(),
-                 h_last.data_ptr(), bsz, s, d, n, stream)
+                 h_last.data_ptr(), hs.data_ptr() if states else None, bsz,
+                 s, d, n, stream)
     FAMILY.launched("selective_scan", err)
-    return y, h_last
+    return (y, h_last, hs) if states else (y, h_last)
+
+
+def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
+                       cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                       hs: Optional[torch.Tensor], dout: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None,
+                       dskip: Optional[torch.Tensor] = None,
+                       z: Optional[torch.Tensor] = None) -> tuple:
+    """K5b: the gradients of :func:`selective_scan` for the cotangents
+    ``dout`` (B, S, d) and ``dh_last`` (B, d, N; None = 0), given its
+    inputs and, on CUDA, the states ``hs`` it saved (``states=True``).
+    Returns (ddt, dx, dB, dC, dA, dh0) and, gated, (dD, dz), as
+    ``ref.selective_scan_bwd_ref``.  On CUDA one launch, then the block
+    and batch partials of dB, dC, dA (and dD) summed in a fixed order."""
+    _check_shapes(dt, x, bmat, cmat, a, h0, dskip, z)
+    gated = z is not None
+    if dt.device.type == "cpu":
+        return selective_scan_bwd_ref(dt, x, bmat, cmat, a, h0, dout,
+                                      dh_last, dskip, z)
+    bsz, s, d = dt.shape
+    n = bmat.shape[2]
+    if hs is None or tuple(hs.shape) != (bsz, -(-s // STATE_EVERY), d, n):
+        raise ValueError(f"selective_scan_bwd needs K5's saved states "
+                         f"(B, ceil(S / {STATE_EVERY}), d, N), got "
+                         f"{None if hs is None else tuple(hs.shape)}")
+    others = {"hs": hs, "dout": dout}
+    if dh_last is not None:
+        others["dh_last"] = dh_last
+    if tuple(dout.shape) != (bsz, s, d) or (
+            dh_last is not None and tuple(dh_last.shape) != (bsz, d, n)):
+        got = None if dh_last is None else tuple(dh_last.shape)
+        raise ValueError(f"selective_scan_bwd cotangents: dout "
+                         f"{tuple(dout.shape)}, dh_last {got}")
+    gate = {"dskip": dskip, "z": z} if gated else {}
+    _check_cuda(dt, x=x, bmat=bmat, cmat=cmat, a=a, **others, **gate)
+    blocks = -(-d // BWD_CH)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dt.device)
+
+    ddt, dx, dh0 = new(bsz, s, d), new(bsz, s, d), new(bsz, d, n)
+    dbp, dcp, dap = new(bsz, s, blocks, n), new(bsz, s, blocks, n), \
+        new(bsz, d, n)
+    dz, ddp = (new(bsz, s, d), new(bsz, d)) if gated else (None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = FAMILY.fn("selective_scan_bwd")
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = fn(*(ptr(t) for t in (dt, x, bmat, cmat, a, hs, dskip, z, dout,
+                                    dh_last, ddt, dx, dz, dbp, dcp, dap, ddp,
+                                    dh0)),
+                 bsz, s, d, n, blocks, stream)
+    FAMILY.launched("selective_scan_bwd", err)
+    grads = (ddt, dx, dbp.sum(2), dcp.sum(2), dap.sum(0), dh0)
+    return (*grads, ddp.sum(0), dz) if gated else grads

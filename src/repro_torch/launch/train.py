@@ -12,8 +12,8 @@ microbatching) -> async checkpointing -> the per-host straggler EWMA of
 Without ``--device cpu`` it runs on the CUDA card and raises where there is
 none.  ``--mesh none`` only: the production meshes (``single``, ``multi``)
 need ``torch.distributed`` over several devices and are not ported
-(ROADMAP Queue A item 13f).  The SSM families (falcon-mamba-7b, zamba2-7b)
-are refused: their training is ROADMAP Queue A item 13c′.
+(ROADMAP Queue A item 13f).  The SSM families train too
+(``--arch falcon-mamba-7b`` or ``zamba2-7b``).
 """
 from __future__ import annotations
 
@@ -28,8 +28,7 @@ from ..data.pipeline import DataConfig, SyntheticLM
 from ..device import resolve_device, upload
 from ..membership.elastic import HostState, update_ewma
 from ..train.optimizer import AdamWConfig, warmup_cosine
-from ..train.train_step import (TrainConfig, check_trainable, init_state,
-                                train_step)
+from ..train.train_step import TrainConfig, init_state, train_step
 
 __all__ = ["main"]
 
@@ -63,7 +62,6 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    check_trainable(cfg)
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
           f"vocab={cfg.vocab}")
 

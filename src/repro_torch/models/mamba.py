@@ -213,8 +213,8 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
         h = torch.zeros((bsz, nh, hd, n), dtype=torch.float32,
                         device=x.device)
     chunk = _chunk(s)
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))
+    future = torch.triu(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device), diagonal=1)
     ys = []
     for lo in range(0, s, chunk):
         xq, bq, cq, dtq = (t[:, lo:lo + chunk] for t in (xh, bmat, cmat, dt))
@@ -222,7 +222,11 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
         # intra-chunk quadratic form: M[q,k] = C_q.B_k exp(cum_q - cum_k)
         qk = torch.einsum("bqn,bkn->bqk", cq, bq)          # (B, Q, Q)
         ldiff = cum[:, :, None, :] - cum[:, None, :, :]    # (B, Q, K, nh)
-        m = torch.where(causal[None, :, :, None], torch.exp(ldiff), 0.0)
+        # masked before the exp, where the reference masks after it: the
+        # same values, but once a chunk's decays pass exp's range (~88)
+        # the reference's gradient is 0 * inf = NaN and this one is finite
+        m = torch.exp(torch.where(future[None, :, :, None], -torch.inf,
+                                  ldiff))
         m = m * qk[:, :, :, None]
         xdt = xq * dtq[..., None]                          # (B, K, nh, hd)
         y_intra = torch.einsum("bqkh,bkhd->bqhd", m, xdt)

@@ -35,14 +35,12 @@ Unlike the JAX package, prefill and decode write the caches IN PLACE (the
 returned caches are the tensors passed in): one full-width cache is then
 never copied per step.  ``impl`` "flash" runs the kernels (K3 RMSNorm, K4
 prefill attention, K5 Mamba1's scan) on CUDA; "ref" the plain versions
-throughout.  In the train modes K3 and K4 are autograd Functions (K3b and
-K4b backward); K5 has no backward yet, so the SSM families run the train
-modes only without grad on CUDA (training them is ROADMAP Queue A item
-13c′).  ``remat`` recomputes each repetition of the layer pattern in the
-backward (``torch.utils.checkpoint``, non-reentrant), saving only its
-input, as the JAX package's ``jax.checkpoint(..., nothing_saveable)`` over
-its scan body; the remainder layers and the final norm are not
-recomputed, as there.
+throughout.  In the train modes K3, K4 and K5 are autograd Functions
+(K3b, K4b and K5b backward).  ``remat`` recomputes each repetition of the
+layer pattern in the backward (``torch.utils.checkpoint``,
+non-reentrant), saving only its input, as the JAX package's
+``jax.checkpoint(..., nothing_saveable)`` over its scan body; the
+remainder layers and the final norm are not recomputed, as there.
 """
 from __future__ import annotations
 

@@ -6,10 +6,10 @@ Label convention: ``labels < 0`` positions (padding, doc boundaries) are
 excluded from the loss.
 
 Gradients come from ``torch.autograd``: on CUDA with ``impl="flash"`` the
-forward runs K3 and K4 and the backward K3b and K4b; JAX takes the same
-gradient by autodiff of its plain jnp forward.  The microbatch loop is a
-Python loop where the reference has a ``lax.scan``; it sums in the same
-order.  Parameters are the port's tree (nested dicts of tensors, the JAX
+forward runs K3, K4 and K5 and the backward K3b, K4b and K5b; JAX takes
+the same gradient by autodiff of its plain jnp forward.  The microbatch
+loop is a Python loop where the reference has a ``lax.scan``; it sums in
+the same order.  Parameters are the port's tree (nested dicts of tensors, the JAX
 layout); a step returns new tensors and leaves the old ones as they were.
 """
 from __future__ import annotations
@@ -25,21 +25,11 @@ from ..models import model as Mdl
 from .optimizer import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                         tree_leaves, tree_like)
 
-__all__ = ["TrainConfig", "TrainState", "check_trainable", "cross_entropy",
+__all__ = ["TrainConfig", "TrainState", "cross_entropy",
            "chunked_cross_entropy", "loss_fn", "init_state",
            "loss_and_grads", "train_step"]
 
 Tree = Any
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a family the port cannot train yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs K5b, the "
-            f"backward of the selective-scan kernel, and autograd through "
-            f"the Mamba2 form, which are not ported yet (ROADMAP Queue A "
-            f"item 13c′)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,9 +134,7 @@ def init_state(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                *, device=None, dtype=torch.float32) -> TrainState:
     """Random parameters (``models.model.init_params``: a torch generator,
     not ``jax.random``'s bits) and zeroed AdamW moments.  ``device`` None =
-    CUDA (raises without a card).  Refuses the SSM families
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    CUDA (raises without a card)."""
     params = Mdl.init_params(cfg, generator, device=device, dtype=dtype)
     return TrainState(params=params, opt=adamw_init(params))
 
@@ -155,9 +143,7 @@ def loss_and_grads(cfg: ArchConfig, tc: TrainConfig, params: Tree,
                    batch: Dict[str, torch.Tensor],
                    impl: str = "flash") -> tuple:
     """(loss, metrics, grads) of one (micro)batch, detached; grads has
-    params' structure.  ``params`` is left as it was.  Refuses the SSM
-    families (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    params' structure.  ``params`` is left as it was."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, tc, tree_like(params, leaves), batch,

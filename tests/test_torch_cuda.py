@@ -1177,23 +1177,35 @@ def test_selective_scan_odd_width_and_offset_views(cuda, gated):
             assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
-def test_selective_scan_refuses_grad_and_what_it_does_not_take(cuda):
+def test_selective_scan_grad_flows_and_refuses_what_it_does_not_take(cuda):
+    """Under autograd K5 runs with its saved states and K5b gives every
+    input that needs one a gradient (h0 none); with grad off it is the
+    serving call, bitwise the same output.  What neither kernel takes
+    raises ``ValueError``."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan import ops as ss_ops
 
     dt, x, bm, cm, a, h0 = _scan_inputs(cuda, 2, 16, 64, 8, seed=1)
-    with pytest.raises(NotImplementedError, match="13c′"):
-        ss_ops.selective_scan(dt.requires_grad_(), x, bm, cm, a, h0)
-    dt = dt.detach()
+    dskip, z = torch.ones(64, device=cuda), torch.ones(2, 16, 64,
+                                                        device=cuda)
     with torch.no_grad():
-        ss_ops.selective_scan(dt.requires_grad_(), x, bm, cm, a, h0)
-    dt = dt.detach()
+        served = ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, z)
+    leaves = [t.clone().requires_grad_() for t in (dt, x, bm, cm, a)]
+    before = dict(ss_kernel.launches)
+    y, h = ss_ops.selective_scan(*leaves, h0, dskip, z)
+    assert torch.equal(y, served[0]) and torch.equal(h, served[1])
+    grads = torch.autograd.grad(y.sum(), leaves)
+    assert ss_kernel.launches["selective_scan"] == \
+        before["selective_scan"] + 1
+    assert ss_kernel.launches["selective_scan_bwd"] == \
+        before["selective_scan_bwd"] + 1
+    assert all(bool(torch.isfinite(g).all()) and bool(g.any())
+               for g in grads)
     with pytest.raises(ValueError, match="contiguous fp32"):
         ss_ops.selective_scan(dt.double(), x, bm, cm, a, h0)
     with pytest.raises(ValueError, match="contiguous fp32"):
         ss_ops.selective_scan(dt.transpose(0, 1).contiguous().transpose(
             0, 1), x, bm, cm, a, h0)
-    dskip, z = torch.ones(64, device=cuda), torch.ones(2, 16, 64,
-                                                        device=cuda)
     with pytest.raises(ValueError, match="'z'"):
         ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, z[:, :8])
     with pytest.raises(ValueError, match="'D'"):
@@ -1202,15 +1214,129 @@ def test_selective_scan_refuses_grad_and_what_it_does_not_take(cuda):
         ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, None)
     with pytest.raises(ValueError, match="contiguous fp32"):
         ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip, z.double())
-    with pytest.raises(NotImplementedError, match="13c′"):
-        ss_ops.selective_scan(dt, x, bm, cm, a, h0, dskip,
-                              z.clone().requires_grad_())
+    with pytest.raises(ValueError, match="saved states"):
+        ss_kernel.selective_scan_bwd(dt, x, bm, cm, a, h0, None, x)
+    _, _, hs = ss_kernel.selective_scan(dt, x, bm, cm, a, h0, states=True)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        ss_kernel.selective_scan_bwd(dt, x, bm, cm, a, h0, hs,
+                                     x.transpose(1, 2).contiguous()
+                                     .transpose(1, 2))
+    with pytest.raises(ValueError, match="cotangents"):
+        ss_kernel.selective_scan_bwd(dt, x, bm, cm, a, h0, hs, x[:, :8])
     n = 17
     with pytest.raises(ValueError, match="N <= 16"):
         ss_ops.selective_scan(dt, x, torch.zeros(2, 16, n, device=cuda),
                               torch.zeros(2, 16, n, device=cuda),
                               torch.zeros(64, n, device=cuda),
                               torch.zeros(2, 64, n, device=cuda))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("s", [1, 17, 130, 1024])
+def test_selective_scan_states_leave_the_output_bitwise(cuda, s, gated):
+    """K5 with its saved states (the training forward) writes bitwise the
+    serving call's output and last state; its first saved state is h0 and
+    the k-th the plain scan's state after step 16 k - 1, within 1e-5 x max
+    |want|."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    ins = _scan_inputs(cuda, 3, s, 200, 5, seed=s)
+    gate = (torch.randn(200, device=cuda), torch.randn(3, s, 200,
+                                                       device=cuda)) \
+        if gated else ()
+    y, h = ss_kernel.selective_scan(*ins, *gate)
+    y2, h2, hs = ss_kernel.selective_scan(*ins, *gate, states=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert hs.shape == (3, -(-s // 16), 200, 5)
+    assert torch.equal(hs[:, 0], ins[5])
+    for k in range(1, hs.shape[1]):
+        _, want = selective_scan_ref(*(t[:, :16 * k] for t in ins[:4]),
+                                     ins[4], ins[5])
+        assert float((hs[:, k] - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+
+
+# K5b's gradients, each held to 1e-5 x its max |want| (the forward's
+# tolerance; the sums over channels and steps measured within 3e-6 on the
+# card, so none is loosened)
+BWD_NAMES = ("ddt", "dx", "dB", "dC", "dA", "dh0", "dD", "dz")
+
+
+def _bwd_case(cuda, b, s, d, n, gated, seed):
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+
+    ins = _scan_inputs(cuda, b, s, d, n, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    gate = (torch.randn(d, generator=gen, device=cuda),
+            torch.randn((b, s, d), generator=gen, device=cuda)) \
+        if gated else ()
+    dout = torch.randn((b, s, d), generator=gen, device=cuda)
+    dh_last = torch.randn((b, d, n), generator=gen, device=cuda)
+    _, _, hs = ss_kernel.selective_scan(*ins, *gate, states=True)
+    return ins, gate, hs, dout, dh_last
+
+
+def _bwd_close(got, want, names=BWD_NAMES):
+    assert len(got) == len(want)
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n", [1, 5, 16])
+@pytest.mark.parametrize("s", [1, 17, 130])
+def test_selective_scan_bwd_matches_plain(cuda, s, n, gated):
+    """K5b against ``selective_scan_bwd_ref`` on the card at ragged shapes:
+    an odd batch, d = 200 (not a multiple of its 64-channel block), S = 1,
+    17 and 130 (tiles of 16 and chunks of 128 cut short), N = 1 and 5
+    padded to a state a lane; nonzero h0 and dh_last; every gradient
+    within 1e-5 x its max |want|."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+
+    ins, gate, hs, dout, dh_last = _bwd_case(cuda, 3, s, 200, n, gated,
+                                             seed=s * n + gated)
+    before = ss_kernel.launches["selective_scan_bwd"]
+    got = ss_kernel.selective_scan_bwd(*ins, hs, dout, dh_last, *gate)
+    assert ss_kernel.launches["selective_scan_bwd"] == before + 1
+    assert len(got) == (8 if gated else 6)
+    _bwd_close(got, selective_scan_bwd_ref(*ins, dout, dh_last, *gate))
+    none = ss_kernel.selective_scan_bwd(*ins, hs, dout, None, *gate)
+    _bwd_close(none, selective_scan_bwd_ref(*ins, dout, None, *gate))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_selective_scan_bwd_repeats_bitwise(cuda, gated):
+    """Two K5b calls give bitwise the same gradients: no atomics, the
+    channel and batch partials summed in a fixed order."""
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+
+    ins, gate, hs, dout, dh_last = _bwd_case(cuda, 4, 300, 520, 16, gated,
+                                             seed=9)
+    first = ss_kernel.selective_scan_bwd(*ins, hs, dout, dh_last, *gate)
+    again = ss_kernel.selective_scan_bwd(*ins, hs, dout, dh_last, *gate)
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_selective_scan_function_grads_match_autograd_of_plain(cuda):
+    """The autograd Function on the card (K5 with its states, K5b) against
+    torch autograd through ``selective_scan_gated_ref`` on the card, h0
+    without a gradient and h_last unused, as training calls it."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import \
+        selective_scan_gated_ref
+
+    ins, gate, _, dout, _ = _bwd_case(cuda, 2, 256, 200, 16, True, seed=3)
+    grads = []
+    for fwd in (ss_ops.selective_scan, selective_scan_gated_ref):
+        leaves = [t.clone().requires_grad_() for t in (*ins[:5], *gate)]
+        y, _ = fwd(*leaves[:5], ins[5], *leaves[5:])
+        grads.append(torch.autograd.grad(y, leaves, dout))
+    _bwd_close(*grads, names=("ddt", "dx", "dB", "dC", "dA", "dD", "dz"))
 
 
 @pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
@@ -1248,3 +1374,48 @@ def test_ssm_layer_on_card_matches_cpu(fp32_matmul, name):
                  (got1[1][0], want1[1][0]), (got1[1][1], want1[1][1])):
         assert bool(torch.isfinite(g).all())
         assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_loss_and_grads_on_card_match_cpu(fp32_matmul, name):
+    """falcon-mamba-7b smoke (K5 / K5b) and zamba2-7b smoke (K3 / K3b and
+    K4 / K4b in its shared block) trained on the card against the CPU
+    port: the loss within rel 1e-5, every leaf's gradient within 1e-4 x
+    its max |g_cpu| and nonzero; two passes and remat against none
+    bitwise.  With remat, a Mamba1 layer runs K5 twice and K5b once."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import tree_leaves, tree_like
+
+    cuda = fp32_matmul
+    cfg = get_arch(name).smoke()
+    state = TT.init_state(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (4, 64)))
+    batch = {"tokens": toks, "labels": toks}
+    card = tree_like(state.params, [p.to(cuda)
+                                    for p in tree_leaves(state.params)])
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    tc = TT.TrainConfig(remat=True)
+    before = dict(ss_kernel.launches)
+    runs = [TT.loss_and_grads(cfg, c, card, cbatch) for c in
+            (tc, tc, dataclasses.replace(tc, remat=False))]
+    mamba1 = cfg.n_layers if cfg.ssm_kind == "mamba1" else 0
+    assert ss_kernel.launches["selective_scan"] - \
+        before["selective_scan"] == 5 * mamba1
+    assert ss_kernel.launches["selective_scan_bwd"] - \
+        before["selective_scan_bwd"] == 3 * mamba1
+    for loss, _, g in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        assert all(torch.equal(u, v) for u, v in
+                   zip(tree_leaves(g), tree_leaves(runs[0][2])))
+    loss, _, g = TT.loss_and_grads(cfg, tc, state.params, batch)
+    torch.testing.assert_close(runs[0][0].cpu(), loss, rtol=1e-5, atol=0)
+    for u, v in zip(tree_leaves(runs[0][2]), tree_leaves(g)):
+        assert bool(u.any())
+        torch.testing.assert_close(u.cpu(), v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()))

@@ -5,8 +5,11 @@ by ``convert.params_from_jax``), go through both.  JAX trains as its own
 tests train: autodiff of the plain jnp model.  On the CPU the port's kernel
 Functions take their plain versions (K3 / K3b: ``rmsnorm_ref`` /
 ``rmsnorm_bwd_ref``; K4 / K4b: ``attention_fwd_ref`` /
-``attention_bwd_ref``); the kernels are held to those on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+``attention_bwd_ref``; K5 / K5b: ``selective_scan_gated_ref`` /
+``selective_scan_bwd_ref``); the kernels are held to those on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  The models are the
+dense, MoE, Mamba1 (falcon-mamba-7b) and hybrid Mamba2 (zamba2-7b)
+families at smoke size.
 
 Tolerances, with their reasons:
   * Plain backward versions against ``jax.grad``: |diff| <= 1e-5 x max(1,
@@ -17,7 +20,9 @@ Tolerances, with their reasons:
     1e-4: AdamW divides g by |g| + eps, so an element whose gradient is
     within a few eps of zero moves by a fraction of lr when the gradient's
     last bits do (worst measured: 2.6e-5, one element of 2,048 in a
-    gemma3 smoke leaf; the rest within 1e-5).
+    gemma3 smoke leaf; the rest within 1e-5).  zamba2-7b's mu and nu:
+    atol 5e-5 x the leaf's max, for the reason and the measurement given
+    at ``test_train_step_matches_jax``.
   * Equivalences (microbatches, remat, chunked CE) of the port with
     itself: as the JAX package's ``tests/test_train_substrate.py``.
 """
@@ -300,25 +305,66 @@ def _trajectories(name):
              for t in (js.params, js.opt.mu, js.opt.nu)],
             [[x.numpy() for x in tree_leaves(t)]
              for t in (ts.params, ts.opt.mu, ts.opt.nu)],
-            int(js.opt.step), int(ts.opt.step)))
+            int(js.opt.step), int(ts.opt.step),
+            jax.tree.map(np.asarray, js.params)))
     return out
+
+
+# mu and nu atol, x the leaf's max |want|, where a model needs its own
+MOMENT_ATOL = {"zamba2-7b": 5e-5}
 
 
 @pytest.mark.parametrize("steps", [1, 3])
 @pytest.mark.parametrize("name", ["gemma3-1b", "granite-8b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "falcon-mamba-7b",
+                                  "zamba2-7b"])
 def test_train_step_matches_jax(name, steps):
-    jm, tm, jtrees, ttrees, jstep, tstep = _trajectories(name)[steps - 1]
+    """zamba2-7b's mu and nu hold to 5e-5 x the leaf's max, not 1e-5: at
+    steps 2 and 3 a few elements of some Mamba2 leaves (``pos5``'s, the
+    layer before the shared block, among them) need 2.44e-5 / 1.86e-5 (mu
+    / nu; 2.14e-5 / 1.00e-5 at step 3), while loss and grad norm agree to
+    rel 1e-6.  Step 1's moments, taken at identical parameters, hold to
+    1e-5, and the port's gradient at the JAX package's own step-2
+    parameters holds to ``jax.grad`` within 6.5e-6 x each leaf's max
+    (:func:`test_gradient_at_the_reference_step2_params_matches_jax`): the
+    excess is AdamW carrying the step-1 parameters' last-bit differences
+    into the next gradients, not a fault."""
+    jm, tm, jtrees, ttrees, jstep, tstep, _ = _trajectories(name)[steps - 1]
     assert jstep == tstep == steps
     assert (jm["aux"] > 0) == name.startswith("moonshot")   # MoE aux loss
     for key in ("loss", "ce", "grad_norm", "n_tok", "aux"):
         assert tm[key] == pytest.approx(jm[key], rel=1e-5, abs=1e-7), key
+    moment = MOMENT_ATOL.get(name, 1e-5)
     for what, jt, tt in zip(("params", "mu", "nu"), jtrees, ttrees):
         assert len(jt) == len(tt)
         for a, b in zip(tt, jt):
-            atol = 1e-4 if what == "params" else 1e-5 * np.abs(b).max()
+            atol = 1e-4 if what == "params" else moment * np.abs(b).max()
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=atol,
                                        err_msg=what)
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
+def test_gradient_at_the_reference_step2_params_matches_jax(name):
+    """The port's gradient (K5b's plain version for Mamba1, autograd of the
+    plain SSD form for Mamba2) at the JAX package's parameters after its
+    second step, against ``jax.grad`` there: every leaf within 1e-5 x its
+    max |want| (worst measured 6.5e-6, zamba2)."""
+    jcfg, tcfg = jget_arch(name).smoke(), get_arch(name).smoke()
+    jparams = _trajectories(name)[1][6]
+    toks, labels = _batch(tcfg.vocab)
+    jtc = JT.TrainConfig(remat=False)
+    want = jax.grad(lambda p: JT.loss_fn(jcfg, jtc, p, {
+        "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})[0])(
+        jax.tree.map(jnp.asarray, jparams))
+    params = convert.params_from_jax(jparams, tcfg, device="cpu")
+    _, _, got = TT.loss_and_grads(
+        tcfg, TT.TrainConfig(remat=False), params,
+        {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+    got, want = tree_leaves(got), jax.tree.leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * np.abs(b).max()
 
 
 def _port_state(name="granite-8b"):
@@ -330,10 +376,12 @@ def _port_state(name="granite-8b"):
     return cfg, state, {"tokens": toks, "labels": toks}
 
 
-def test_microbatch_equivalence():
+@pytest.mark.parametrize("name", ["granite-8b", "falcon-mamba-7b",
+                                  "zamba2-7b"])
+def test_microbatch_equivalence(name):
     """Gradient accumulation over 2 microbatches == the whole batch (as
     ``test_train_substrate.test_microbatch_equivalence``)."""
-    cfg, state, batch = _port_state()
+    cfg, state, batch = _port_state(name)
     s1, m1 = TT.train_step(cfg, TT.TrainConfig(remat=False), state, batch)
     s2, m2 = TT.train_step(cfg, TT.TrainConfig(remat=False, microbatches=2),
                            state, batch)
@@ -379,7 +427,8 @@ def test_gradients_are_freed_without_the_cycle_collector():
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "gemma3-1b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "falcon-mamba-7b",
+                                  "zamba2-7b"])
 def test_remat_equivalence(name):
     """Remat recomputes each block in the backward: the same loss and, on
     the CPU, the same gradients bit for bit."""

@@ -71,6 +71,7 @@ def build(variants: dict) -> dict:
     """Compile each variant (name -> its K5_* macros); returns name ->
     (the loaded entry point, nvcc's registers and spills)."""
     from repro_torch.kernels._build import NVCC_FLAGS, _nvcc
+    from repro_torch.kernels.selective_scan.kernel import FAMILY
 
     os.makedirs(OUT, exist_ok=True)
     procs = {name: subprocess.Popen(
@@ -85,8 +86,7 @@ def build(variants: dict) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{out}")
         fn = ctypes.CDLL(os.path.join(OUT, f"{name}.so")).selective_scan
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = FAMILY.argtypes["selective_scan"]
         fn.restype = ctypes.c_int
         built[name] = fn, ptxas_summary(out)
     return built
@@ -107,8 +107,8 @@ def launch(fn, ins: tuple, gate, out: tuple) -> int:
     b, s, d = ins[0].shape
     return fn(*(t.data_ptr() for t in ins),
               *((t.data_ptr() for t in gate) if gate else (None, None)),
-              out[0].data_ptr(), out[1].data_ptr(), b, s, d, ins[2].shape[2],
-              torch.cuda.current_stream().cuda_stream)
+              out[0].data_ptr(), out[1].data_ptr(), None, b, s, d,
+              ins[2].shape[2], torch.cuda.current_stream().cuda_stream)
 
 
 def time_variants(names: list, card: str) -> None:
