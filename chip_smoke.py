@@ -1647,8 +1647,9 @@ def phase_service() -> None:
     at n0=10,000, 200 poisson events each.  The smoke asserts every
     endpoint, the metrics counters against what it streamed and a clean
     exit; its last line carries the numbers printed here.  A smoke that
-    outlives 400 s is killed with its daemon (its own process group), and
-    what both printed is logged."""
+    outlives 400 s gets SIGABRT with its daemon (its own process group),
+    so that Python's faulthandler prints every thread's stack, then
+    SIGKILL, and what both printed is logged."""
     for policy, n0, n_events in SERVICE:
         t0 = time.perf_counter()
         proc = subprocess.Popen(
@@ -1657,11 +1658,17 @@ def phase_service() -> None:
              "--policy", policy, "--n0", str(n0), "--events", str(n_events),
              "--device", "cuda"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd=ROOT, start_new_session=True)
+            cwd=ROOT, start_new_session=True,
+            env={**os.environ, "PYTHONFAULTHANDLER": "1"})
         try:
             stdout, stderr = proc.communicate(timeout=400)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
+            os.killpg(proc.pid, signal.SIGABRT)
+            time.sleep(5)
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
             stdout, stderr = proc.communicate()
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -2193,7 +2200,7 @@ def scan_grads_close(what: str, got, want) -> float:
 
 def scan_bwd_checks(errs: dict, dev) -> None:
     """K5b against ``selective_scan_bwd_ref`` on the card: gated at ragged
-    shapes (B 3, d 200 -- not a multiple of its 64-channel block -- N 1,
+    shapes (B 3, d 200 -- not a multiple of its block of channels -- N 1,
     5 and 16, S 1, 17 and 130), scan-only at one; then gated at
     falcon-mamba-7b's training layer (4, 1024, 8192, 16) with a nonzero h0
     and dh_last, against the plain backward and against torch autograd of
@@ -3034,6 +3041,39 @@ SSM = dict(archs=("falcon-mamba-7b", "zamba2-7b"), batch=8, prompt_len=1024,
 SFU_PER_S = 16 * 132 * 1.98e9
 
 
+# K5b's first design (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6) at falcon's
+# training layer, printed beside the measured time for reference
+K5B_FIRST_MS = 3.3571
+
+
+def scan_bwd_bound(shape: tuple, ch: int) -> dict:
+    """K5b's least time at (B, S, d, N), gated: the backward's own work --
+    dt, x, z, dout, B_t, C_t, A, D and h0 read once, ddt, dx, dz, dB, dC,
+    dA, dD and dh0 written once (no dh_last: training passes none); one
+    exp per (b, t, c, n) (the decay) and the sigmoid's per (b, t, c) on
+    the SFUs; ~22 fp32 FLOP per (b, t, c, n) (an FMA = 2: the state
+    stepped forward, C . h, the reverse step and the five sums).  Beside
+    it, what this design adds: the saved states read and the dB / dC
+    partials of ``ch``-channel blocks written, and the decay taken
+    twice."""
+    b, s, d, n = shape
+    elems, rows = float(b * s * d * n), float(b * s * d)
+    nbytes = 4.0 * (7 * rows + 4 * b * s * n + 2 * d * n + 2 * d
+                    + 2 * b * d * n)
+    design = 4.0 * (b * -(-s // 16) * d * n + 2 * b * s * -(-d // ch) * n)
+    fp32_ms = 22.0 * elems / FLOP_PER_S * 1e3
+    sfu_ms = (elems + rows) / SFU_PER_S * 1e3
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    ops_ms = max(fp32_ms, sfu_ms)
+    return dict(
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        bound_ms_bytes=bytes_ms, bound_ms_fp32=fp32_ms, bound_ms_exp=sfu_ms,
+        design_bytes_ms=(nbytes + design) / BYTES_PER_S * 1e3,
+        design_exp_ms=(2.0 * elems + rows) / SFU_PER_S * 1e3,
+        bytes=nbytes, design_bytes=nbytes + design)
+
+
 def rel_close(what: str, got, want, tol: float = 1e-5) -> float:
     """Fail unless ``got`` is finite and max |got - want| <= tol x
     max |want|; returns max |diff|."""
@@ -3684,16 +3724,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f" {b_ms:.5f} ms by {b_by})")
 
     # K5b at falcon-mamba-7b's training layer, gated, beside K5 with its
-    # saved states (the training forward) and the serving K5.  The bound is
-    # the backward's own work: dt, x, z, dout, B_t, C_t, A, D and h0 read
-    # once and ddt, dx, dz, dB, dC, dA, dD and dh0 written once (no
-    # dh_last: training passes none); one exp per (b, t, c, n) (the decay)
-    # and the sigmoid's per (b, t, c) on the SFUs; ~22 fp32 FLOP per (b, t,
-    # c, n) (an FMA = 2: the state stepped forward, C . h, the reverse
-    # step and the five sums).  What K5b's design adds -- the saved states
-    # read, the dB / dC block partials written, the decay taken twice --
-    # is reported beside it, not in it.  No PyTorch call computes the
-    # scan's backward: library_ms is None.
+    # saved states (the training forward) and the serving K5; the bound
+    # and the design's own traffic as ``scan_bwd_bound`` counts them.  No
+    # PyTorch call computes the scan's backward: library_ms is None.
     tshape = (SSM_TRAIN["batch"], SSM_TRAIN["seq"], falcon.d_inner,
               falcon.ssm_state)
     ins = scan_inputs(tshape, 12, dev)
@@ -3717,33 +3750,33 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                      scan_grads_close(
         "K5b timed input", runs["bwd"](),
         selective_scan_bwd_ref(*ins, dout, None, *gate)))
-    sb, ss_, sd, sn = tshape
-    elems, rows = float(sb * ss_ * sd * sn), float(sb * ss_ * sd)
-    blocks = -(-sd // ss_kernel.BWD_CH)
-    nbytes = 4.0 * (7 * rows + 4 * sb * ss_ * sn + 2 * sd * sn + 2 * sd
-                    + 2 * sb * sd * sn)
-    design = 4.0 * (hs.numel() + 2 * sb * ss_ * blocks * sn)
-    fp32_ms = 22.0 * elems / FLOP_PER_S * 1e3
-    sfu_ms = (elems + rows) / SFU_PER_S * 1e3
-    bytes_ms = nbytes / BYTES_PER_S * 1e3
-    b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
-        if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
-    design_ms = (nbytes + design) / BYTES_PER_S * 1e3
+    bnd = scan_bwd_bound(tshape, ss_kernel.BWD_CH)
+    occ = ss_kernel.bwd_occupancy(tshape[3], True)
+    if occ["channels"] != ss_kernel.BWD_CH:
+        raise AssertionError(f"K5b is built for {occ['channels']} channels "
+                             f"a block, kernel.BWD_CH is "
+                             f"{ss_kernel.BWD_CH}")
     mean = {k: sum(v) / len(v) for k, v in times.items()}
     k5b = dict(ms=mean["bwd"], plain_ms=plain_bwd, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by, bound_ms_bytes=bytes_ms,
-               bound_ms_fp32=fp32_ms, bound_ms_exp=sfu_ms,
-               design_bytes_ms=design_ms,
-               design_exp_ms=(2.0 * elems + rows) / SFU_PER_S * 1e3)
+               **{k: v for k, v in bnd.items()
+                  if k not in ("bytes", "design_bytes")}, occupancy=occ)
     log(f"  K5b gated falcon training layer {tshape} fp32: {mean['bwd']:.4f}"
-        f" ms (runs {', '.join(f'{t:.4f}' for t in times['bwd'])}; plain "
-        f"{plain_bwd:.3f} ms, no library call; bound {b_ms:.4f} ms by "
-        f"{b_by}: bytes {bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB), exps "
-        f"{sfu_ms:.4f} ms on the SFUs, fp32 {fp32_ms:.4f} ms; "
-        f"{b_ms / mean['bwd']:.1%} of the bound; the design's own bytes, "
-        f"saved states and block partials included, {design_ms:.4f} ms "
-        f"({(nbytes + design) / 1e6:.1f} MB), its two exps a state "
-        f"{k5b['design_exp_ms']:.4f} ms)")
+        f" ms (runs {', '.join(f'{t:.4f}' for t in times['bwd'])}; K5b's "
+        f"first design, for reference: {K5B_FIRST_MS} ms; plain "
+        f"{plain_bwd:.3f} ms, no library call; bound {bnd['bound_ms']:.4f} "
+        f"ms by {bnd['bound_by']}: bytes {bnd['bound_ms_bytes']:.4f} ms "
+        f"({bnd['bytes'] / 1e6:.1f} MB), exps {bnd['bound_ms_exp']:.4f} ms "
+        f"on the SFUs, fp32 {bnd['bound_ms_fp32']:.4f} ms; "
+        f"{bnd['bound_ms'] / mean['bwd']:.1%} of the bound; the design's "
+        f"own bytes, saved states and {ss_kernel.BWD_CH}-channel block "
+        f"partials included, {bnd['design_bytes_ms']:.4f} ms "
+        f"({bnd['design_bytes'] / 1e6:.1f} MB), its two exps a state "
+        f"{bnd['design_exp_ms']:.4f} ms)")
+    log(f"  K5b occupancy at N={tshape[3]} gated: {occ['registers']} "
+        f"registers a thread, {occ['local_bytes']} bytes of local memory "
+        f"(spills), {occ['smem_bytes']} bytes of shared memory a block of "
+        f"{occ['threads']} threads, {occ['blocks_per_sm']} blocks = "
+        f"{occ['warps_per_sm']} warps an SM")
     log(f"  K5 gated at the same shape: with its saved states (training) "
         f"{mean['states']:.4f} ms (runs "
         f"{', '.join(f'{t:.4f}' for t in times['states'])}), serving "

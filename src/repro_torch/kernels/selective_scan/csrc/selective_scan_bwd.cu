@@ -22,49 +22,79 @@
 // per (b, t, c, n), 5.4e8 on the special-function units (0.14 ms), and
 // ~22 fp32 operations per (b, t, c, n) (0.18 ms).  So bytes first.  This
 // design adds the saved states read (134.2 MB) and the dB / dC partials
-// written (2 x 33.6 MB), 1.15 GB in all (0.34 ms), and takes the decay
-// twice, once to run the step forward again and once in reverse (0.26 ms
-// on the SFUs).
+// written (2 x 16.8 MB at 128 channels a block), 1.11 GB in all (0.33
+// ms), and takes the decay twice, once to run a step forward again and
+// once in reverse (0.26 ms on the SFUs).  What it spends most is issue
+// slots: a lane issues ~130 instructions a step for its 4 states (~15
+// fp32 operations and 2 exps a state, the channel sums of dB and dC by
+// warp shuffles, the lane sums of y, d dt and dx, the shared-memory loads
+// of a step), ~0.55 ms of the SMs' issue slots; the copies and the stores
+// overlap them but for ~0.1 ms each.
 //
-// Design.  The lane split is K5's: a block is 64 channels of one batch
-// row, a channel's N states split over 2 neighbouring lanes (P =
-// ceil(N / 2) each), and the decay is K5's ex2.approx of a rounded
-// dt * A log2 e, so the recomputed states are K5's bitwise.  Given hs, K5
-// saves the state at the start of every 16-step tile of its ring, (B,
-// ceil(S / 16), d, N).  K5b walks the tiles
-// last to first; per tile it stages dt, x, dout (and z) for its 64
-// channels and B_t, C_t in shared memory, runs the 16 steps forward again
-// from the saved state with every state kept in shared memory (17 x 8 x
-// 128 floats, laid out so a warp's lanes read neighbouring words) and,
-// gated, the pre-gate y of each step, then walks the tile in reverse
-// carrying g in registers.  Why a state every 16 steps and not every 128
-// (a chunk): with 128, the 8 tile starts of a chunk would have to be
-// found by a forward pass in K5b and kept on chip too (another 64 KB a
-// block, one block of 128 threads an SM) or in a scratch buffer; saving
-// every tile costs K5 134 MB more stores at the training layer (0.2974
-// against 0.2570 ms gated, chip_smoke.py on an H100 80GB HBM3 at 700 W)
-// and K5b as many loads, and keeps two blocks an SM.
+// Design.  Given hs, K5 saves the state at the start of every 16-step
+// tile (STATE_EVERY), (B, ceil(S / 16), d, N).  K5b walks the tiles last
+// to first.  A block is CH channels of one batch row, a channel's states
+// split over LANES neighbouring lanes, P = N / LANES (rounded up to a
+// power of two) each: state n = g P + p on lane g.  For each tile:
+//   * staging: dt, x, dout (and z) for the block's channels, B_t, C_t and
+//     the tile's saved states come through a two-stage shared-memory ring
+//     filled by cp.async (16-byte copies when d and the pointers allow),
+//     so tile kt - 1 is in flight while tile kt is computed and the one
+//     barrier a tile waits on no load.  Every copy reads only rows and
+//     channels that exist (the lesson of K5's overread, PERF.md); dead
+//     channels past d and a ragged last tile's missing steps are zeros.
+//   * gated, each lane first takes dy = dout silu(z) for TILE / LANES of
+//     the tile's steps into shared memory, and its share of dD.
+//   * forward: each lane runs its P states through the 16 steps again
+//     from the saved state, as K5 steps them (decay = ex2.approx of the
+//     rounded dt A log2 e, h = fma(decay, h, dt x B)), so the states are
+//     K5's bitwise, and keeps the 16 states before each step in
+//     registers (16 P floats; the loops are unrolled over the tile).  In
+//     the same pass it forms dy h (dC) and, gated, y: y is summed over the
+//     channel's lanes transposed over LANES steps, so lane g ends with
+//     step j0 + g's y and stores that step's dz.
+//   * reverse: the 16 steps last to first, g carried in registers; per
+//     state one ex2, and the sums over n of d dt and dx as two per-lane
+//     partials, summed over the lanes transposed like y, so lane g stores
+//     step j0 + g's ddt and dx.
+// A zero step (dt = x = dout = 0, B = C = 0) leaves the state, g, dA and
+// dD unchanged bit for bit (decay = ex2(0) = 1, every added term 0), so a
+// ragged last tile is staged as zero steps and run whole: no step
+// branches, only the stores are masked.  N is a template parameter (1..16);
+// states past N are padded with zeros (A = B = C = h = 0).
 //
-// Its time there (the same run): 3.35 ms, 8.4% of the backward's bytes
-// bound.  It runs 8 warps an SM, each lane's reverse step a chain per
-// state and a 15-shuffle channel sum; fewer states on chip a lane (more
-// warps) is the lever for a later change.
+// Sums, with no atomics, so that two runs are bitwise equal.  dB_t and
+// dC_t sum over the d channels: a warp covers 32 / LANES channels, and
+// per group of steps that gives each lane as many values as the warp has
+// channels (2 steps x 4 states at LANES = 4), a transposed shuffle
+// reduction leaves each lane one full sum (7 shuffles for 8 values), the
+// warps' sums go to shared memory, and after the next tile's barrier
+// they are added in warp order and each block writes its partial into
+// (B, S, ceil(d / CH), N); the wrapper sums the partials over the blocks
+// (torch.sum, a fixed order).  dA and dD sum over the batch: each block
+// owns its (b, channels), accumulates over the steps in registers and
+// writes a partial of batch row b; the wrapper sums them over b.
 //
-// Sums, with no atomics, so that two runs are bitwise equal.  The sums
-// over n of d dt and dx are taken per lane, then across the 2 lanes.
-// dB_t and dC_t sum over the d channels: per step a warp reduces its 16
-// channels' 2 x 8 values at once, transposed (after shuffles at lane
-// distances 16, 8, 4, 2 each lane keeps one value's full sum: 15 shuffles,
-// not 64), the 4 warps' sums are added in order after the tile, and each
-// block writes its partial into (B, S, d / 64, N); the wrapper sums the
-// partials over the blocks (torch.sum, a fixed order).  dA and dD sum
-// over the batch: each block owns its (b, channels), accumulates over
-// the steps in registers and writes a partial of batch row b; the
-// wrapper sums them over b.
-//
-// Every staged copy reads only the rows that exist (min(TILE, seqlen -
-// t0)), the lesson of K5's overread (PERF.md).  Dead channels past
-// d are staged as zeros, so they add nothing to the channel sums.
+// Why these choices (tools/torch_k5_variants.py --bwd builds each K5B_*
+// value and probe and times it against the others at falcon's training
+// layer, gated; H100 80GB HBM3 at 700 W, PERF.md §6): 0.98 ms shipped,
+// against 3.28 ms for the first version in the same call (a tile's
+// states in shared memory, two blocks of 4 warps an SM, tiles staged by
+// plain loads behind a barrier, 15 shuffles a step for dB / dC).  4 lanes
+// x 4 states take 128 registers, no spills, and run 16 warps an SM; 8
+// lanes x 2 states (80 registers, 24 warps) take 1.62 ms, their loads,
+// sums and stores covering half as many states, and 4 x 4 held to 85
+// registers (24 warps) spills and takes 1.59 ms.  128 channels a block
+// (one block of 16 warps an SM) beat 64 (two of 8) by 0.5-1.2% and halve
+// the partials.  Probes: the per-state arithmetic costs ~0.32 ms, the dB
+// / dC sums ~0.16 ms, the copies ~0.11 ms, the stores ~0.09 ms; a
+// one-stage ring costs 11% at one block an SM.  Sums without selects (each lane's
+// states in an order that pairs them across lanes, B_t / C_t staged in 4
+// orders) were 3.7% slower and spilled: the shuffles, not the selects,
+// are the sums' cost.  ddt, dx and dz staged in the ring's slots and
+// written as whole 16-byte rows were 0.8% slower than each lane storing
+// its own 32-byte runs.  The gate's sigmoid by
+// __fdividef saved 1.2% but spilled 16 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,17 +103,52 @@
 
 namespace {
 
-constexpr int LANES = 2;               // lanes of one channel, as K5
-constexpr int CH = 64;                 // channels per block, as K5
-constexpr int THREADS = CH * LANES;    // 128
+// The design's constants; tools/torch_k5_variants.py builds other values
+// with -D to time them against these.
+#ifndef K5B_LANES              // lanes of one channel: 2, 4 or 8
+#define K5B_LANES 4
+#endif
+#ifndef K5B_CH                 // channels a block (kernel.py's BWD_CH)
+#define K5B_CH 128
+#endif
+#ifndef K5B_OCC                // threads an SM to bound registers for
+#define K5B_OCC 512
+#endif
+#ifndef K5B_STAGES             // 2: the cp.async ring; 1: each tile copied
+#define K5B_STAGES 2           // and waited for before it is used
+#endif
+#ifndef K5B_PROBE              // probes, whose outputs are not gradients:
+#define K5B_PROBE 0            // 1 no channel sums of dB / dC, 2 no
+#endif                         // per-state arithmetic, 3 ddt / dx / dz
+                               // computed but not stored, 4 no tile
+                               // copied after the first two
+
+constexpr int LANES = K5B_LANES;
+constexpr int CH = K5B_CH;
+constexpr int THREADS = CH * LANES;    // 512
 constexpr int WARPS = THREADS / 32;
+constexpr int CPW = 32 / LANES;        // channels a warp
+constexpr int SROW = CH + CPW;         // a staged row, padded so that a
+                                       // warp's LANES steps x CPW channels
+                                       // fall in 32 banks
 constexpr int TILE = 16;               // K5's STATE_EVERY: steps between
                                        // its saved states (kernel.py too)
+constexpr int STAGES = K5B_STAGES;
+constexpr int OCC = K5B_OCC;
 constexpr int N_MAX = 16;
-constexpr int SLOTS = 16;              // dB and dC of up to 8 states a lane
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(CH % 16 == 0 && LANES == 2, "16 channels a warp, 2 lanes each");
+constexpr float LN2 = 0.6931471805599453f;
+static_assert((LANES == 2 || LANES == 4 || LANES == 8) && CH % CPW == 0 &&
+              THREADS % 32 == 0 && THREADS <= 1024 && CH % 4 == 0,
+              "LANES 2, 4 or 8; whole warps of channels");
+static_assert(STAGES == 1 || STAGES == 2, "a ring of one or two stages");
+
+constexpr int pow2ceil(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
 
 __device__ __forceinline__ float ex2(float v) {
   float r;
@@ -91,20 +156,113 @@ __device__ __forceinline__ float ex2(float v) {
   return r;
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Sums v over the lanes that differ in lane bits HI down to LO (powers of
+// two), transposed: at bit m a lane keeps the half of its values that its
+// bit m picks and adds its partner's sums of that half, so of W = K x
+// 2 HI / LO values the lane ends with the K of block (its bits HI..LO read
+// as a number), each summed over the 2 HI / LO lanes.
+template <int W, int K, int HI, int LO>
+__device__ __forceinline__ void tsum(float (&v)[W], int lane) {
+  static_assert(W == K * (2 * HI / LO), "one halving a lane bit");
+#pragma unroll
+  for (int m = HI, w = W; m >= LO; m /= 2, w /= 2) {
+    const bool hi = lane & m;
+#pragma unroll
+    for (int i = 0; i < w / 2; ++i) {
+      const float keep = hi ? v[i + w / 2] : v[i];
+      const float send = hi ? v[i] : v[i + w / 2];
+      v[i] = keep + __shfl_xor_sync(FULL, send, m);
+    }
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void lds(float (&v)[P], const float* s) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int p = 0; p < P; p += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(s + p);
+      v[p] = q.x; v[p + 1] = q.y; v[p + 2] = q.z; v[p + 3] = q.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(s);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = s[0];
+  }
+}
+
+// The ring (per stage: dt, x, dout (, z) for TILE steps x CH channels,
+// B_t and C_t padded to NP states, the tile's saved states as hs holds
+// them), dy of the tile (gated), and the warps' dB / dC sums of a tile,
+// two buffers so that one tile's are added while the next is computed.
 template <int N, bool GATED>
 struct alignas(16) Smem {
-  static constexpr int P = (N + LANES - 1) / LANES;
+  static constexpr int P = pow2ceil((N + LANES - 1) / LANES);
   static constexpr int NP = P * LANES;
-  static constexpr int ROWS = GATED ? 4 : 3;   // dt, x, dout (, z)
-  float seq[ROWS][TILE][CH];
-  float y[GATED ? TILE : 1][CH];               // the pre-gate y of a step
-  float bc[2][TILE][NP];                       // B_t, C_t; padded with 0
-  float h[TILE + 1][P][THREADS];               // at the start, each step
-  float red[TILE][WARPS][LANES][SLOTS];        // a warp's channel sums
+  static constexpr int ROWS = GATED ? 4 : 3;
+  static constexpr int HROW = (CH * N + 3) / 4 * 4;
+  float seq[STAGES][ROWS][TILE][SROW];
+  float bc[STAGES][2][TILE][NP];
+  float h0[STAGES][HROW];
+  float dy[GATED ? TILE : 1][SROW];
+  float red[2][TILE][WARPS][2 * N];
 };
 
+// Queue the copies of tile rows [row, row + steps) into ``stage``: dt, x,
+// dout (, z) of the block's cn live channels from c0, B_t, C_t, and the
+// cn x N saved states at ``h``.
 template <int N, bool GATED>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void load_tile(
+    Smem<N, GATED>& sm, int stage, const float* const (&seq)[4],
+    const float* bmat, const float* cmat, const float* h, size_t row,
+    int steps, int c0, int cn, int d, bool vec) {
+  constexpr int ROWS = Smem<N, GATED>::ROWS;
+  const int tid = threadIdx.x;
+  if (vec) {               // d % 4 == 0 and the pointers 16-byte aligned
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+      for (int i = tid; i < steps * (CH / 4); i += THREADS) {
+        const int s = i / (CH / 4), q = 4 * (i % (CH / 4));
+        if (q < cn)
+          cp_async16(&sm.seq[stage][k][s][q],
+                     seq[k] + (row + s) * d + c0 + q);
+      }
+    for (int i = tid; i < cn * N / 4; i += THREADS)
+      cp_async16(&sm.h0[stage][4 * i], h + 4 * i);
+  } else {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+      for (int i = tid; i < steps * CH; i += THREADS) {
+        const int s = i / CH, q = i % CH;
+        if (q < cn)
+          cp_async4(&sm.seq[stage][k][s][q], seq[k] + (row + s) * d + c0 + q);
+      }
+    for (int i = tid; i < cn * N; i += THREADS)
+      cp_async4(&sm.h0[stage][i], h + i);
+  }
+  for (int i = tid; i < steps * N; i += THREADS) {
+    const int s = i / N, n = i - s * N;
+    cp_async4(&sm.bc[stage][0][s][n], bmat + row * N + i);
+    cp_async4(&sm.bc[stage][1][s][n], cmat + row * N + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N, bool GATED>
+__global__ void __launch_bounds__(THREADS, OCC / THREADS)
 selective_scan_bwd_kernel(const float* __restrict__ dt,
                           const float* __restrict__ x,
                           const float* __restrict__ bmat,
@@ -119,10 +277,12 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,
                           float* __restrict__ dz, float* __restrict__ dbp,
                           float* __restrict__ dcp, float* __restrict__ dap,
                           float* __restrict__ ddp, float* __restrict__ dh0,
-                          int seqlen, int d) {
+                          int seqlen, int d, int vec) {
   using S = Smem<N, GATED>;
   constexpr int P = S::P, NP = S::NP, ROWS = S::ROWS;
-  static_assert(P <= SLOTS / 2, "N <= 16");
+  constexpr int GS = CPW / P;          // steps of one dB / dC shuffle sum
+  static_assert(P <= CPW && TILE % GS == 0 && TILE % LANES == 0,
+                "whole groups of steps in a tile");
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   S& sm = *reinterpret_cast<S*>(smem_bytes);
   const int tid = threadIdx.x;
@@ -131,152 +291,218 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,
   const int ch = tid / LANES;
   const int c0 = blockIdx.x * CH;
   const int c = c0 + ch;
+  const int cn = min(CH, d - c0);      // live channels of the block
   const int b = blockIdx.y;
   const bool live = c < d;
   const size_t row0 = static_cast<size_t>(b) * seqlen;   // row of (b, 0)
   const int ntiles = (seqlen + TILE - 1) / TILE;
-  const float* const src[4] = {dt, x, dout, z};
+  const int last = seqlen - (ntiles - 1) * TILE;         // its real steps
+  const float* const seq[4] = {dt, x, dout, z};
+  const float* const hs_b =
+      hs + (static_cast<size_t>(b) * ntiles * d + c0) * N;
+  const size_t hs_tile = static_cast<size_t>(d) * N;     // a tile's states
 
-  if constexpr (NP > N) {      // padded states read B = C = 0
-    for (int i = tid; i < 2 * TILE * (NP - N); i += THREADS) {
-      const int col = N + i % (NP - N), rest = i / (NP - N);
-      (&sm.bc[0][0][0])[rest * NP + col] = 0.f;
+  if constexpr (STAGES == 2)
+    load_tile<N, GATED>(sm, 0, seq, bmat, cmat, hs_b + (ntiles - 1) * hs_tile,
+                        row0 + (ntiles - 1) * TILE, last, c0, cn, d,
+                        vec != 0);
+  // zeros that no copy overwrites: dead channels, padded states, and the
+  // steps missing from the last tile (the first walked, in stage 0)
+  if (cn < CH) {
+    for (int i = tid; i < STAGES * ROWS * TILE * (CH - cn); i += THREADS)
+      (&sm.seq[0][0][0][0])[i / (CH - cn) * SROW + cn + i % (CH - cn)] = 0.f;
+    for (int i = tid; i < STAGES * (CH - cn) * N; i += THREADS)
+      sm.h0[i / ((CH - cn) * N)][cn * N + i % ((CH - cn) * N)] = 0.f;
+  }
+  if constexpr (NP > N) {
+    for (int i = tid; i < STAGES * 2 * TILE * (NP - N); i += THREADS)
+      (&sm.bc[0][0][0][0])[i / (NP - N) * NP + N + i % (NP - N)] = 0.f;
+  }
+  if (last < TILE) {
+    const int gap = TILE - last;
+    for (int i = tid; i < ROWS * gap * CH; i += THREADS) {
+      const int r = i / CH;
+      sm.seq[0][r / gap][last + r % gap][i % CH] = 0.f;
+    }
+    for (int i = tid; i < 2 * gap * N; i += THREADS) {
+      const int r = i / N;
+      sm.bc[0][r / gap][last + r % gap][i % N] = 0.f;
     }
   }
+
   const size_t state = (static_cast<size_t>(b) * d + c) * N;
-  float av[P], a2[P], gs[P], da[P];
+  float a2[P], gs[P], da[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int n = g * P + p;
     const bool on = live && n < N;
-    av[p] = on ? __ldg(a + static_cast<size_t>(c) * N + n) : 0.f;
-    a2[p] = av[p] * LOG2E;
+    a2[p] = on ? __ldg(a + static_cast<size_t>(c) * N + n) * LOG2E : 0.f;
     gs[p] = (on && dh_last != nullptr) ? __ldg(dh_last + state + n) : 0.f;
     da[p] = 0.f;
   }
   const float dd = (GATED && live) ? __ldg(dskip + c) : 0.f;
   float dsum = 0.f;
 
-  for (int kt = ntiles - 1; kt >= 0; --kt) {
-    const int t0 = kt * TILE;
-    const int steps = min(TILE, seqlen - t0);
-    __syncthreads();           // every lane is done with the last tile
-    for (int k = 0; k < ROWS; ++k)
-      for (int i = tid; i < steps * CH; i += THREADS) {
-        const int j = i / CH, q = i % CH;
-        sm.seq[k][j][q] = c0 + q < d
-            ? __ldg(src[k] + (row0 + t0 + j) * d + c0 + q) : 0.f;
-      }
-    for (int i = tid; i < steps * N; i += THREADS) {
-      const int j = i / N, n = i - j * N;
-      sm.bc[0][j][n] = __ldg(bmat + (row0 + t0) * N + i);
-      sm.bc[1][j][n] = __ldg(cmat + (row0 + t0) * N + i);
-    }
-    const float* from = hs + ((static_cast<size_t>(b) * ntiles + kt) * d
-                              + c) * N;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      sm.h[0][p][tid] = (live && g * P + p < N) ? __ldg(from + g * P + p)
-                                                : 0.f;
-    __syncthreads();
-
-    // the tile forward again from its saved state, as K5 steps it
-    {
-      float h[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) h[p] = sm.h[0][p][tid];
-      for (int j = 0; j < steps; ++j) {
-        const float dtv = sm.seq[0][j][ch];
-        const float dxv = dtv * sm.seq[1][j][ch];
-        float acc = 0.f;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const float decay = ex2(dtv * a2[p]);
-          h[p] = fmaf(decay, h[p], dxv * sm.bc[0][j][g * P + p]);
-          acc = fmaf(h[p], sm.bc[1][j][g * P + p], acc);
-          sm.h[j + 1][p][tid] = h[p];
-        }
-        if constexpr (GATED) {
-          const float yv = acc + __shfl_xor_sync(FULL, acc, 1);
-          if (g == 0) sm.y[j][ch] = yv;
-        }
-      }
-    }
-    __syncwarp();              // a channel's y is read by both its lanes
-
-    // the tile in reverse, carrying g
-    for (int j = steps - 1; j >= 0; --j) {
-      const float dtv = sm.seq[0][j][ch];
-      const float xv = sm.seq[1][j][ch];
-      const float dov = sm.seq[2][j][ch];
-      float dy = dov, dzv = 0.f;
-      if constexpr (GATED) {
-        const float zv = sm.seq[3][j][ch];
-        const float sig = 1.f / (1.f + __expf(-zv));
-        const float yg = __fadd_rn(sm.y[j][ch], __fmul_rn(dd, xv));
-        dy = dov * (zv * sig);
-        dzv = dov * yg * (sig * (1.f + zv * (1.f - sig)));
-        dsum = fmaf(dy, xv, dsum);
-      }
-      const float dxv = dtv * xv;
-      float v[SLOTS];
-      float sdt = 0.f, sdx = 0.f;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float bv = sm.bc[0][j][g * P + p];
-        const float cv = sm.bc[1][j][g * P + p];
-        const float decay = ex2(dtv * a2[p]);
-        const float gt = fmaf(cv, dy, gs[p]);
-        const float dprev = decay * sm.h[j][p][tid];
-        v[p] = gt * dxv;                                    // dB_t
-        v[SLOTS / 2 + p] = dy * sm.h[j + 1][p][tid];        // dC_t
-        sdt = fmaf(gt, fmaf(av[p], dprev, xv * bv), sdt);
-        sdx = fmaf(gt, bv, sdx);
-        da[p] = fmaf(gt * dtv, dprev, da[p]);
-        gs[p] = decay * gt;
-      }
-#pragma unroll
-      for (int p = P; p < SLOTS / 2; ++p) v[p] = v[SLOTS / 2 + p] = 0.f;
-      sdt += __shfl_xor_sync(FULL, sdt, 1);
-      sdx += __shfl_xor_sync(FULL, sdx, 1);
-      // the warp's 16 channels summed, transposed: at lane distance m a
-      // lane keeps the half of its w values that bit m picks and adds its
-      // partner's sums of them; lane 2 i + g ends with value i's sum
-#pragma unroll
-      for (int m = 16, w = SLOTS; m >= LANES; m /= 2, w /= 2) {
-        const bool hi = lane & m;
-#pragma unroll
-        for (int i = 0; i < w / 2; ++i) {
-          const float keep = hi ? v[i + w / 2] : v[i];
-          const float send = hi ? v[i] : v[i + w / 2];
-          v[i] = keep + __shfl_xor_sync(FULL, send, m);
-        }
-      }
-      sm.red[j][warp][g][(lane >> 1) & (SLOTS - 1)] = v[0];
-      if (live) {
-        const size_t o = (row0 + t0 + j) * d + c;
-        if (g == 0) {
-          ddt[o] = sdt;
-          if constexpr (GATED) dz[o] = dzv;
-        } else {
-          dx[o] = GATED ? fmaf(dd, dy, dtv * sdx) : dtv * sdx;
-        }
-      }
-    }
-    __syncthreads();
-    // this block's partials of dB_t and dC_t: its warps' sums in order
+  // this block's partials of dB_t and dC_t for tile kt: the warps' sums
+  // from red[kt & 1], in warp order
+  auto partials = [&](int kt) {
+    const int steps = min(TILE, seqlen - kt * TILE);
+    const float(*red)[WARPS][2 * N] = sm.red[kt & 1];
     for (int i = tid; i < steps * 2 * N; i += THREADS) {
       const int j = i / (2 * N), r = i - j * 2 * N;
-      const int which = r / N, n = r - which * N;
-      const int gn = n / P, p = n - gn * P;
-      float sum = sm.red[j][0][gn][which * (SLOTS / 2) + p];
+      float sum = red[j][0][r];
 #pragma unroll
-      for (int w = 1; w < WARPS; ++w)
-        sum += sm.red[j][w][gn][which * (SLOTS / 2) + p];
-      (which ? dcp : dbp)[((row0 + t0 + j) * gridDim.x + blockIdx.x) * N
-                          + n] = sum;
+      for (int w = 1; w < WARPS; ++w) sum += red[j][w][r];
+      const int n = r < N ? r : r - N;
+      (r < N ? dbp : dcp)[((row0 + kt * TILE + j) * gridDim.x + blockIdx.x)
+                          * N + n] = sum;
+    }
+  };
+
+  for (int kt = ntiles - 1, it = 0; kt >= 0; --kt, ++it) {
+    const int stage = STAGES == 2 ? (it & 1) : 0;
+    const int t0 = kt * TILE;
+    if constexpr (STAGES == 2) {
+      // tile kt is in and, after the barrier, every lane is done with tile
+      // kt + 1: its partials are summed and its stage refilled with tile
+      // kt - 1 (red[kt & 1] was last read for tile kt + 2)
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (kt + 1 < ntiles) partials(kt + 1);
+      if (kt > 0 && (K5B_PROBE != 4 || it == 0))
+        load_tile<N, GATED>(sm, stage ^ 1, seq, bmat, cmat,
+                            hs_b + (kt - 1) * hs_tile, row0 + t0 - TILE,
+                            TILE, c0, cn, d, vec != 0);
+    } else {
+      __syncthreads();
+      if (kt + 1 < ntiles) partials(kt + 1);
+      load_tile<N, GATED>(sm, 0, seq, bmat, cmat, hs_b + kt * hs_tile,
+                          row0 + t0, min(TILE, seqlen - t0), c0, cn, d,
+                          vec != 0);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+    }
+
+    const float(*rows)[TILE][SROW] = sm.seq[stage];
+    const float(*bcs)[TILE][NP] = sm.bc[stage];
+    const float(*dyr)[SROW] = GATED ? sm.dy : sm.seq[stage][2];
+    float(*red)[WARPS][2 * N] = sm.red[kt & 1];
+
+    if constexpr (GATED) {       // dy of steps g, g + LANES, ...; dD
+#pragma unroll
+      for (int i = 0; i < TILE / LANES; ++i) {
+        const int j = i * LANES + g;
+        const float zv = rows[3][j][ch];
+        const float sig = 1.f / (1.f + __expf(-zv));
+        const float dyv = rows[2][j][ch] * (zv * sig);
+        sm.dy[j][ch] = dyv;
+        dsum = fmaf(dyv, rows[1][j][ch], dsum);
+      }
+      __syncwarp();              // a channel's dy is read by all its lanes
+    }
+
+    // the tile forward again from its saved state, as K5 steps it: the
+    // states before each step kept, dC and (gated) y and dz on the way
+    float h[TILE][P];
+    if constexpr (NP == N) {
+      lds<P>(h[0], &sm.h0[stage][ch * N + g * P]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        h[0][p] = g * P + p < N ? sm.h0[stage][ch * N + g * P + p] : 0.f;
+    }
+    float vc[GS * P], part[LANES];
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      const float dtv = rows[0][j][ch];
+      const float dxv = dtv * rows[1][j][ch];
+      const float dyv = dyr[j][ch];
+      float bv[P], cv[P];
+      lds<P>(bv, &bcs[0][j][g * P]);
+      lds<P>(cv, &bcs[1][j][g * P]);
+      float acc = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if constexpr (K5B_PROBE == 2) {
+          if (j + 1 < TILE) h[j + 1][p] = h[j][p];
+          vc[(j % GS) * P + p] = dyv;
+          acc = dxv;
+        } else {
+          const float hn = fmaf(ex2(dtv * a2[p]), h[j][p], dxv * bv[p]);
+          if (j + 1 < TILE) h[j + 1][p] = hn;
+          acc = fmaf(hn, cv[p], acc);
+          vc[(j % GS) * P + p] = dyv * hn;
+        }
+      }
+      part[j % LANES] = acc;
+      if (j % GS == GS - 1) {    // dC of the group, summed over the warp
+        if constexpr (K5B_PROBE != 1) tsum<GS * P, 1, 16, LANES>(vc, lane);
+        const int idx = lane / LANES, n = g * P + idx % P;
+        if (n < N) red[j - (GS - 1) + idx / P][warp][N + n] = vc[0];
+      }
+      if constexpr (GATED) {
+        if (j % LANES == LANES - 1) {   // lane g: y, then dz, of step jj
+          tsum<LANES, 1, LANES / 2, 1>(part, lane);
+          const int jj = j - (LANES - 1) + g;
+          const float xv = rows[1][jj][ch], zv = rows[3][jj][ch];
+          const float sig = 1.f / (1.f + __expf(-zv));
+          const float yg = __fadd_rn(part[0], __fmul_rn(dd, xv));
+          if ((K5B_PROBE == 3 ? vec < 0 : live) && t0 + jj < seqlen)
+            dz[(row0 + t0 + jj) * d + c] =
+                rows[2][jj][ch] * yg * (sig * (1.f + zv * (1.f - sig)));
+        }
+      }
+    }
+
+    // the tile in reverse, carrying g
+    float vb[GS * P], sv[2 * LANES];
+#pragma unroll
+    for (int j = TILE - 1; j >= 0; --j) {
+      const float dtv = rows[0][j][ch];
+      const float dxv = dtv * rows[1][j][ch];
+      const float dyv = dyr[j][ch];
+      float bv[P], cv[P];
+      lds<P>(bv, &bcs[0][j][g * P]);
+      lds<P>(cv, &bcs[1][j][g * P]);
+      float sa = 0.f, sb = 0.f;  // sum_n g A log2(e) decay h, sum_n g B
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if constexpr (K5B_PROBE == 2) {
+          vb[(j % GS) * P + p] = dxv;
+          sa = dtv;
+          sb = dyv;
+        } else {
+          const float decay = ex2(dtv * a2[p]);
+          const float gt = fmaf(cv[p], dyv, gs[p]);
+          const float gd = gt * (decay * h[j][p]);
+          da[p] = fmaf(dtv, gd, da[p]);
+          sa = fmaf(a2[p], gd, sa);
+          sb = fmaf(gt, bv[p], sb);
+          vb[(j % GS) * P + p] = gt * dxv;                  // dB_t
+          gs[p] = decay * gt;
+        }
+      }
+      sv[2 * (j % LANES)] = sa;
+      sv[2 * (j % LANES) + 1] = sb;
+      if (j % GS == 0) {         // dB of the group, summed over the warp
+        if constexpr (K5B_PROBE != 1) tsum<GS * P, 1, 16, LANES>(vb, lane);
+        const int idx = lane / LANES, n = g * P + idx % P;
+        if (n < N) red[j + idx / P][warp][n] = vb[0];
+      }
+      if (j % LANES == 0) {      // lane g: ddt and dx of step jj
+        tsum<2 * LANES, 2, LANES / 2, 1>(sv, lane);
+        const int jj = j + g;
+        const float dtj = rows[0][jj][ch], xj = rows[1][jj][ch];
+        if ((K5B_PROBE == 3 ? vec < 0 : live) && t0 + jj < seqlen) {
+          const size_t o = (row0 + t0 + jj) * d + c;
+          ddt[o] = fmaf(xj, sv[1], LN2 * sv[0]);
+          dx[o] = GATED ? fmaf(dd, dyr[jj][ch], dtj * sv[1]) : dtj * sv[1];
+        }
+      }
     }
   }
+  __syncthreads();
+  partials(0);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int n = g * P + p;
@@ -285,14 +511,18 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,
       dap[state + n] = da[p];
     }
   }
-  if (GATED && live && g == 0) ddp[static_cast<size_t>(b) * d + c] = dsum;
+  if constexpr (GATED) {
+#pragma unroll
+    for (int m = 1; m < LANES; m *= 2) dsum += __shfl_xor_sync(FULL, dsum, m);
+    if (live && g == 0) ddp[static_cast<size_t>(b) * d + c] = dsum;
+  }
 }
 
 using KernelPtr = void (*)(const float*, const float*, const float*,
                            const float*, const float*, const float*,
                            const float*, const float*, const float*,
                            const float*, float*, float*, float*, float*,
-                           float*, float*, float*, float*, int, int);
+                           float*, float*, float*, float*, int, int, int);
 
 template <bool GATED, int... I>
 KernelPtr instance(int n, std::integer_sequence<int, I...>) {
@@ -308,6 +538,26 @@ size_t smem_size(int n, std::integer_sequence<int, I...>) {
   return bytes;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The instance for (n, gated), its shared memory set as its dynamic
+// limit; null for an n the kernel is not built for.
+KernelPtr prepare(int n, bool gated, int* smem) {
+  if (n < 1 || n > N_MAX) return nullptr;
+  const auto seq = std::make_integer_sequence<int, N_MAX>();
+  const KernelPtr k = gated ? instance<true>(n, seq)
+                            : instance<false>(n, seq);
+  *smem = static_cast<int>(gated ? smem_size<true>(n, seq)
+                                 : smem_size<false>(n, seq));
+  if (*smem > 48 * 1024 &&
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *smem) != cudaSuccess)
+    return nullptr;
+  return k;
+}
+
 }  // namespace
 
 // dt, x, dout: (batch, seqlen, d); bmat, cmat: (batch, seqlen, n); a:
@@ -316,9 +566,9 @@ size_t smem_size(int n, std::integer_sequence<int, I...>) {
 // (d,) and z (batch, seqlen, d), both given or both null -- all
 // contiguous fp32.  Writes ddt, dx (and, gated, dz): (batch, seqlen, d);
 // dbp, dcp: (batch, seqlen, blocks, n), the partial sums of each block of
-// 64 channels; dap: (batch, d, n) and (gated) ddp: (batch, d), the
+// K5B_CH channels; dap: (batch, d, n) and (gated) ddp: (batch, d), the
 // partial sums of each batch row; dh0: (batch, d, n).  ``blocks`` must be
-// ceil(d / 64).  1 <= n <= 16.  Returns the launch's cudaError_t.
+// ceil(d / K5B_CH).  1 <= n <= 16.  Returns the launch's cudaError_t.
 extern "C" int selective_scan_bwd(
     const void* dt, const void* x, const void* bmat, const void* cmat,
     const void* a, const void* hs, const void* dskip, const void* z,
@@ -330,16 +580,12 @@ extern "C" int selective_scan_bwd(
       n > N_MAX || blocks != (d + CH - 1) / CH || gated != (z != nullptr) ||
       gated != (dz != nullptr) || gated != (ddp != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto seq = std::make_integer_sequence<int, N_MAX>();
-  const KernelPtr k = gated ? instance<true>(n, seq)
-                            : instance<false>(n, seq);
-  const int smem = static_cast<int>(
-      gated ? smem_size<true>(n, seq) : smem_size<false>(n, seq));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int smem = 0;
+  const KernelPtr k = prepare(n, gated, &smem);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = d % 4 == 0 && aligned16(dt) && aligned16(x) &&
+                  aligned16(dout) && aligned16(hs) &&
+                  (!gated || aligned16(z));
   const dim3 grid(blocks, batch);
   k<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dt), static_cast<const float*>(x),
@@ -350,6 +596,28 @@ extern "C" int selective_scan_bwd(
       static_cast<float*>(ddt), static_cast<float*>(dx),
       static_cast<float*>(dz), static_cast<float*>(dbp),
       static_cast<float*>(dcp), static_cast<float*>(dap),
-      static_cast<float*>(ddp), static_cast<float*>(dh0), seqlen, d);
+      static_cast<float*>(ddp), static_cast<float*>(dh0), seqlen, d, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the instance for (n, gated) gets on the current device: out[0]
+// blocks an SM (the occupancy calculator's), out[1] threads a block,
+// out[2] dynamic shared memory a block (bytes), out[3] registers a
+// thread, out[4] local memory a thread (bytes: spills), out[5] channels a
+// block (K5B_CH).  Returns a cudaError_t.
+extern "C" int selective_scan_bwd_info(int n, int gated, int* out) {
+  int smem = 0;
+  const KernelPtr k = prepare(n, gated != 0, &smem);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k, THREADS,
+                                                      smem);
+  out[1] = THREADS;
+  out[2] = smem;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  out[5] = CH;
+  return static_cast<int>(err);
 }

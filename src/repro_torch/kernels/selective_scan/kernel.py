@@ -3,12 +3,13 @@ CUDA scan of Mamba1 and its gradient, their bindings and wrappers.
 
 Sources ``csrc/selective_scan.cu`` and ``csrc/selective_scan_bwd.cu``
 (each with its design note), built by the port's shared builder
-(``repro_torch.kernels._build``) at first use.  Two lanes per (batch,
-channel) split its N <= 16 states and walk the sequence with them in
-registers; given Mamba1's D and z it writes the gated output
+(``repro_torch.kernels._build``) at first use.  K5: two lanes per
+(batch, channel) split its N <= 16 states and walk the sequence with them
+in registers; given Mamba1's D and z it writes the gated output
 ``(y + D x) * silu(z)`` in place of y.  With ``states=True`` K5 also
-stores the state at the start of every 16-step tile, which K5b runs
-forward again from before it walks each tile in reverse.  The wrappers
+stores the state at the start of every 16-step tile.  K5b: four lanes a
+channel run each tile forward again from its saved state, keeping the
+tile's states in registers, then walk it in reverse.  The wrappers
 take the plain versions (``ref.selective_scan_ref`` /
 ``selective_scan_gated_ref`` / ``selective_scan_bwd_ref``) for CPU tensors
 and launch the kernels for CUDA tensors -- or raise: there is no
@@ -28,13 +29,13 @@ from .ref import (selective_scan_bwd_ref, selective_scan_gated_ref,
                   selective_scan_ref)
 
 __all__ = ["SOURCES", "FAMILY", "N_MAX", "STATE_EVERY", "BWD_CH", "launches",
-           "selective_scan", "selective_scan_bwd"]
+           "selective_scan", "selective_scan_bwd", "bwd_occupancy"]
 
 SOURCES = {"selective_scan": "selective_scan.cu",
            "selective_scan_bwd": "selective_scan_bwd.cu"}
 N_MAX = 16            # the largest state size the kernels are built for
 STATE_EVERY = 16      # K5's STATE_EVERY, K5b's TILE: steps between states
-BWD_CH = 64           # K5b's channels a block: its dB / dC partials
+BWD_CH = 128          # K5b's K5B_CH, channels a block: its dB / dC partials
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
@@ -176,3 +177,27 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     FAMILY.launched("selective_scan_bwd", err)
     grads = (ddt, dx, dbp.sum(2), dcp.sum(2), dap.sum(0), dh0)
     return (*grads, ddp.sum(0), dz) if gated else grads
+
+
+def bwd_occupancy(n: int, gated: bool, device=None, lib=None) -> dict:
+    """What K5b's instance for state size ``n`` gets on a CUDA device: its
+    blocks and warps an SM (the occupancy calculator's), threads and
+    dynamic shared memory a block, registers and local (spill) bytes a
+    thread, and channels a block (``BWD_CH`` must equal it).  ``lib``: a
+    library built from another copy of the source (default: the port's)."""
+    out = (ctypes.c_int * 6)()
+    args = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    if lib is None:
+        query = FAMILY.symbol("selective_scan_bwd", "selective_scan_bwd_info",
+                              args)
+    else:
+        query = lib.selective_scan_bwd_info
+        query.argtypes, query.restype = args, ctypes.c_int
+    with torch.cuda.device(device):
+        err = query(n, int(gated), out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd_info: cudaError {err}")
+    blocks, threads, smem, regs, local, ch = out
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "threads": threads, "smem_bytes": smem, "registers": regs,
+            "local_bytes": local, "channels": ch}

@@ -149,7 +149,7 @@ class Reoptimizer:
             with span("reopt.capture"):
                 job = self.state.capture()
             if len(job.live) < 4:
-                _CYCLES.labels(outcome="skipped").inc()
+                self._count("skipped")
                 return None
             seed = int(self._rng.integers(2**31))
             with span("reopt.optimize"):
@@ -158,14 +158,14 @@ class Reoptimizer:
                 with self.state.lock:
                     self.state.reopts_kept += 1
                     self.state.events_since_reopt = 0
-                _CYCLES.labels(outcome="kept").inc()
+                self._count("kept")
                 _log.info(kv("reopt.cycle", outcome="kept",
                              method=self.method, n_live=len(job.live)))
                 return None
             with span("reopt.commit"):
                 res = self.state.commit_reopt(job, new_ov)
             self.cycles += 1
-            _CYCLES.labels(outcome="swapped").inc()
+            self._count("swapped")
             _log.info(kv("reopt.cycle", outcome="swapped",
                          method=self.method, n_live=len(job.live),
                          version=res["version"],
@@ -175,6 +175,15 @@ class Reoptimizer:
             return res
         finally:
             self.in_flight = False
+
+    def _count(self, outcome: str) -> None:
+        """Count a finished cycle, after dropping ``in_flight``: a client
+        that sees a cycle in flight (``POST /v1/reoptimize`` replies with
+        the flag) must know it is not counted yet, or, during a swap's
+        snapshot write, it counts that cycle twice and waits for count +
+        1 + in_flight cycles that never come."""
+        self.in_flight = False
+        _CYCLES.labels(outcome=outcome).inc()
 
     def _optimize(self, job, seed: int):
         """Compute the candidate overlay on the frozen copy (no locks), on

@@ -1286,19 +1286,25 @@ def _bwd_close(got, want, names=BWD_NAMES):
         assert err <= 1e-5 * float(w.abs().max()), (name, err)
 
 
+# (S, N, d): a whole tile (16) and tiles cut short (1, 17, 130, whose
+# chunk of 128 is cut short too); N = 1, 3 and 5 padded to a power of two
+# a lane and N = 4 and 16 not, at 4 or 8 lanes a channel; d = 200, not a
+# multiple of a block of channels; and falcon-mamba-7b's d = 8192 at a
+# small S, the real grid of blocks
+BWD_SHAPES = [(s, n, 200) for s in (1, 16, 17, 130)
+              for n in (1, 3, 4, 5, 16)] + [(33, 16, 8192)]
+
+
 @pytest.mark.parametrize("gated", [False, True])
-@pytest.mark.parametrize("n", [1, 5, 16])
-@pytest.mark.parametrize("s", [1, 17, 130])
-def test_selective_scan_bwd_matches_plain(cuda, s, n, gated):
-    """K5b against ``selective_scan_bwd_ref`` on the card at ragged shapes:
-    an odd batch, d = 200 (not a multiple of its 64-channel block), S = 1,
-    17 and 130 (tiles of 16 and chunks of 128 cut short), N = 1 and 5
-    padded to a state a lane; nonzero h0 and dh_last; every gradient
+@pytest.mark.parametrize("s,n,d", BWD_SHAPES)
+def test_selective_scan_bwd_matches_plain(cuda, s, n, d, gated):
+    """K5b against ``selective_scan_bwd_ref`` on the card at ragged shapes
+    (``BWD_SHAPES``), an odd batch, nonzero h0 and dh_last; every gradient
     within 1e-5 x its max |want|."""
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
 
-    ins, gate, hs, dout, dh_last = _bwd_case(cuda, 3, s, 200, n, gated,
+    ins, gate, hs, dout, dh_last = _bwd_case(cuda, 3, s, d, n, gated,
                                              seed=s * n + gated)
     before = ss_kernel.launches["selective_scan_bwd"]
     got = ss_kernel.selective_scan_bwd(*ins, hs, dout, dh_last, *gate)

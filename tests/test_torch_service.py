@@ -249,6 +249,30 @@ def test_crash_between_swap_and_snapshot_restores_preswap(tmp_path):
     assert restored.diameter(exact=True)["diameter"] == pre["diameter"]
 
 
+def test_a_counted_reopt_cycle_is_no_longer_in_flight():
+    """A swapped cycle is counted in ``repro_reopt_cycles_total`` only once
+    ``in_flight`` has dropped, so a client that reads the flag (the service
+    smoke waits for count + 1 + in_flight cycles) never counts one cycle
+    twice.  The hook runs after the count, where the snapshot is written:
+    counted and in flight at once there hung that wait for good."""
+    from repro_torch.obs import REGISTRY
+
+    state = ServiceState.fresh(_world(n0=20, dist="gaussian"),
+                               policy="rapid", seed=0)
+    swapped = REGISTRY.get("repro_reopt_cycles_total").labels(
+        outcome="swapped")
+    seen = []
+    reopt = Reoptimizer(state, every=2**31, eps=0.49, seed=0,
+                        crash_hook=lambda: seen.append(
+                            (reopt.in_flight, swapped.value)))
+    before = swapped.value
+    for _ in range(5):
+        if reopt.step(force=True):
+            break
+    assert seen == [(False, before + 1)]
+    assert not reopt.in_flight
+
+
 def test_reopt_commit_swaps_atomically_and_improves():
     state = ServiceState.fresh(_world(n0=20, dist="gaussian"),
                                policy="rapid", seed=0)

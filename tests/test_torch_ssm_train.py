@@ -8,13 +8,16 @@ forward; falcon-mamba-7b and zamba2-7b training states across the two
 packages' checkpoints; and the train CLI on both.  ``train_step`` itself
 is held to the reference in ``tests/test_torch_train.py``; K5b to its
 plain version on the card in ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+``chip_smoke.py``.  Two properties K5b's design rests on are held here:
+its tile and channel constants as the CUDA sources define them, and a
+plain backward that zero steps leave unchanged.
 
 Tolerances: |diff| <= 1e-5 x max(1, max |want|) (fp32 steps in order
 here, a ``lax.associative_scan`` there; sums over channels, steps and
 states in another order).
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -29,6 +32,7 @@ from repro.checkpoint import checkpoint as jck
 from repro.models import mamba as JMa
 
 from repro_torch.checkpoint import checkpoint as tck
+from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
                                                     selective_scan_gated_ref,
@@ -94,6 +98,65 @@ def test_selective_scan_bwd_ref_matches_jax_vjp(shape, gated):
     assert len(got) == len(want) == (8 if gated else 6)
     for g, w in zip(got, want):
         close(g, w)
+
+
+def test_scan_kernel_constants_match_the_cuda_sources():
+    """``kernel.STATE_EVERY`` is K5's tile of saved states and K5b's TILE,
+    and ``kernel.BWD_CH`` K5b's channels a block (``K5B_CH``), as the two
+    ``.cu`` sources define them: the wrapper sizes ``hs`` and the dB / dC
+    partials by them, and a mismatch would have the card write the
+    partials out of bounds."""
+    csrc = ss_kernel.FAMILY.csrc
+    fwd = (csrc / ss_kernel.SOURCES["selective_scan"]).read_text()
+    bwd = (csrc / ss_kernel.SOURCES["selective_scan_bwd"]).read_text()
+
+    def const(text, name):
+        got = re.findall(rf"(?:constexpr int {name} =|#define {name}) "
+                         rf"(\d+)", text)
+        assert len(got) == 1, (name, got)
+        return int(got[0])
+
+    assert ss_kernel.STATE_EVERY == const(fwd, "STATE_EVERY") \
+        == const(fwd, "K5_TILE") == const(bwd, "TILE") == 16
+    assert ss_kernel.BWD_CH == const(bwd, "K5B_CH")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("shape,pad", [((2, 21, 12, 5), 11),
+                                       ((3, 17, 40, 16), 15),
+                                       ((2, 1, 8, 1), 15)])
+def test_selective_scan_bwd_ref_ignores_zero_steps(shape, pad, gated):
+    """K5b stages a ragged last tile as zero steps (dt = x = dout = z = 0,
+    B = C = 0) and runs it whole.  The plain backward on a sequence padded
+    so gives the real steps' ddt, dx, dB, dC (and dz), and dA, dh0 (and
+    dD), unchanged: a zero step's decay is exp(0) = 1 and every term it
+    adds is 0.  In float64, so that torch's sums over a longer sequence
+    (taken in another order) differ only by rounding, 1e-12 x max |want|;
+    a step that added anything would show at ~1e-2."""
+    ins, gate, (dout, dh_last) = _inputs(shape, seed=sum(shape) + gated)
+    b, s = shape[:2]
+
+    def t64(a):
+        return torch.from_numpy(np.asarray(a, np.float64))
+
+    def padded(a):
+        a = t64(a)
+        return torch.cat([a, a.new_zeros((b, pad) + a.shape[2:])], 1)
+
+    real = [t64(a) for a in (*ins, dout, dh_last)] + \
+        ([t64(a) for a in gate] if gated else [])
+    seqs = [padded(a) for a in ins[:4]]
+    more = [padded(dout), t64(dh_last)] + \
+        ([t64(gate[0]), padded(gate[1])] if gated else [])
+    want = selective_scan_bwd_ref(*real)
+    got = selective_scan_bwd_ref(*seqs, t64(ins[4]), t64(ins[5]), *more)
+    assert len(got) == len(want) == (8 if gated else 6)
+    for g, w in zip(got, want):
+        if g.dim() >= 3 and g.shape[1] == s + pad:   # (B, S, ...): real steps
+            g = g[:, :s]
+        assert g.shape == w.shape
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-12 * top
 
 
 @pytest.mark.parametrize("gated", [False, True])
