@@ -5,15 +5,16 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its
 plain-torch twin on the card: the min-plus kernels K1/K2 bitwise, RMSNorm
-K3 and flash attention K4, their gradients K3b and K4b, and Mamba1's
-selective scan K5 and its gradient K5b, within stated tolerances.  Then it
+K3 and flash attention K4, their gradients K3b and K4b, Mamba1's
+selective scan K5 and its gradient K5b, and decode attention K6 over an
+fp32, bf16 or fp8 cache, within stated tolerances.  Then it
 drives the port's two paths, each with the kernels' launch counters reset
 just before and read just after:
 
 * DGRO -- ``overlay.build("dgro")`` at N=4096 and ``selection.adapt`` at
   N=256 (diameters against scipy's Dijkstra), and fig20's scoring cell;
 * the deep-Q constructor -- ``overlay.build("dgro-dqn")`` at N=200 (the
-  paper's largest training size) with 2 training epochs instead of the
+  paper's largest training size) with 1 training epoch instead of the
   builder's 60, its rings rolled out again on the CPU, one more epoch
   timed with host syncs counted;
 * partitioned construction -- ``overlay.build("parallel")`` at N=4096 with
@@ -41,9 +42,10 @@ just before and read just after:
   ``python -m repro_torch.service`` on the card, flat at n0=1,024 and
   hierarchical at n0=10,000;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
-  (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3/K4
-  launch counts the config implies and the prefill logits held against the
-  plain versions run on the card;
+  (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3 /
+  K4 / K6 launch counts the config implies (decode attends over the cache
+  through K6 on every served model) and the prefill logits held against
+  the plain versions run on the card;
 * LM training -- ``train.train_step`` on gemma3-1b at full width (global
   batch 4 x 1024 tokens, remat, AdamW with warmup-cosine over 8 steps):
   the kernel path's loss and gradients against the plain path's on the
@@ -78,7 +80,19 @@ just before and read just after:
   112) at full width, global batch 4 x 1024, remat: the kernels' loss and
   gradients against the plain path's on the card, two passes and remat
   bitwise, the launches of a step held to the layer pattern, step wall,
-  tok/s, peak memory and a profile of one step.
+  tok/s, peak memory and a profile of one step;
+* frontend serving (v), (u) -- pixtral-12b (40 layers, d 5120, 256 random
+  patch embeddings prepended to each 1024-token prompt by the vision stub)
+  on an fp32 and an fp8 KV cache, and musicgen-large (48 layers, D = 64,
+  GELU) on an fp32 cache, at full width and depth: (x-a) one layer's
+  prefill and decode steps on the card against the CPU port, (x-b)
+  ``generate`` with its K3 / K4 / K6 launches and peak memory, (x-c) the
+  prefill's logits through the kernels against the plain versions, and for
+  pixtral (v-8) the fp8 cache bytes the card wrote against the CPU cast of
+  the fp32 cache, K6 on that fp8 cache against its twin, (v-d) decode on
+  the fp8 cache within the reference's bound of the fp32 cache's, and
+  (v-f) profiles of the prefill with 4 decode steps and of 4 decode steps
+  alone.
 
 It times every kernel at its path's shapes (K2 in every cluster size and
 pivots per barrier it is built for, beside a probe of the cluster
@@ -112,7 +126,14 @@ TF32_FLOP_PER_S = 494.7e12
 BYTES_PER_S = 3.35e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg`` at once; a phase's first line also says how far into
+    the run it starts."""
+    if msg.startswith("phase:"):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s in]"
     print(msg, flush=True)
 
 
@@ -156,12 +177,13 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def families() -> tuple:
     """Every kernel family of the port."""
+    from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.minplus import kernel as mp
     from repro_torch.kernels.rmsnorm import kernel as rn
     from repro_torch.kernels.selective_scan import kernel as ss
 
-    return mp.FAMILY, rn.FAMILY, fa.FAMILY, ss.FAMILY
+    return mp.FAMILY, rn.FAMILY, fa.FAMILY, ss.FAMILY, da.FAMILY
 
 
 def reset_all_launches() -> None:
@@ -171,9 +193,9 @@ def reset_all_launches() -> None:
 
 
 def lm_launches() -> dict:
-    """The LM paths' launch counts: K3, K3b, K4, K4b and K5."""
-    _, rn, fa, ss = families()
-    return {**rn.launches, **fa.launches, **ss.launches}
+    """The LM paths' launch counts: K3, K3b, K4, K4b, K5, K5b and K6."""
+    _, rn, fa, ss, da = families()
+    return {**rn.launches, **fa.launches, **ss.launches, **da.launches}
 
 
 def check_equal(what: str, got, want) -> float:
@@ -357,12 +379,12 @@ def phase_fig20(rng) -> None:
         raise AssertionError(f"genome 0: diameter {out[0]} != scipy {want}")
 
 
-DQN = dict(n=200, dist="fabric", epochs=2, n_starts=10)
+DQN = dict(n=200, dist="fabric", epochs=1, n_starts=10)
 
 
 def phase_dqn(counts: dict) -> None:
     """The deep-Q constructor: ``overlay.build("dgro-dqn")`` at N=200
-    (K = 8 rings, T = 1,600 steps an epoch, 10 starts), 2 training epochs.
+    (K = 8 rings, T = 1,600 steps an epoch, 10 starts), 1 training epoch.
     Launch counts run from the build through the diameter recomputed by
     batcheval (min-plus squaring: K1).  The trained parameters are rolled
     out again on the card (same rings), every greedy decision is replayed
@@ -410,8 +432,8 @@ def phase_dqn(counts: dict) -> None:
     k = default_num_rings(n)
     log(f"  build('dgro-dqn') N={n} {DQN['dist']}: {k} rings, "
         f"{cfg.epochs} epochs (the builder's default is 60), {wall:.2f} s "
-        f"wall, of which train_dqn {tlog.seconds:.2f} s (2 epochs + 2 eval "
-        f"rollouts, {tlog.steps_per_sec:.1f} env steps/s); "
+        f"wall, of which train_dqn {tlog.seconds:.2f} s ({cfg.epochs} epochs "
+        f"and their eval rollouts, {tlog.steps_per_sec:.1f} env steps/s); "
         f"max_memory_allocated {peak} B; launches {counts['dgro-dqn']}")
     want_k1 = int(np.ceil(np.log2(n - 1)))
     if counts["dgro-dqn"] != {"minplus_acc": want_k1, "fw_tile": 0}:
@@ -569,13 +591,14 @@ def check_greedy_on_cpu(params, w, rings, n_rounds: int) -> None:
                              f"CPU's fp32 ones: {err}")
 
 
-PARALLEL = dict(n=4096, dist="fabric", m=32, dqn_epochs=40)
+PARALLEL = dict(n=4096, dist="fabric", m=32, dqn_epochs=10)
 
 
 def phase_parallel(counts: dict) -> None:
     """Partitioned construction (Alg. 4) at N=4096: M=1 and M=32 with
-    nearest segments, M=32 with DQN segments (the builder's default 40
-    training epochs at the block size 128), all with the scored stitch.
+    nearest segments, M=32 with DQN segments (10 training epochs at the
+    block size 128, of the builder's default 40, to keep the script
+    inside its time limit), all with the scored stitch.
     Each build's K2 / K1 launches must be the tiled schedule's: 16 stitch
     candidates x ceil(N / T) diagonal steps x (1 K2, 2 K1); M=1 has one
     segment and scores nothing."""
@@ -1556,9 +1579,10 @@ def phase_hier(counts: dict) -> None:
     if ok.mean() < 0.99 or (res.stretch[ok] < 1 - 1e-4).any():
         raise AssertionError(f"(h) hier routing success {ok.mean()}")
     # a slice under the profiler: its trace of the whole batch (~300,000
-    # device ops) takes the profiler minutes to reduce
-    profiled(f"route_pairs_hier N={n}, P=512 of them (cluster APSPs "
-             f"cached)", lambda: route_pairs_hier(hov, pairs[:512]))
+    # device ops) takes the profiler minutes to reduce, 512 pairs (~155,000)
+    # about half a minute
+    profiled(f"route_pairs_hier N={n}, P=128 of them (cluster APSPs "
+             f"cached)", lambda: route_pairs_hier(hov, pairs[:128]))
     del hov, res
 
     cap = n + 8
@@ -1745,8 +1769,10 @@ def phase_profile(rng) -> None:
 
 def profile_dqn() -> None:
     """The deep-Q path at N=200 under the profiler: the 10-start greedy
-    rollout, and a training epoch cut to K = 2 rings (400 steps, the same
-    per-step work as the build's 1,600) to keep the trace small."""
+    rollout cut to K = 2 rings (400 steps) and a training epoch to K = 1
+    (200 steps), the same per-step work as the build's 1,600, to keep the
+    traces small: the profiler's own cost grows with its events (~190,000
+    for an epoch of 400 steps)."""
     import torch
 
     from repro_torch.core import qlearning, rollout
@@ -1754,23 +1780,23 @@ def profile_dqn() -> None:
     from repro_torch.core.topology import make_latency
     from repro_torch.train.optimizer import adamw_init
 
-    n, k = DQN["n"], 8
+    n, k = DQN["n"], 2
     w = make_latency(DQN["dist"], n, seed=0)
     cfg = qlearning.DQNConfig(n=n, k_rings=k)
     params = init_qparams(torch.Generator().manual_seed(0), cfg.p, cfg.h)
     profiled(f"dgro-dqn {DQN['n_starts']}-start rollout N={n} K={k}",
              lambda: qlearning.dgro_overlay(params, cfg, w,
                                             n_starts=DQN["n_starts"]))
-    slots = rollout.graph_slots(cfg.buffer_capacity, 1, 2, n)
+    slots = rollout.graph_slots(cfg.buffer_capacity, 1, 1, n)
     buf = rollout.init_buffer(cfg.buffer_capacity, n, slots)
-    plan = rollout.make_plan(np.random.default_rng(0), 1, 2, n, 1,
+    plan = rollout.make_plan(np.random.default_rng(0), 1, 1, n, 1,
                              cfg.batch_size)
-    profiled(f"dgro-dqn train_epoch N={n} K=2 ({2 * n} steps)",
+    profiled(f"dgro-dqn train_epoch N={n} K=1 ({n} steps)",
              lambda: rollout.train_epoch(
                  params, adamw_init(params.tensors()), buf,
                  torch.as_tensor(w[None], device="cuda"), [0], plan.starts,
                  plan.eps_u, plan.choice_u, plan.sample_u, 1.0, cfg.gamma,
-                 cfg.lr, cfg.alpha, k_rings=2, batch_size=cfg.batch_size))
+                 cfg.lr, cfg.alpha, k_rings=1, batch_size=cfg.batch_size))
 
 
 def phase_timing(rng, counts: dict, errs: dict) -> list:
@@ -2024,6 +2050,71 @@ def phase_lm_kernels(rng, errs: dict) -> None:
             err = check_close(tag, got, want, 1e-6, rel=True) \
                 if dt == torch.float32 else bf16_ulp_close(tag, got, want)
             errs[key] = max(errs.get(key, 0.0), err)
+    decode_attention_checks(rng, errs)
+
+
+DECODE_CASES = [   # (B, Hq, Hkv, S, D, window, pos): ragged, then the paths'
+    (1, 4, 4, 1, 16, None, 0),
+    (3, 8, 4, 17, 40, None, 20),            # wrapped past S
+    (2, 10, 2, 300, 128, None, 120),        # partly written, g = 5
+    (2, 32, 16, 200, 128, 100, 250),        # gemma3-27b's g = 2, a window
+    (8, 4, 1, 512, 256, 512, 1055),         # gemma3-1b local, rolled
+    (8, 4, 1, 1056, 256, None, 1055),       # gemma3-1b global
+    (8, 16, 16, 1056, 128, None, 1030),     # moonshot
+    (8, 32, 32, 1056, 112, None, 1040),     # zamba2's shared block
+    (8, 32, 32, 1312, 64, None, 1100),      # musicgen-large
+    (8, 32, 8, 1312, 128, None, 1311),      # pixtral-12b
+    (8, 32, 8, 8192, 128, None, 8191),      # pixtral-12b, a long cache
+]
+
+
+def decode_attention_checks(rng, errs: dict) -> None:
+    """K6 against its plain twin on the card, for every cache dtype (fp32,
+    bf16, float8_e4m3fn: the fp8 cache is q's K/V cast by
+    ``layers.to_cache_dtype``) at ragged shapes and the paths' decode
+    shapes: within 1e-5 x max |want| (fp32 online against dense softmax,
+    summed in another order), and two calls bitwise (a fixed merge
+    order, no atomics)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import to_cache_dtype
+
+    dev = torch.device("cuda")
+    worst = {}
+    for b, hq, hkv, s, d, window, pos in DECODE_CASES:
+        q = torch.from_numpy(rng.normal(0, 1, (b, hq, 1, d))
+                             .astype(np.float32)).to(dev)
+        kv = torch.from_numpy(rng.normal(0, 2, (2, b, hkv, s, d))
+                              .astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+            k, v = (to_cache_dtype(t, dt) for t in kv)
+            got = da.decode_attention(q, k, v, pos, window)
+            again = da.decode_attention(q, k, v, pos, window)
+            name = str(dt)[6:]
+            tag = (f"K6 b{b} hq{hq} hkv{hkv} S{s} D{d} window={window} "
+                   f"pos={pos} {name}")
+            err = rel_close(tag, got, decode_attention_ref(q, k, v, pos,
+                                                           window))
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two calls differ")
+            worst[name] = max(worst.get(name, 0.0), err)
+        del q, kv, k, v
+    errs["decode_attention"] = worst["float32"]
+    errs["decode_attention_bf16"] = worst["bfloat16"]
+    errs["decode_attention_fp8"] = worst["float8_e4m3fn"]
+    # torch's own CUDA cast past 464, beside the port's (recorded, not
+    # gated: the port never writes a cache with it)
+    x = torch.tensor([448.0, 464.0, 464.00003, 500.0, -500.0, 1e4],
+                     device=dev)
+    log(f"  fp8 cast on the card of {x.tolist()}: torch's .to() bytes "
+        f"{x.to(torch.float8_e4m3fn).view(torch.uint8).tolist()}, the "
+        f"port's to_cache_dtype (the reference's) "
+        f"{to_cache_dtype(x, torch.float8_e4m3fn).view(torch.uint8).tolist()}")
+    log(f"  K6: {len(DECODE_CASES)} shapes x 3 cache dtypes within 1e-5 x "
+        f"max |want| of the plain twin, two calls bitwise; worst max |diff| "
+        f"{worst}")
 
 
 BWD_CASES = [   # K4b: ragged T and D, GQA, the training shapes
@@ -2271,19 +2362,21 @@ SERVE = dict(arch="gemma3-1b", batch=8, prompt_len=1024, max_new=32,
 
 
 def expected_lm_launches(cfg, max_new: int) -> dict:
-    """K3 / K4 / K5 launches of one ``generate``.  Attention families: per
-    layer, prefill runs ln1 and ln2 and, with qk_norm, q_norm, k_norm and
-    ``_prefill_kv``'s k_norm; decode runs ln1, ln2 (+ q_norm, k_norm);
-    every forward ends in the final norm.  K4 runs once per layer in
-    prefill only: decode attends over the cache with the plain masked
-    softmax.  SSM families: every forward runs each layer's ln (and a
-    Mamba2 layer's gate norm), ln1 and ln2 of each shared attention call
-    and the final norm; K4 runs once per shared attention call, in prefill
-    only, and K5 once per Mamba1 layer in every forward (gated over the
-    prompt in prefill, at S = 1 in each decode step): 64 x 32 = 2,048 for
+    """K3 / K4 / K5 / K6 launches of one ``generate``.  Attention
+    families: per layer, prefill runs ln1 and ln2 and, with qk_norm,
+    q_norm, k_norm and ``_prefill_kv``'s k_norm; decode runs ln1, ln2 (+
+    q_norm, k_norm); every forward ends in the final norm.  K4 runs once
+    per layer in prefill, K6 once per layer in each decode step (decode
+    attention over the cache).  SSM families: every forward runs each
+    layer's ln (and a Mamba2 layer's gate norm), ln1 and ln2 of each shared
+    attention call and the final norm; K4 runs once per shared attention
+    call in prefill and K6 once per shared call in each decode step, and K5
+    once per Mamba1 layer in every forward (gated over the prompt in
+    prefill, at S = 1 in each decode step): 64 x 32 = 2,048 for
     falcon-mamba-7b's serve."""
     from repro_torch.models.model import layer_kind, pattern_period
 
+    steps = max_new - 1
     if cfg.family in ("ssm", "hybrid"):
         per = pattern_period(cfg)
         kinds = [layer_kind(cfg, i % per) for i in range(cfg.n_layers)]
@@ -2292,14 +2385,15 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
         forward = 2 * cfg.n_layers - mamba1 + 2 * attn + 1
         return {"rmsnorm": forward * max_new, "flash_attention": attn,
                 "selective_scan": mamba1 * max_new, "rmsnorm_bwd": 0,
-                "flash_attention_bwd": 0, "selective_scan_bwd": 0}
+                "flash_attention_bwd": 0, "selective_scan_bwd": 0,
+                "decode_attention": attn * steps}
     qk = 2 if cfg.qk_norm else 0
     prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
     decode = cfg.n_layers * (2 + qk) + 1
-    return {"rmsnorm": prefill + (max_new - 1) * decode,
+    return {"rmsnorm": prefill + steps * decode,
             "flash_attention": cfg.n_layers, "rmsnorm_bwd": 0,
             "flash_attention_bwd": 0, "selective_scan": 0,
-            "selective_scan_bwd": 0}
+            "selective_scan_bwd": 0, "decode_attention": cfg.n_layers * steps}
 
 
 def phase_serve(counts: dict, errs: dict) -> dict:
@@ -2405,7 +2499,8 @@ def expected_train_launches(cfg) -> dict:
             k5_again += scan
     return {"rmsnorm": k3 + 1 + k3_again, "rmsnorm_bwd": k3 + 1,
             "flash_attention": k4 + k4_again, "flash_attention_bwd": k4,
-            "selective_scan": k5 + k5_again, "selective_scan_bwd": k5}
+            "selective_scan": k5 + k5_again, "selective_scan_bwd": k5,
+            "decode_attention": 0}
 
 
 def phase_train(counts: dict, card: str) -> dict:
@@ -2855,26 +2950,33 @@ def phase_moe(counts: dict, errs: dict, card: str, dev) -> dict:
 
 
 def decode_steps(served: dict, steps: int, max_len: int):
-    """Prefill the served prompts into fresh caches, and return a function
-    that runs ``steps`` greedy decode steps on them from the prompts' end
-    (the decode-only profiles; a second call rewrites the same cache
-    positions, and an SSM state steps on from where the first left it)."""
+    """Prefill the served prompts (after their patch embeddings, where
+    ``served["vision"]`` holds some) into fresh caches of
+    ``served["cache_dtype"]`` (default fp32), and return a function that
+    runs ``steps`` greedy decode steps on them from the prompts' end (the
+    decode-only profiles; a second call rewrites the same cache positions,
+    and an SSM state steps on from where the first left it)."""
     import torch
 
     from repro_torch.models import model as Mdl
 
     cfg, params, prompts = (served[k] for k in ("cfg", "params", "prompts"))
+    vis = served.get("vision")
+    start = prompts.shape[1] + (0 if vis is None else vis.shape[1])
     dev = params["embed"].device
-    caches = Mdl.init_caches(cfg, prompts.shape[0], max_len, device=dev)
+    caches = Mdl.init_caches(cfg, prompts.shape[0], max_len,
+                             served.get("cache_dtype", torch.float32),
+                             device=dev)
     logits, caches, _ = Mdl.forward(cfg, params, torch.as_tensor(
-        prompts, device=dev), mode="prefill", caches=caches)
+        prompts, device=dev), mode="prefill", caches=caches,
+        vision_embeds=vis)
     first = logits.argmax(-1)
 
     def decode():
         x = first
         for i in range(steps):
             lg, _ = Mdl.forward(cfg, params, x[:, None], mode="decode",
-                                caches=caches, pos=prompts.shape[1] + i)
+                                caches=caches, pos=start + i)
             x = lg.argmax(-1)
 
     return decode
@@ -3377,6 +3479,254 @@ def phase_ssm_train(arch: str, counts: dict, card: str, dev) -> dict:
     return {"cfg": cfg, "tc": tc, "state": st, "batch": batches[0]}
 
 
+FRONTEND = dict(archs=("pixtral-12b", "musicgen-large"), batch=8,
+                prompt_len=1024, max_new=32, layer_batch=2, layer_seq=256,
+                layer_steps=2, fp8_steps=8, byte_layers=(0, 13, 26, 39),
+                peak_limit=80e9)
+
+
+def frontend_layer_card_vs_cpu(cfg, tag: str, dev) -> None:
+    """(v-a) / (u-a) One attention + MLP layer at full width, B = 2, S =
+    256, weights from a torch Generator seeded 1 carried to the CPU, input
+    unit normals from numpy default_rng(1): prefill into an fp32 cache,
+    then 2 decode steps, on the card (K3, K4, K6) and on the CPU port (the
+    plain versions): every output within 1e-5 x max |want| (``rel_close``),
+    the caches within 1e-4 x (K is rotated by RoPE at angles up to 258
+    rad, where the card's and the CPU's sin / cos differ by a few fp32
+    ulps of the angle: 1.25e-5 x measured on pixtral's K)."""
+    import torch
+
+    from repro_torch.models import model as Mdl
+
+    kind = Mdl.layer_kind(cfg, 0)
+    lp = Mdl._init_layer(cfg, kind, torch.Generator(device=dev).manual_seed(1),
+                         torch.float32, dev)
+    lb, ls, steps = (FRONTEND[k] for k in ("layer_batch", "layer_seq",
+                                           "layer_steps"))
+    x = np.random.default_rng(1).normal(0, 1, (lb, ls + steps, cfg.d_model)) \
+        .astype(np.float32)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    def run(params, device):
+        cache = {k: torch.zeros((lb, cfg.n_kv_heads, ls + steps, cfg.hd),
+                                device=device) for k in ("k", "v")}
+        xs = torch.from_numpy(x).to(device)
+        outs = [Mdl._attn_mlp_layer(
+            cfg, kind, params, xs[:, :ls], mode="prefill", cache=cache,
+            cache_pos=None, impl="flash",
+            positions=torch.arange(ls, dtype=torch.int32, device=device))[0]]
+        for i in range(ls, ls + steps):
+            outs.append(Mdl._attn_mlp_layer(
+                cfg, kind, params, xs[:, i:i + 1], mode="decode",
+                cache=cache, cache_pos=i, impl="flash",
+                positions=torch.tensor([i], dtype=torch.int32,
+                                       device=device))[0])
+        return outs + [cache["k"], cache["v"]]
+
+    t0 = time.perf_counter()
+    got = run(lp, dev)
+    want = run(to_cpu(lp), torch.device("cpu"))
+    what = (f"({tag}-a) {cfg.name} layer, prefill ({lb}, {ls}) + {steps} "
+            f"decode steps, card vs CPU")
+    for i, (g, w) in enumerate(zip(got, want)):
+        label = ("prefill" if i == 0 else f"decode {i}" if i <= steps
+                 else ("K cache", "V cache")[i - steps - 1])
+        rel_close(f"{what} {label}", g, w, 1e-5 if i <= steps else 1e-4)
+    log(f"  {what}: {time.perf_counter() - t0:.2f} s")
+
+
+def phase_frontend(arch: str, counts: dict, errs: dict, card: str,
+                   dev) -> dict:
+    """(v) / (u) The frontend families' serving path at full width and
+    depth, fp32 with TF32 off, random weights from a torch.Generator seeded
+    0, 8 prompts of 1024 tokens from numpy default_rng(0), 32 new tokens,
+    greedy: pixtral-12b (40 layers, d 5120, the vision stub: 256 patch
+    embeddings a request, ``serve.patch_embeddings``) on an fp32 and an
+    fp8 cache, musicgen-large (48 layers, d 2048, D = 64, GELU) on an fp32
+    cache.  (x-a) ``frontend_layer_card_vs_cpu``; (x-b) ``generate`` on
+    each cache dtype: its K3 / K4 / K6 launches equal to
+    ``expected_lm_launches``, peak memory under 80 GB, tokens in range;
+    (x-c) the prefill's last-position logits through the kernels against
+    ``impl="ref"`` on the card within rtol = atol = 1e-4, and generate's
+    first tokens their argmax.  pixtral also: (v-8) the fp8 cache bytes the
+    card's prefill wrote, in 4 layers, bitwise the CPU helper's cast of a
+    copy of the fp32 cache the same prefill wrote; K6 on that fp8 cache
+    against its plain twin (1e-5 x max |want|, two calls bitwise); (v-d) 8
+    decode steps teacher-forced on both caches: the fp8 cache's logits
+    within the reference's bound of the fp32 cache's (max |dlogit| < 0.7,
+    mean < 0.1, ``tests/test_models.py``).  Returns what (v-f) profiles."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.launch.serve import generate, patch_embeddings
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.layers import to_cache_dtype
+
+    cfg = get_arch(arch)
+    key = arch.split("-")[0]
+    tag = "v" if cfg.frontend == "vision" else "u"
+    b, plen, new = (FRONTEND[k] for k in ("batch", "prompt_len", "max_new"))
+    n_vis = cfg.n_patches if cfg.frontend == "vision" else 0
+    max_len = n_vis + plen + new
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    log(f"  memory_allocated at the start of the phase: {held} B, "
+        f"{torch.cuda.memory_allocated()} B after a cyclic collection "
+        f"[{card}]")
+    with torch.no_grad():
+        frontend_layer_card_vs_cpu(cfg, tag, dev)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Mdl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {Mdl.param_count(params)} parameters (fp32, all "
+        f"{cfg.n_layers} layers) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, size=(b, plen))
+    vis = patch_embeddings(cfg, b, dev) if n_vis else None
+    dtypes = (torch.float32, torch.float8_e4m3fn) if n_vis else \
+        (torch.float32,)
+    t0 = time.perf_counter()
+    generate(cfg, params, prompts, 3, max_len, vision_embeds=vis,
+             cache_dtype=dtypes[-1])               # warm-up, not counted
+    log(f"  warm-up generate (prefill + 2 decode steps): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (x-b) the counted runs
+    first = None
+    for cdt in dtypes:
+        name = str(cdt)[6:]
+        slot = f"{key}_serve" + ("_fp8" if cdt != torch.float32 else "")
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        tokens, t = generate(cfg, params, prompts, new, max_len,
+                             vision_embeds=vis, cache_dtype=cdt)
+        counts[slot] = got = lm_launches()
+        want = expected_lm_launches(cfg, new)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  ({tag}-b) generate, {name} cache, {n_vis} patches + {plen} "
+            f"tokens a request: prefill {t['prefill_s']:.4f} s "
+            f"({b * (n_vis + plen) / t['prefill_s']:.1f} tok/s), decode "
+            f"{t['decode_s']:.4f} s for {new - 1} steps "
+            f"({b * (new - 1) / t['decode_s']:.1f} tok/s, "
+            f"{t['decode_s'] / (new - 1) * 1e3:.2f} ms a step); launches "
+            f"{got} (expected {want}); max_memory_allocated {peak} B [{card}]")
+        if got != want:
+            raise AssertionError(f"({tag}-b) launches {got} != {want}")
+        if peak >= FRONTEND["peak_limit"]:
+            raise AssertionError(f"({tag}-b) peak {peak} B is not under "
+                                 f"80 GB")
+        tok = tokens.cpu().numpy()
+        if tok.shape != (b, new) or tok.min() < 0 or tok.max() >= cfg.vocab:
+            raise AssertionError(f"({tag}-b) bad tokens: {tok.shape} "
+                                 f"{tok.min()} {tok.max()}")
+        log(f"  first request continuation: {tok[0][:16].tolist()}")
+        if first is None:
+            first = tokens
+
+    # (x-c) the prefill's logits, kernels against plain
+    toks = torch.as_tensor(prompts, device=dev)
+
+    def prefill(impl, cdt=torch.float32):
+        caches = Mdl.init_caches(cfg, b, max_len, cdt, device=dev)
+        logits, caches, _ = Mdl.forward(cfg, params, toks, mode="prefill",
+                                        caches=caches, impl=impl,
+                                        vision_embeds=vis)
+        return logits, caches
+
+    kern, caches32 = prefill("flash")
+    t0 = time.perf_counter()
+    plain, _ = prefill("ref")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = float((kern - plain).abs().max())
+    log(f"  ({tag}-c) prefill logits ({b} x {n_vis + plen}), kernels vs "
+        f"plain on the card: max |diff| {err:.3g} (max |logit| "
+        f"{float(plain.abs().max()):.4g}); the plain prefill took "
+        f"{plain_s:.2f} s")
+    if not bool(torch.isfinite(kern).all()) or not torch.allclose(
+            kern, plain, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"({tag}-c) prefill logits: kernels vs plain "
+                             f"max |diff| {err} beyond rtol = atol = 1e-4")
+    if not torch.equal(kern.argmax(-1).cpu(), first[:, 0].cpu()):
+        raise AssertionError(f"({tag}-b) generate's first tokens are not the "
+                             f"argmax of the kernel path's prefill logits")
+    errs[f"{key}_logits"] = err
+    del plain
+    served = {"cfg": cfg, "params": params, "prompts": prompts,
+              "vision": vis, "cache_dtype": dtypes[-1], "max_len": max_len}
+    if not n_vis:
+        return served
+
+    # (v-8) the fp8 cache bytes the card wrote against the CPU helper's
+    kern8, caches8 = prefill("flash", torch.float8_e4m3fn)
+    log(f"  (v-8) the fp8-cache prefill's logits bitwise the fp32-cache "
+        f"prefill's: {bool(torch.equal(kern8, kern))}")
+    per = Mdl.pattern_period(cfg)
+    checked = 0
+    for layer in FRONTEND["byte_layers"]:
+        c32 = caches32["blocks"][f"pos{layer % per}"]
+        c8 = caches8["blocks"][f"pos{layer % per}"]
+        for kv in ("k", "v"):
+            want = to_cache_dtype(c32[kv][layer // per].cpu(),
+                                  torch.float8_e4m3fn).view(torch.uint8)
+            got = c8[kv][layer // per].cpu().view(torch.uint8)
+            if not torch.equal(got, want):
+                n_bad = int((got != want).sum())
+                raise AssertionError(f"(v-8) layer {layer} {kv}: {n_bad} fp8 "
+                                     f"bytes differ from the CPU cast")
+            checked += got.numel()
+    log(f"  (v-8) fp8 cache bytes of layers {FRONTEND['byte_layers']} (K and "
+        f"V, {checked} bytes) bitwise the CPU helper's cast of the fp32 "
+        f"cache")
+    # K6 on that fp8 cache against its plain twin
+    c8 = caches8["blocks"]["pos0"]
+    q = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, (b, cfg.n_heads, 1, cfg.hd)).astype(np.float32)).to(dev)
+    pos = n_vis + plen - 1
+    got = da.decode_attention(q, c8["k"][0], c8["v"][0], pos)
+    if not torch.equal(got, da.decode_attention(q, c8["k"][0], c8["v"][0],
+                                                pos)):
+        raise AssertionError("(v-8) K6 on the fp8 cache: two calls differ")
+    errs["decode_attention_fp8"] = max(errs["decode_attention_fp8"], rel_close(
+        f"(v-8) K6 on layer 0's fp8 cache (B {b}, Hkv {cfg.n_kv_heads}, S "
+        f"{max_len}, D {cfg.hd}) at pos {pos} vs its plain twin", got,
+        decode_attention_ref(q, c8["k"][0], c8["v"][0], pos)))
+
+    # (v-d) decode on the fp8 cache against the fp32 cache
+    steps = FRONTEND["fp8_steps"]
+    diffs, means = [], []
+    with torch.no_grad():
+        for i in range(steps):
+            x = first[:, i:i + 1]
+            l32, caches32 = Mdl.forward(cfg, params, x, mode="decode",
+                                        caches=caches32, pos=n_vis + plen + i)
+            l8, caches8 = Mdl.forward(cfg, params, x, mode="decode",
+                                      caches=caches8, pos=n_vis + plen + i)
+            diffs.append(float((l8 - l32).abs().max()))
+            means.append(float((l8 - l32).abs().mean()))
+    log(f"  (v-d) {steps} decode steps teacher-forced, fp8 cache vs fp32 "
+        f"cache: max |dlogit| by step {[round(d, 5) for d in diffs]}, mean "
+        f"|dlogit| by step {[round(m, 6) for m in means]} (max |logit| "
+        f"{float(l32.abs().max()):.4g}; the reference's bound: max < 0.7, "
+        f"mean < 0.1)")
+    if not (max(diffs) < 0.7 and max(means) < 0.1):
+        raise AssertionError(f"(v-d) fp8 vs fp32 cache decode logits: max "
+                             f"{max(diffs)}, mean {max(means)}: beyond the "
+                             f"reference's bound (0.7, 0.1)")
+    del caches32, caches8, kern, kern8
+    return served
+
+
 def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     """K4 and K3 at the served shapes (gemma3-1b's and, (m-e),
     moonshot's), K4 with L, K4b and K3b at the training shapes: ms per
@@ -3402,6 +3752,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan.ref import (
         selective_scan_bwd_ref, selective_scan_gated_ref, selective_scan_ref)
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import to_cache_dtype
 
     dev = torch.device("cuda")
     b, hq, hkv, t, d = SERVE["batch"], 4, 1, SERVE["prompt_len"], 256
@@ -3486,6 +3839,76 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         f"{b_ms:.4f} ms by {b_by})")
     del q, k, v, want
 
+    # K4 at musicgen-large's prefill layer: D = 64, Hq = Hkv = 32, through
+    # the D <= 128 instance
+    uh, ud = 32, 64
+    q, k, v = (rand(b, uh, t, ud) for _ in range(3))
+    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
+    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    want = attention_ref(q, k, v)
+    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        "K4 timed input, musicgen", fa_ops.flash_attention(q, k, v), want,
+        2e-5))
+    pairs = t * (t + 1) / 2 * b * uh
+    b_ms, b_by = flop_bound(4.0 * pairs * ud, 4.0 * 4 * q.numel())
+    k4["musicgen"] = dict(
+        shape=f"({b},{uh},{t},{ud}) Hkv {uh} fp32, causal (global)", ms=ms,
+        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  K4 musicgen layer ({b},{uh},{t},{ud}) Hkv {uh} fp32: {ms:.4f} ms "
+        f"(plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"by {b_by})")
+    del q, k, v, want
+
+    # K6 at pixtral-12b's decode: q (8, 32, 1, 128), Hkv 8, every slot of
+    # an S-slot cache live (pos = S - 1), in each cache dtype.  Bound: the
+    # cache read once in its dtype, q read and the output written in fp32;
+    # 4 FLOP per (query head, slot, element) of QK and PV.  SDPA (GQA, a
+    # boolean mask of the live slots) reads the cache widened to fp32: the
+    # widening is in its time.
+    k6 = {}
+    pb, phq, phkv, pd = 8, 32, 8, 128
+    q = rand(pb, phq, 1, pd)
+    for cs in (1312, 8192):
+        kv = rand(2, pb, phkv, cs, pd, sd=2.0)
+        last = cs - 1
+        live = torch.ones((1, 1, 1, cs), dtype=torch.bool, device=dev)
+        for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+            kc, vc = (to_cache_dtype(x, dt) for x in kv)
+            ms = time_ms(lambda: da_kernel.decode_attention(q, kc, vc, last),
+                         reps=50)
+            plain = time_ms(lambda: decode_attention_ref(q, kc, vc, last),
+                            reps=10)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q, kc.float(), vc.float(), attn_mask=live,
+                    enable_gqa=True)
+
+            lib_ms = time_ms(lib, reps=50)
+            want = decode_attention_ref(q, kc, vc, last)
+            name = str(dt)[6:]
+            err = rel_close(f"K6 timed input, S {cs} {name}",
+                            da_kernel.decode_attention(q, kc, vc, last), want)
+            lib_err = float((lib() - want).abs().max())
+            nbytes = 2.0 * kc.numel() * kc.element_size() \
+                + 2.0 * 4 * q.numel()
+            b_ms, b_by = flop_bound(4.0 * pb * phq * cs * pd, nbytes)
+            label = f"S{cs}_{'fp8' if kc.element_size() == 1 else name}"
+            k6[label] = dict(
+                shape=f"q ({pb},{phq},1,{pd}), cache ({pb},{phkv},{cs},{pd}) "
+                      f"{name}", ms=ms, plain_ms=plain, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            log(f"  K6 pixtral decode, cache ({pb},{phkv},{cs},{pd}) {name}, "
+                f"q ({pb},{phq},1,{pd}): {ms:.4f} ms (plain {plain:.4f} ms, "
+                f"SDPA on the cache widened to fp32 {lib_ms:.4f} ms with max "
+                f"|diff| {lib_err:.3g} to plain, bound {b_ms:.5f} ms by "
+                f"{b_by}; {b_ms / ms:.1%} of the bound)")
+            del kc, vc
+        del kv
+    del q
+
     # K5 at falcon-mamba-7b's prefill layer, scan-only and gated (what the
     # model runs), and the yardstick: scan-only K5 and the four torch passes
     # of the gate it replaced, timed in turns.  Bytes: dt and x read (and z),
@@ -3567,7 +3990,9 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                             ("zamba2_residual", b * t, 3584),
                             ("zamba2_decode_residual", b, 3584),
                             ("zamba2_gate", b * t, 7168),
-                            ("zamba2_decode_gate", b, 7168)):
+                            ("zamba2_decode_gate", b, 7168),
+                            ("pixtral_residual", b * 1280, 5120),
+                            ("pixtral_decode_residual", b, 5120)):
         x, s = rand(rows, dd), rand(dd, sd=0.1)
         w = 1.0 + s
         ms = time_ms(lambda: rn_ops.rmsnorm(x, s, 1e-6), reps=50)
@@ -3798,6 +4223,10 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 "launches_zamba2_serve": counts["zamba2_serve"][name],
                 "launches_falcon_train_step": counts["falcon_train"][name],
                 "launches_zamba2_train_step": counts["zamba2_train"][name],
+                "launches_pixtral_serve": counts["pixtral_serve"][name],
+                "launches_pixtral_serve_fp8":
+                    counts["pixtral_serve_fp8"][name],
+                "launches_musicgen_serve": counts["musicgen_serve"][name],
                 "max_abs_err": errs[name],
                 "max_abs_err_bf16": errs[name + "_bf16"], **main,
                 other_label: other}
@@ -3813,7 +4242,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
            "moonshot_decode_residual": k3["moonshot_decode_residual"]}
         | {label: k3[label] for label in (
             "falcon_residual", "falcon_decode_residual", "zamba2_residual",
-            "zamba2_decode_residual", "zamba2_gate", "zamba2_decode_gate")},
+            "zamba2_decode_residual", "zamba2_gate", "zamba2_decode_gate",
+            "pixtral_residual", "pixtral_decode_residual")},
         entry("flash_attention",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention.cu",
@@ -3823,6 +4253,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         | {"also_replaces": ["src/repro/kernels/flash_attention/ops.py:76"],
            "moonshot_global": k4["moonshot_global"],
            "zamba2_shared": k4["zamba2_shared"],
+           "musicgen": k4["musicgen"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
                "global": k4l["global"], "local_window_512": k4l["local"],
@@ -3871,6 +4302,23 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
          "launches_zamba2_train_step":
              counts["zamba2_train"]["selective_scan_bwd"],
          "max_abs_err": errs["selective_scan_bwd"], **k5b},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                   "decode_attention.cu",
+         "replaces": "src/repro/models/layers.py:79 (_masked_attention over "
+                     "the cache at decode, called at :221; plain jnp, no "
+                     "Pallas kernel)",
+         "shape": "q (8,32,1,128), cache (8,8,1312,128) float8_e4m3fn: "
+                  "pixtral-12b's decode on an fp8 cache",
+         "launches": counts["pixtral_serve_fp8"]["decode_attention"],
+         **{f"launches_{path}": counts[path]["decode_attention"]
+            for path in ("pixtral_serve", "musicgen_serve", "serve",
+                         "moe_serve", "zamba2_serve", "falcon_serve")},
+         **{k: v for k, v in k6["S1312_fp8"].items() if k != "shape"},
+         "max_abs_err": errs["decode_attention_fp8"],
+         "max_abs_err_fp32": errs["decode_attention"],
+         "max_abs_err_bf16": errs["decode_attention_bf16"],
+         "by_cache": k6},
     ]
 
 
@@ -3919,7 +4367,7 @@ def main() -> int:
     counts: dict = {}
     log("phase: min-plus kernels vs twins on the card")
     phase_kernels(rng, errs)
-    log("phase: LM kernels (K3, K4) vs plain versions on the card")
+    log("phase: LM kernels (K3, K4, K6) vs plain versions on the card")
     phase_lm_kernels(rng, errs)
     log("phase: LM backward kernels (K4 with L, K4b, K3b, K5b) vs plain "
         "versions")
@@ -4017,6 +4465,30 @@ def main() -> int:
         del trained
         torch.cuda.empty_cache()
         log(f"  {tag} phase: {time.perf_counter() - t0:.1f} s")
+    for arch in FRONTEND["archs"]:
+        tag = "v" if arch.startswith("pixtral") else "u"
+        log(f"phase: ({tag}) frontend serving, {arch} at full width and "
+            f"depth")
+        t0 = time.perf_counter()
+        served = phase_frontend(arch, counts, errs, card, dev)
+        if served["vision"] is not None:
+            profiled(f"({tag}-f) serve {arch}: prefill {FRONTEND['batch']} x "
+                     f"({served['vision'].shape[1]} patches + "
+                     f"{FRONTEND['prompt_len']} tokens) + 4 decode steps, "
+                     f"fp8 cache [{card}]",
+                     lambda: generate(served["cfg"], served["params"],
+                                      served["prompts"], 5,
+                                      served["max_len"],
+                                      vision_embeds=served["vision"],
+                                      cache_dtype=served["cache_dtype"]))
+            decode = decode_steps(served, 4, served["max_len"])
+            decode()                                      # warm-up
+            profiled(f"({tag}-f) the same, 4 decode steps alone [{card}]",
+                     decode)
+            del decode
+        del served
+        torch.cuda.empty_cache()
+        log(f"  ({tag}) phase: {time.perf_counter() - t0:.1f} s")
     log("phase: kernel timing at the paths' shapes")
     entries = phase_timing(rng, counts, errs)
     entries += phase_lm_timing(rng, counts, errs)

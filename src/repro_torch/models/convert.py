@@ -2,9 +2,10 @@
 
 Both keep the same tree: ``embed``, ``final_norm``, ``lm_head`` (absent when
 the embeddings are tied: the head is ``embed.T``), ``blocks/pos{j}/...``
-stacked on a leading block axis, ``rem/rem{j}/...`` unstacked and, in the
-hybrid family, the one ``shared_attn`` block, each applied by its forward
-in the same order.  Leaves travel as numpy arrays
+stacked on a leading block axis, ``rem/rem{j}/...`` unstacked, in the
+hybrid family the one ``shared_attn`` block and, for a vision config, the
+patch projection ``vision_proj``, each applied by its forward in the same
+order.  Leaves travel as numpy arrays
 (the JAX side: ``jax.tree.map(np.asarray, params)``), so this module needs
 neither package's arrays, only their shapes: :func:`param_shapes` lists the
 port's layout on the ``meta`` device without allocating it, which lets a

@@ -8,8 +8,15 @@ on a CPU tensor both take their plain versions.  Under autograd both are
 ``torch.autograd.Function``s whose backward is K3b / K4b on CUDA (the
 plain backward versions on the CPU).  ``impl="ref"`` runs the plain
 PyTorch versions throughout, on either device (the kernel-vs-plain check
-of a whole forward or training step).  Decode attends over the cache with the plain
-masked softmax, as the JAX package does.
+of a whole forward or training step).  Decode attends over the cache through
+K6 (``kernels.decode_attention``) on CUDA, reading the cache in its stored
+dtype, and through the JAX package's plain masked softmax over the cache
+widened to fp32 on the CPU or with ``impl="ref"``.
+
+A KV cache is fp32, bf16 or float8_e4m3fn.  Every write into it casts with
+:func:`to_cache_dtype`, which gives the JAX package's ``astype`` bytes on
+any device and torch version (fp8: round to nearest even, NaN with x's sign
+past 464, where a bare ``.to(torch.float8_e4m3fn)`` may saturate to 448).
 
 The window of a local layer is a Python int (the JAX package may trace it;
 the port's loop over layers is plain Python).
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm
 from ..kernels.rmsnorm.ref import rmsnorm_ref
@@ -29,6 +37,7 @@ from ..kernels.rmsnorm.ref import rmsnorm_ref
 NEG_INF = -1e30
 IMPLS = ("flash", "ref")
 CHUNKED_THRESHOLD = 2048
+CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +58,57 @@ def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
 
 def zeros(shape, dtype, device) -> torch.Tensor:
     return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# cache dtypes
+# ---------------------------------------------------------------------------
+
+def _e4m3fn_codes(x: torch.Tensor) -> torch.Tensor:
+    """The float8_e4m3fn bytes (uint8) of ``x`` as the JAX package's
+    ``astype(jnp.float8_e4m3fn)`` gives them, in integer arithmetic on
+    x's fp32 bits: round to nearest even; |x| past 464 (what rounds above
+    448), infinities and NaN give NaN (0x7f) with x's sign.  Each op is a
+    launch on a host-bound decode step, so they are few."""
+    bits = x.float().contiguous().view(torch.int32)
+    sign = (bits >> 24) & 0x80
+    # |x| clamped at 480 (code 127, NaN) keeps the integer sums in range
+    mag = (bits & 0x7FFFFFFF).clamp_(max=0x43F00000)
+    # |x| >= 2^-6, e4m3's normal range: the fp32 mantissa rounded to 3 bits
+    # to nearest even, then the exponent rebiased from 127 to 7
+    normal = (((mag >> 20) & 1).add_(mag).add_(0x7FFFF) >> 20).sub_(120 << 3)
+    # below 2^-6: multiples of 2^-9 (x 512 is exact), nearest even; 8 is
+    # 2^-6, the smallest normal's code
+    sub = torch.round(mag.view(torch.float32) * 512.0).to(torch.int32)
+    code = torch.where(mag < 0x3C800000, sub, normal).clamp_(max=0x7F)
+    return code.bitwise_or_(sign).to(torch.uint8)
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache dtype exactly as the JAX package's
+    ``astype``: float8_e4m3fn by :func:`_e4m3fn_codes`, fp32 / bf16 by
+    ``.to`` (round to nearest even in both packages)."""
+    if dtype == torch.float8_e4m3fn:
+        return _e4m3fn_codes(x).view(torch.float8_e4m3fn)
+    if dtype not in CACHE_DTYPES:
+        raise ValueError(f"cache dtype must be one of {CACHE_DTYPES}, got "
+                         f"{dtype}")
+    return x.to(dtype)
+
+
+def write_cache(caches: tuple, index: tuple, values: tuple) -> None:
+    """``cache[index] = to_cache_dtype(value, cache.dtype)`` in place for
+    each cache of ``caches`` (one dtype, K and V) and its value.  fp8
+    caches take one cast of the values stacked (half the launches) and are
+    written through uint8 views (plain byte copies on any device)."""
+    dtype = caches[0].dtype
+    if dtype == torch.float8_e4m3fn:
+        codes = to_cache_dtype(torch.stack(values), dtype).view(torch.uint8)
+        for cache, code in zip(caches, codes):
+            cache.view(torch.uint8)[index] = code
+    else:
+        for cache, value in zip(caches, values):
+            cache[index] = to_cache_dtype(value, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +256,9 @@ def attention_apply(
     Decode: T == 1, the new K/V row is written IN PLACE into the cache at
     ``cache_pos % S`` (rolling for windowed layers where S == window) and
     attention runs over the cache; the cache tensors are returned.
-    ``impl``: "flash" = the kernels (K4 for train / prefill attention, K3 for
-    the q / k norms) on CUDA; "ref" = the plain versions throughout.
+    ``impl``: "flash" = the kernels (K4 for train / prefill attention, K6
+    for decode, K3 for the q / k norms) on CUDA; "ref" = the plain versions
+    throughout.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -234,16 +295,12 @@ def attention_apply(
         new_cache = None
     else:
         ck, cv = cache                                 # (B, Hkv, S, hd)
-        s = ck.shape[2]
-        slot = int(cache_pos) % s
-        ck[:, :, slot:slot + 1] = k.to(ck.dtype)
-        cv[:, :, slot:slot + 1] = v.to(cv.dtype)
-        # slot i holds absolute position p = i (mod s), the latest <= cache_pos
-        idx = torch.arange(s, device=x.device)
-        abs_pos = int(cache_pos) - torch.remainder(int(cache_pos) - idx, s)
-        kv_valid = torch.where(abs_pos >= 0, abs_pos, -1)[None, :].expand(b, s)
-        out = _masked_attention(q, ck, cv, causal_from=positions,
-                                kv_valid=kv_valid, window=window)
+        slot = int(cache_pos) % ck.shape[2]
+        index = (slice(None), slice(None), slice(slot, slot + 1))
+        write_cache((ck, cv), index, (k, v))
+        # slot i holds absolute position p = i (mod S), the latest <= pos:
+        # K6 on CUDA, the plain masked softmax on the CPU or with "ref"
+        out = decode_attention(q, ck, cv, int(cache_pos), window, impl)
         new_cache = (ck, cv)
 
     out = out.transpose(1, 2).reshape(b, t, hq * hd)

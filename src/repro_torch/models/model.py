@@ -1,8 +1,14 @@
 """Model assembly: the JAX package's generic decoder stack
-(``models/model.py``) for configs with ``family`` "dense" (gemma3-1b,
-gemma3-27b, granite-8b, qwen1.5-4b), "moe" (moonshot-v1-16b-a3b;
-llama4-maverick once its vision frontend is ported), "ssm"
-(falcon-mamba-7b) or "hybrid" (zamba2-7b), and no frontend.
+(``models/model.py``) for every config of the repo: ``family`` "dense"
+(gemma3-1b, gemma3-27b, granite-8b, qwen1.5-4b), "moe"
+(moonshot-v1-16b-a3b, llama4-maverick), "ssm" (falcon-mamba-7b), "hybrid"
+(zamba2-7b), "vlm" (pixtral-12b) and "audio" (musicgen-large), the last two
+dense stacks.  The frontends are the reference's stubs: a "vision" config
+(pixtral, llama4) takes precomputed patch embeddings ``vision_embeds`` (B,
+Np, d), projects them by ``params["vision_proj"]`` (d, d) and prepends
+them to the token embeddings (early fusion), so prefill and train run over
+Np + S positions; without them it runs text-only.  An "audio" config
+(musicgen) takes its EnCodec token stream as tokens.
 
 Layer weights are stacked on a leading block axis, as in the JAX package:
 ``params["blocks"]["pos{j}"]`` holds the j-th layer of every repetition of
@@ -33,12 +39,19 @@ Modes:
 
 Unlike the JAX package, prefill and decode write the caches IN PLACE (the
 returned caches are the tensors passed in): one full-width cache is then
-never copied per step.  ``impl`` "flash" runs the kernels (K3 RMSNorm, K4
-prefill attention, K5 Mamba1's scan) on CUDA; "ref" the plain versions
-throughout.  In the train modes K3, K4 and K5 are autograd Functions
-(K3b, K4b and K5b backward).  ``remat`` recomputes each repetition of the
-layer pattern in the backward (``torch.utils.checkpoint``,
-non-reentrant), saving only its input, as the JAX package's
+never copied per step.  KV caches are fp32, bf16 or float8_e4m3fn, every
+write cast by ``layers.to_cache_dtype`` (the reference's ``astype``
+bytes); with an fp8 cache an SSM layer's conv state is bf16 and its SSM
+state fp32, as in the reference.  The reference's decode step returns the
+conv state in its arithmetic's dtype (fp32 with fp32 weights), so the
+first decode step widens a narrower conv state in the tree to that dtype,
+as the reference's returned caches carry it.  ``impl`` "flash" runs the
+kernels (K3 RMSNorm, K4 prefill attention, K5 Mamba1's scan, K6 decode
+attention) on CUDA; "ref" the plain versions throughout.  In the train
+modes K3, K4 and K5 are autograd Functions (K3b, K4b and K5b backward).
+``remat`` recomputes each repetition of the layer pattern in the backward
+(``torch.utils.checkpoint``, non-reentrant), saving only its input, as
+the JAX package's
 ``jax.checkpoint(..., nothing_saveable)`` over its scan body; the
 remainder layers and the final norm are not recomputed, as there.
 """
@@ -51,8 +64,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .layers import (IMPLS, attention_apply, dense_init, init_attention,
-                     init_mlp, mlp_apply, rms_norm, rope, zeros)
+from .layers import (CACHE_DTYPES, IMPLS, attention_apply, dense_init,
+                     init_attention, init_mlp, mlp_apply, rms_norm, rope,
+                     write_cache, zeros)
 from . import mamba as M
 from . import moe
 
@@ -60,20 +74,21 @@ __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
            "init_caches", "forward", "check_supported", "MODES"]
 
 Tree = Dict[str, Any]
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+FRONTENDS = (None, "vision", "audio")
 SSM_TYPES = ("mamba1", "mamba2")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.frontend is not None:
+    """Raise NotImplementedError for a family or frontend the port does not
+    know."""
+    if cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP Queue A item 13d)")
+            f"{cfg.name}: frontend {cfg.frontend!r} is not one of "
+            f"{FRONTENDS}")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue A item 13d); the port runs the families {FAMILIES}")
+            f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +168,9 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                        dtype, dev)
+    if cfg.frontend == "vision":
+        params["vision_proj"] = dense_init(generator, cfg.d_model,
+                                           cfg.d_model, dtype, dev)
     params["blocks"] = {
         f"pos{j}": _init_layer(cfg, layer_kind(cfg, j), generator, dtype,
                                dev, (n_blocks,))
@@ -195,15 +213,16 @@ def _index(tree: Tree, i: int) -> Tree:
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None) -> Tree:
     """Zeroed caches: KV (n_blocks, B, Hkv, S, hd) per pattern position
-    and (B, Hkv, S, hd) per remainder layer, S = min(window, max_len) for a
-    local layer and max_len for a global one; for an SSM layer its conv
-    state in ``dtype`` and its SSM state in fp32 (``mamba*_state_shape``),
-    plus a full-length K/V where the shared attention block follows it."""
+    and (B, Hkv, S, hd) per remainder layer in ``dtype`` (fp32, bf16 or
+    float8_e4m3fn), S = min(window, max_len) for a local layer and max_len
+    for a global one; for an SSM layer its conv state in ``dtype`` (bf16
+    for an fp8 cache: the reference keeps fp8 to the K/V buffers) and its
+    SSM state in fp32 (``mamba*_state_shape``), plus a full-length K/V
+    where the shared attention block follows it."""
     check_supported(cfg)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"KV cache dtype {dtype}: only fp32 / bf16 are ported (the fp8 "
-            f"cache is ROADMAP Queue A item 13e)")
+    if dtype not in CACHE_DTYPES:
+        raise ValueError(f"KV cache dtype {dtype}: one of {CACHE_DTYPES}")
+    state_dtype = torch.bfloat16 if dtype == torch.float8_e4m3fn else dtype
     dev = resolve_device(device)
     per = pattern_period(cfg)
     n_blocks, n_rem = divmod(cfg.n_layers, per)
@@ -213,7 +232,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
         if kind["type"] in SSM_TYPES:
             shp = (M.mamba1_state_shape if kind["type"] == "mamba1"
                    else M.mamba2_state_shape)(cfg, batch)
-            cache["conv"] = zeros(lead + shp[0], dtype, dev)
+            cache["conv"] = zeros(lead + shp[0], state_dtype, dev)
             cache["h"] = zeros(lead + shp[1], torch.float32, dev)
             if not kind["shared_attn"]:
                 return cache
@@ -232,26 +251,37 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                     for j in range(n_rem)}}
 
 
+def _widen_conv_states(caches: Tree, dtype: torch.dtype) -> None:
+    """Give every SSM conv state of ``caches`` (in place in the tree) the
+    dtype its decode arithmetic promotes it to with activations of
+    ``dtype``, as the reference's decode step returns it."""
+    for group in caches.values():
+        for cache in group.values():
+            conv = cache.get("conv")
+            if conv is not None:
+                want = torch.promote_types(conv.dtype, dtype)
+                if conv.dtype != want:
+                    cache["conv"] = conv.to(want)
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
 
 def _write_prefill_cache(cache_kv: Tree, k_new: torch.Tensor,
                          v_new: torch.Tensor) -> None:
-    """Fill a KV cache in place from prefill K/V (B, Hkv, S, hd); for a
-    window-sized cache the last S_c positions land at their rolling slots
-    ``pos % S_c``."""
+    """Fill a KV cache in place from prefill K/V (B, Hkv, S, hd), cast as
+    the reference casts; for a window-sized cache the last S_c positions
+    land at their rolling slots ``pos % S_c``."""
     s_c = cache_kv["k"].shape[2]
     s = k_new.shape[2]
     if s >= s_c:
         slots = torch.arange(s - s_c, s, device=k_new.device) % s_c
-        cache_kv["k"][:, :, slots] = k_new[:, :, s - s_c:].to(
-            cache_kv["k"].dtype)
-        cache_kv["v"][:, :, slots] = v_new[:, :, s - s_c:].to(
-            cache_kv["v"].dtype)
+        index = (slice(None), slice(None), slots)
+        k_new, v_new = k_new[:, :, s - s_c:], v_new[:, :, s - s_c:]
     else:
-        cache_kv["k"][:, :, :s] = k_new.to(cache_kv["k"].dtype)
-        cache_kv["v"][:, :, :s] = v_new.to(cache_kv["v"].dtype)
+        index = (slice(None), slice(None), slice(0, s))
+    write_cache((cache_kv["k"], cache_kv["v"]), index, (k_new, v_new))
 
 
 def _prefill_kv(cfg: ArchConfig, ap: Tree, h: torch.Tensor,
@@ -349,9 +379,14 @@ TRAIN_MODES = ("train", "train_hidden")
 def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             mode: str = "train", caches: Optional[Tree] = None,
             pos: Optional[int] = None, impl: str = "flash",
-            remat: bool = False):
+            remat: bool = False,
+            vision_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) integer (S = 1 for decode, at absolute position
-    ``pos``).  See the module docstring for what each mode returns."""
+    ``pos``).  ``vision_embeds`` (B, Np, d), for a vision config in the
+    train and prefill modes, are projected and prepended to the tokens'
+    embeddings: positions then run over Np + S, and decode continues at
+    ``pos`` >= Np + S.  See the module docstring for what each mode
+    returns."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode}")
@@ -370,11 +405,20 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     if cfg.qk_norm:                          # gemma3 scales embeddings
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if cfg.frontend == "vision" and vision_embeds is not None:
+        if mode == "decode":
+            raise ValueError("vision_embeds go to prefill or train, not to "
+                             "a decode step")
+        proj = params["vision_proj"]
+        dt = torch.promote_types(vision_embeds.dtype, proj.dtype)
+        vis = vision_embeds.to(dt) @ proj.to(dt)     # jnp's promotion
+        x = torch.cat([vis.to(x.dtype), x], dim=1)   # early fusion
     s = x.shape[1]
     if mode == "decode":
         if pos is None:
             raise ValueError("decode needs pos")
         cache_pos = int(pos)
+        _widen_conv_states(caches, x.dtype)
         positions = torch.tensor([cache_pos], dtype=torch.int32,
                                  device=x.device)
     else:

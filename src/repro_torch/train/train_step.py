@@ -108,17 +108,25 @@ def loss_fn(cfg: ArchConfig, tc: TrainConfig, params: Tree,
             batch: Dict[str, torch.Tensor], impl: str = "flash"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {"ce", "aux", "n_tok"}) of ``batch`` ({"tokens",
-    "labels"}, (B, S) integers) under ``params``."""
+    "labels"}, (B, S) integers, and for a vision config optionally
+    "vision_embeds" (B, Np, d)) under ``params``.  The patch positions
+    carry no loss: their labels are padded with -1, as the reference
+    pads them."""
     labels = batch["labels"]
+    vis = batch.get("vision_embeds") if cfg.frontend == "vision" else None
+    if vis is not None:
+        pad = labels.new_full((labels.shape[0], vis.shape[1]), -1)
+        labels = torch.cat([pad, labels], dim=1)
     if tc.ce_chunk:
         x, head, aux = Mdl.forward(cfg, params, batch["tokens"],
                                    mode="train_hidden", remat=tc.remat,
-                                   impl=impl)
+                                   impl=impl, vision_embeds=vis)
         ce, n_tok = chunked_cross_entropy(x, head, labels, tc.ce_chunk,
                                           tc.z_weight)
     else:
         logits, aux = Mdl.forward(cfg, params, batch["tokens"], mode="train",
-                                  remat=tc.remat, impl=impl)
+                                  remat=tc.remat, impl=impl,
+                                  vision_embeds=vis)
         ce, n_tok = cross_entropy(logits, labels, tc.z_weight)
     total = ce + tc.aux_weight * aux
     return total, {"ce": ce, "aux": aux, "n_tok": n_tok}

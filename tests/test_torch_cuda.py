@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card: the
 min-plus kernels K1/K2 bitwise, RMSNorm (K3) and flash attention (K4) and
-their gradients (K3b, K4b), and Mamba1's selective scan (K5), within the
-tolerances stated at their tests; the MoE layer's dispatch on the card
+their gradients (K3b, K4b), Mamba1's selective scan (K5) and decode
+attention over a KV cache (K6), within the tolerances stated at their
+tests; the MoE layer's dispatch on the card
 against the CPU port and against itself (bitwise, forward and backward);
 and one Mamba1 and one Mamba2 layer on the card against the CPU port.
 
@@ -1425,3 +1426,156 @@ def test_ssm_loss_and_grads_on_card_match_cpu(fp32_matmul, name):
         assert bool(u.any())
         torch.testing.assert_close(u.cpu(), v, rtol=1e-4,
                                    atol=1e-4 * float(v.abs().max()))
+
+
+# --- K6: decode attention over a KV cache in its stored dtype ---------------
+
+CACHE_DTYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 5])
+@pytest.mark.parametrize("dtype", CACHE_DTYPES, ids=["fp32", "bf16", "fp8"])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
+def test_decode_attention_matches_plain(cuda, d, dtype, g):
+    """K6 against its plain twin for every D instance (EPL 2, 4, 4, 8),
+    cache dtype and GQA group, S in {1, 17, 512, 1312}, global and local
+    (window 16), a cache partly written, full and wrapped: within 1e-5 x
+    max |want| (fp32 online against dense softmax), and two calls
+    bitwise (a fixed merge order, no atomics)."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import to_cache_dtype
+
+    rng = np.random.default_rng(d * 10 + g)
+    b, hkv = 3, 2
+    for s in (1, 17, 512, 1312):
+        q = torch.from_numpy(rng.normal(0, 1, (b, hkv * g, 1, d))
+                             .astype(np.float32)).to(cuda)
+        k, v = (to_cache_dtype(torch.from_numpy(
+            rng.normal(0, 2, (b, hkv, s, d)).astype(np.float32)).to(cuda),
+            dtype) for _ in range(2))
+        for window in (None, 16):
+            for pos in sorted({0, s // 2, s - 1, s + 5}):
+                before = da.launches["decode_attention"]
+                got = da.decode_attention(q, k, v, pos, window)
+                assert da.launches["decode_attention"] == before + 1
+                want = decode_attention_ref(q, k, v, pos, window)
+                assert got.dtype == torch.float32
+                assert got.shape == (b, hkv * g, 1, d)
+                err = float((got - want).abs().max())
+                assert err <= 1e-5 * float(want.abs().max()), \
+                    (s, window, pos, err)
+                assert torch.equal(got, da.decode_attention(q, k, v, pos,
+                                                            window))
+
+
+def test_decode_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.decode_attention import kernel as da
+
+    q = torch.zeros((1, 6, 1, 64), device=cuda)
+    k = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="Hq / Hkv"):
+        da.decode_attention(q, k, k, 3)                 # g = 3
+    with pytest.raises(ValueError, match="contiguous"):
+        kt = torch.zeros((1, 2, 64, 8), device=cuda).transpose(2, 3)
+        da.decode_attention(q[:, :4], kt, kt, 3)
+    with pytest.raises(ValueError, match="fp32, bf16"):
+        kh = k.half()
+        da.decode_attention(q[:, :4], kh, kh, 3)
+    with pytest.raises(ValueError, match="D <= 256"):
+        qq = torch.zeros((1, 2, 1, 320), device=cuda)
+        kk = torch.zeros((1, 2, 8, 320), device=cuda)
+        da.decode_attention(qq, kk, kk, 3)
+
+
+def test_fp8_cast_on_card_is_bitwise_the_cpu_cast(cuda):
+    """``layers.to_cache_dtype`` on a CUDA tensor gives the CPU's bytes
+    (and so the JAX package's, ``tests/test_torch_fp8_cache.py``) over
+    normals at several scales, every 4099th fp32 bit pattern and the
+    values around +-464, 448 and the subnormals."""
+    from repro_torch.models.layers import to_cache_dtype
+
+    rng = np.random.default_rng(0)
+    base = np.array([464, 448, 480, 2.0 ** -6, 2.0 ** -9, 2.0 ** -10],
+                    np.float32)
+    near = (base.view(np.int32)[:, None] + np.arange(-64, 65)[None]) \
+        .astype(np.int32).view(np.float32).ravel()
+    x = np.concatenate([near, -near, *[rng.normal(0, s, 50000).astype(
+        np.float32) for s in (1e-3, 1.0, 600.0)], np.arange(
+        0, 2 ** 32, 4099, dtype=np.uint64).astype(np.uint32)
+        .view(np.float32)])
+    t = torch.from_numpy(x)
+    got = to_cache_dtype(t.to(cuda), torch.float8_e4m3fn).view(torch.uint8)
+    want = to_cache_dtype(t, torch.float8_e4m3fn).view(torch.uint8)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name,cache", [
+    ("pixtral-12b", torch.float8_e4m3fn), ("pixtral-12b", torch.float32),
+    ("musicgen-large", torch.float32), ("gemma3-1b", torch.bfloat16),
+    ("zamba2-7b", torch.float8_e4m3fn)])
+def test_generate_on_card_matches_cpu(fp32_matmul, name, cache):
+    """Smoke serving on the card (K3, K4, K6; the vision stub's patches
+    for pixtral) against the CPU port on the same cache dtype: an fp8 or
+    bf16 cache within one step of its type (a value a last bit from a
+    rounding midpoint rounds apart when the fp32 sums differ in order);
+    prefill and every decode step's logits and the fp32 leaves of the
+    caches within rtol = atol = 1e-4, 1e-3 beside an fp8 cache (one such
+    code an e4m3 step, 1/8 of its value, away moves zamba2's smoke logits
+    and later conv states by ~1e-4: 1.21e-4 and 1.42e-4 measured); and K6
+    launched once per attention layer (or shared call) per decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.models import model as TM
+    from repro_torch.models.convert import flatten
+    from repro_torch.launch.serve import patch_embeddings
+
+    cuda = fp32_matmul
+    cfg = get_arch(name).smoke()
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (2, 20)))
+    vis = patch_embeddings(cfg, 2, "cpu") if cfg.frontend == "vision" \
+        else None
+    n_vis = 0 if vis is None else vis.shape[1]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        caches = TM.init_caches(cfg, 2, n_vis + 26, cache, device=dev)
+        before = da.launches["decode_attention"]
+        logits, caches, _ = TM.forward(
+            cfg, p, toks[:, :16].to(dev), mode="prefill", caches=caches,
+            vision_embeds=None if vis is None else vis.to(dev))
+        steps = [logits.cpu()]
+        for i in range(16, 20):
+            logits, caches = TM.forward(cfg, p, toks[:, i:i + 1].to(dev),
+                                        mode="decode", caches=caches,
+                                        pos=n_vis + i)
+            steps.append(logits.cpu())
+        out[str(dev)] = (steps, flatten(caches),
+                         da.launches["decode_attention"] - before)
+    cpu, card = out["cpu"], out[str(cuda)]
+    per = TM.pattern_period(cfg)
+    attn = sum(TM.layer_kind(cfg, i % per).get("shared_attn", True)
+               for i in range(cfg.n_layers))
+    assert cpu[2] == 0 and card[2] == 4 * attn
+    tol = 1e-3 if cache == torch.float8_e4m3fn else 1e-4
+    for g, w in zip(card[0], cpu[0]):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    for key, w in cpu[1].items():
+        g = card[1][key].cpu()
+        assert g.dtype == w.dtype, key
+        if w.dtype == torch.float8_e4m3fn:
+            diff = g.view(torch.uint8).short() - w.view(torch.uint8).short()
+        elif w.dtype == torch.bfloat16:
+            diff = g.view(torch.int16).int() - w.view(torch.int16).int()
+        else:
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            continue
+        assert int(diff.abs().max()) <= 1, key
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

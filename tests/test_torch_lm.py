@@ -361,10 +361,22 @@ def test_forward_impls_agree_and_unported_families_raise():
     a, _ = TM.forward(tcfg, tp, toks, impl="flash")
     b, _ = TM.forward(tcfg, tp, toks, impl="ref")
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=ATOL)
+    # the frontend configs, refused before their port, initialise and run
+    # a smoke forward, kernel and plain paths alike, with patch embeddings
+    # where the config has a vision frontend
     for name in ("llama4-maverick-400b-a17b", "musicgen-large",
                  "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_params(get_arch(name).smoke(), device="cpu")
+        cfg = get_arch(name).smoke()
+        params = TM.init_params(cfg, device="cpu")
+        vis = torch.from_numpy(np.random.default_rng(6).normal(
+            0, 1, (2, cfg.n_patches, cfg.d_model)).astype(np.float32)) \
+            if cfg.frontend == "vision" else None
+        a, _ = TM.forward(cfg, params, toks, impl="flash", vision_embeds=vis)
+        b, _ = TM.forward(cfg, params, toks, impl="ref", vision_embeds=vis)
+        assert a.shape == (2, 30 + (0 if vis is None else cfg.n_patches),
+                           cfg.vocab)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                   atol=ATOL)
     for name in ("falcon-mamba-7b", "zamba2-7b"):
         TM.check_supported(get_arch(name))
 

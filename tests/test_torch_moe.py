@@ -365,11 +365,25 @@ def test_params_from_jax_keeps_the_router_fp32():
 
 
 def test_unported_families_and_frontends_still_raise():
+    """The frontend configs, refused before their port, now initialise and
+    run a smoke forward (their parity: ``tests/test_torch_frontend.py``);
+    an unknown family or frontend still raises."""
+    toks = torch.from_numpy(np.random.default_rng(4).integers(1, 256, (2, 6)))
     for name in (LLAMA4, "musicgen-large", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="item 13d"):
-            TM.init_params(get_arch(name).smoke(), device="meta")
+        cfg = get_arch(name).smoke()
+        params = TM.init_params(cfg, device="cpu")
+        assert ("vision_proj" in params) == (cfg.frontend == "vision")
+        vis = torch.zeros((2, cfg.n_patches, cfg.d_model)) \
+            if cfg.frontend == "vision" else None
+        logits, _ = TM.forward(cfg, params, toks, vision_embeds=vis)
+        extra = 0 if vis is None else cfg.n_patches
+        assert logits.shape == (2, 6 + extra, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
     for name in (MOONSHOT, "falcon-mamba-7b", "zamba2-7b"):
         TM.check_supported(get_arch(name))
+    for bad in (dict(family="diffusion"), dict(frontend="video")):
+        with pytest.raises(NotImplementedError):
+            TM.check_supported(dataclasses.replace(get_arch(MOONSHOT), **bad))
 
 
 # --- CLIs --------------------------------------------------------------------
