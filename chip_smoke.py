@@ -1993,15 +1993,28 @@ FLASH_CASES = [   # the JAX package's kernel test cases, then the served shapes
          window=None),                                  # moonshot prefill
     dict(b=8, hq=32, hkv=32, tq=1024, tk=1024, d=112, causal=True,
          window=None),                                  # zamba2's shared block
+    # the tensor-core instances' edges: Tq / Tk one past a query tile (128)
+    # and one short of a KV tile (64), D = 100 and 127, a window ending
+    # inside a KV tile, rows past the window's reach (fully masked)
+    dict(b=2, hq=8, hkv=2, tq=129, tk=129, d=64, causal=True, window=None),
+    dict(b=1, hq=4, hkv=4, tq=129, tk=63, d=112, causal=False, window=None),
+    dict(b=2, hq=4, hkv=1, tq=300, tk=300, d=100, causal=True, window=90),
+    dict(b=1, hq=2, hkv=2, tq=200, tk=40, d=127, causal=True, window=20),
+    dict(b=8, hq=32, hkv=32, tq=1024, tk=1024, d=64, causal=True,
+         window=None),                                  # musicgen
+    dict(b=8, hq=32, hkv=8, tq=1280, tk=1280, d=128, causal=True,
+         window=None),                                  # pixtral
 ]
 
 
 def phase_lm_kernels(rng, errs: dict) -> None:
     """K4 and K3 against their plain versions on the card, fp32 and bf16.
     K4: fp32 within 2e-5, bf16 within 3e-2 (the JAX kernel tests' own
-    tolerances: online against dense softmax).  K3: fp32 within
-    1e-6 x max(1, |want|) (1/sqrtf against torch's CUDA rsqrt, summed in
-    another order), bf16 within one bf16 ulp."""
+    tolerances: online against dense softmax), and K4's fp32 output at
+    moonshot's and musicgen's layers leaning from float64 by at most 5e-6
+    (its tensor-core accumulators).  K3: fp32 within 1e-6 x max(1, |want|)
+    (1/sqrtf against torch's CUDA rsqrt, summed in another order), bf16
+    within one bf16 ulp."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2031,6 +2044,21 @@ def phase_lm_kernels(rng, errs: dict) -> None:
                                             window=c["window"]),
                 attention_ref(q, k, v, causal=c["causal"],
                               window=c["window"]), tol))
+            del q, k, v
+    # the tensor-core instances' fp32 accumulators must not drift toward
+    # zero: the output's lean from float64 at moonshot's and musicgen's
+    # layers, |sum(got exact) / sum(exact^2) - 1| <= 5e-6
+    for tag, h, d in (("moonshot", 16, 128), ("musicgen", 32, 64)):
+        q, k, v = (rand((8, h, 1024, d), torch.float32) for _ in range(3))
+        got = fa_ops.flash_attention(q, k, v).double()
+        exact = attention_ref(q.double(), k.double(), v.double())
+        lean = float((got * exact).sum() / (exact * exact).sum() - 1.0)
+        log(f"  K4 {tag} (8,{h},1024,{d}) fp32: lean from float64 "
+            f"{lean:+.2e}")
+        if abs(lean) > 5e-6:
+            raise AssertionError(f"K4 {tag}: leans {lean:+.2e} from the "
+                                 f"float64 output")
+        del q, k, v, got, exact
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
         key = "rmsnorm" + ("" if dt == torch.float32 else "_bf16")
@@ -2040,7 +2068,9 @@ def phase_lm_kernels(rng, errs: dict) -> None:
                              (8 * 1024, 2048, 0), (8, 2048, 0),
                              (8 * 1024, 4096, 0), (8, 4096, 0),
                              (8 * 1024, 3584, 0), (8, 3584, 0),
-                             (8 * 1024, 7168, 0), (8, 7168, 0)):
+                             (8 * 1024, 7168, 0), (8, 7168, 0),
+                             (8, 5120, 0), (10 * 1024, 5120, 0),
+                             (1, 2056, 0), (33, 2056, 0), (9, 5120, 1)):
             # off = 1: rows one element off a 16-byte boundary
             x = rand((rows * d + off,), dt, 2.0)[off:].view(rows, d)
             s = rand((d,), dt, 0.1)
@@ -3763,6 +3793,15 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)) \
             .to(dev)
 
+    def k4_bounds(pairs: float, dd: int, nbytes: float) -> dict:
+        """K4's bound as fp32 FMAs on the CUDA cores and, beside it, as
+        3xTF32 on the tensor cores (three TF32 products a product): 2 D
+        multiply-adds a live score pair."""
+        b_ms, b_by = flop_bound(4.0 * pairs * dd, nbytes)
+        tc_ms, tc_by = flop_bound(12.0 * pairs * dd, nbytes, TF32_FLOP_PER_S)
+        return dict(bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
+                    bound_by_3xtf32=tc_by)
+
     q, k, v = rand(b, hq, t, d), rand(b, hkv, t, d), rand(b, hkv, t, d)
     pos = torch.arange(t, device=dev)
     k4 = {}
@@ -3789,77 +3828,48 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 q, k, v, window=window), want, 2e-5))
         lib_err = float((lib() - want).abs().max())
         pairs = float(mask.sum()) * b * hq
-        b_ms, b_by = flop_bound(4.0 * pairs * d,
-                                4.0 * (2 * q.numel() + k.numel() + v.numel()))
-        k4[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by)
-        log(f"  K4 {label} layer ({b},{hq},{t},{d}) Hkv {hkv} fp32: "
-            f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms with "
-            f"max |diff| {lib_err:.3g} to plain, bound {b_ms:.4f} ms by "
-            f"{b_by})")
+        bnd = k4_bounds(pairs, d,
+                        4.0 * (2 * q.numel() + k.numel() + v.numel()))
+        k4[label] = dict(instance=fa_kernel.instance(d), ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, **bnd)
+        log(f"  K4 {label} layer ({b},{hq},{t},{d}) Hkv {hkv} fp32, instance"
+            f" {fa_kernel.instance(d)}: {ms:.4f} ms (plain {plain:.3f} ms, "
+            f"SDPA {lib_ms:.4f} ms with max |diff| {lib_err:.3g} to plain, "
+            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} as fp32, "
+            f"{bnd['bound_ms_3xtf32']:.4f} ms as 3xTF32)")
 
-    # (m-e) K4 at the MoE serve path's shape: D = 128, Hq = Hkv = 16
-    mh, md = 16, 128
-    q, k, v = (rand(b, mh, t, md) for _ in range(3))
-    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
-    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=20)
-    want = attention_ref(q, k, v)
-    errs["flash_attention"] = max(errs["flash_attention"], check_close(
-        "K4 timed input, moonshot global", fa_ops.flash_attention(q, k, v),
-        want, 2e-5))
-    pairs = t * (t + 1) / 2 * b * mh
-    b_ms, b_by = flop_bound(4.0 * pairs * md, 4.0 * 4 * q.numel())
-    k4["moonshot_global"] = dict(
-        shape=f"({b},{mh},{t},{md}) Hkv {mh} fp32, causal (global)", ms=ms,
-        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"  K4 moonshot layer ({b},{mh},{t},{md}) Hkv {mh} fp32: {ms:.4f} ms"
-        f" (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"by {b_by})")
-
-    # K4 at zamba2-7b's shared attention: D = 112, Hq = Hkv = 32
-    zh, zd = 32, 112
-    q, k, v = (rand(b, zh, t, zd) for _ in range(3))
-    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
-    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=20)
-    want = attention_ref(q, k, v)
-    errs["flash_attention"] = max(errs["flash_attention"], check_close(
-        "K4 timed input, zamba2 shared block", fa_ops.flash_attention(
-            q, k, v), want, 2e-5))
-    pairs = t * (t + 1) / 2 * b * zh
-    b_ms, b_by = flop_bound(4.0 * pairs * zd, 4.0 * 4 * q.numel())
-    k4["zamba2_shared"] = dict(
-        shape=f"({b},{zh},{t},{zd}) Hkv {zh} fp32, causal (global)", ms=ms,
-        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"  K4 zamba2 shared block ({b},{zh},{t},{zd}) Hkv {zh} fp32: "
-        f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by})")
-    del q, k, v, want
-
-    # K4 at musicgen-large's prefill layer: D = 64, Hq = Hkv = 32, through
-    # the D <= 128 instance
-    uh, ud = 32, 64
-    q, k, v = (rand(b, uh, t, ud) for _ in range(3))
-    ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
-    plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=20)
-    want = attention_ref(q, k, v)
-    errs["flash_attention"] = max(errs["flash_attention"], check_close(
-        "K4 timed input, musicgen", fa_ops.flash_attention(q, k, v), want,
-        2e-5))
-    pairs = t * (t + 1) / 2 * b * uh
-    b_ms, b_by = flop_bound(4.0 * pairs * ud, 4.0 * 4 * q.numel())
-    k4["musicgen"] = dict(
-        shape=f"({b},{uh},{t},{ud}) Hkv {uh} fp32, causal (global)", ms=ms,
-        plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"  K4 musicgen layer ({b},{uh},{t},{ud}) Hkv {uh} fp32: {ms:.4f} ms "
-        f"(plain {plain:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"by {b_by})")
-    del q, k, v, want
+    # K4 at the other served prefill layers, through its tensor-core
+    # instances: moonshot-v1-16b-a3b (m-e), zamba2-7b's shared block,
+    # musicgen-large and pixtral-12b (GQA 4:1, 256 patches + 1024 tokens)
+    for key, tag, heads, kv_heads, tt, dd in (
+            ("moonshot_global", "moonshot global", 16, 16, t, 128),
+            ("zamba2_shared", "zamba2 shared block", 32, 32, t, 112),
+            ("musicgen", "musicgen", 32, 32, t, 64),
+            ("pixtral", "pixtral", 32, 8, 1280, 128)):
+        q = rand(b, heads, tt, dd)
+        k, v = rand(b, kv_heads, tt, dd), rand(b, kv_heads, tt, dd)
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
+        plain = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=heads != kv_heads), reps=20)
+        want = attention_ref(q, k, v)
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            f"K4 timed input, {tag}", fa_ops.flash_attention(q, k, v), want,
+            2e-5))
+        pairs = tt * (tt + 1) / 2 * b * heads
+        bnd = k4_bounds(pairs, dd, 4.0 * (2 * q.numel() + k.numel()
+                                          + v.numel()))
+        k4[key] = dict(
+            shape=f"({b},{heads},{tt},{dd}) Hkv {kv_heads} fp32, causal "
+                  f"(global)", instance=fa_kernel.instance(dd), ms=ms,
+            plain_ms=plain, library_ms=lib_ms, **bnd)
+        log(f"  K4 {tag} layer ({b},{heads},{tt},{dd}) Hkv {kv_heads} fp32,"
+            f" instance {fa_kernel.instance(dd)}: {ms:.4f} ms (plain "
+            f"{plain:.3f} ms, SDPA {lib_ms:.4f} ms, {ms / lib_ms:.3f}x; bound"
+            f" {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} as fp32 on the "
+            f"CUDA cores, {bnd['bound_ms_3xtf32']:.4f} ms as 3xTF32 on the "
+            f"tensor cores: {bnd['bound_ms_3xtf32'] / ms:.1%})")
+        del q, k, v, want
 
     # K6 at pixtral-12b's decode: q (8, 32, 1, 128), Hkv 8, every slot of
     # an S-slot cache live (pos = S - 1), in each cache dtype.  Bound: the
@@ -4003,12 +4013,14 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             rmsnorm_ref(x, s, 1e-6), 1e-6, rel=True))
         b_ms, b_by = flop_bound(4.0 * x.numel(),
                                 4.0 * (2 * x.numel() + dd))
-        k3[label] = dict(shape=f"({rows}, {dd}) fp32", ms=ms,
-                         plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by)
-        log(f"  K3 {label} ({rows}, {dd}) fp32: {ms:.4f} ms (plain "
-            f"{plain:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.5f} "
-            f"ms by {b_by})")
+        kind, nv = rn_kernel.variant(x, s)
+        k3[label] = dict(shape=f"({rows}, {dd}) fp32", variant=kind, nv=nv,
+                         ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log(f"  K3 {label} ({rows}, {dd}) fp32, {kind} nv {nv}: {ms:.4f} ms"
+            f" (plain {plain:.4f} ms, F.rms_norm {lib_ms:.4f} ms, "
+            f"{ms / lib_ms:.3f}x; bound {b_ms:.5f} ms by {b_by}: "
+            f"{b_ms / ms:.1%})")
 
     # the backward kernels at the training shapes
     bt = TRAIN["batch"]
@@ -4050,11 +4062,12 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                 attention_bwd_ref(q, k, v, out, lse, do,
                                                   **kw))))
         pairs = float(mask.sum()) * bt * hq
-        lb_ms, lb_by = flop_bound(4.0 * pairs * d, 4.0 * (
-            2 * q.numel() + k.numel() + v.numel() + lse.numel()))
-        k4l[label] = dict(ms=ms_l, bound_ms=lb_ms, bound_by=lb_by)
+        k4l[label] = dict(ms=ms_l, **k4_bounds(pairs, d, 4.0 * (
+            2 * q.numel() + k.numel() + v.numel() + lse.numel())))
         log(f"  K4 with L, {label} layer ({bt},{hq},{t},{d}) Hkv {hkv} fp32:"
-            f" {ms_l:.4f} ms (bound {lb_ms:.4f} ms by {lb_by})")
+            f" {ms_l:.4f} ms (bound {k4l[label]['bound_ms']:.4f} ms by "
+            f"{k4l[label]['bound_by']}, 3xTF32 "
+            f"{k4l[label]['bound_ms_3xtf32']:.4f} ms)")
         # S, dP, dV, dQ, dK: 5 D FMAs a live pair; q, k, v, o, dO and L
         # read once, dq, dk, dv and delta written once.  Two bounds: fp32 on
         # the CUDA cores, and the route K4b takes, 3xTF32 on the tensor cores
@@ -4072,7 +4085,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
 
     # K4b at moonshot-v1-16b-a3b's training shape (D = 128, Hq = Hkv = 16)
     # and zamba2-7b's shared block (D = 112, Hq = Hkv = 32), with K4's L
-    for label, heads, hd in (("moonshot", mh, md), ("zamba2", zh, zd)):
+    for label, heads, hd in (("moonshot", 16, 128), ("zamba2", 32, 112)):
         q, k, v, do = (rand(bt, heads, t, hd) for _ in range(4))
         kw = dict(scale=hd ** -0.5, causal=True, window=None)
         out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
@@ -4103,20 +4116,19 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         b_ms, b_by = flop_bound(10.0 * pairs * hd, nbytes)
         tc_ms, tc_by = flop_bound(30.0 * pairs * hd, nbytes,
                                   TF32_FLOP_PER_S)
-        lb_ms, lb_by = flop_bound(4.0 * pairs * hd, 4.0 * (
-            4 * q.numel() + lse.numel()))
+        lb = k4_bounds(pairs, hd, 4.0 * (4 * q.numel() + lse.numel()))
         shape_s = f"({bt},{heads},{t},{hd}) Hkv {heads} fp32, causal (global)"
         k4b[f"{label}_train"] = dict(
             shape=shape_s, ms=ms, plain_ms=plain, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
             bound_by_3xtf32=tc_by)
-        k4l[label] = dict(shape=shape_s, ms=ms_l, bound_ms=lb_ms,
-                          bound_by=lb_by)
+        k4l[label] = dict(shape=shape_s, ms=ms_l, **lb)
         log(f"  K4b {label} layer ({bt},{heads},{t},{hd}) Hkv {heads} fp32: "
             f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA backward {lib_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, "
             f"{tc_ms:.4f} ms by {tc_by} as 3xTF32 on the tensor cores); K4 "
-            f"with L {ms_l:.4f} ms (bound {lb_ms:.4f} ms by {lb_by})")
+            f"with L {ms_l:.4f} ms (bound {lb['bound_ms']:.4f} ms by "
+            f"{lb['bound_by']}, 3xTF32 {lb['bound_ms_3xtf32']:.4f} ms)")
         del q, k, v, do, out, lse, qg, kg, vg
 
     k3b = {}
@@ -4253,7 +4265,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         | {"also_replaces": ["src/repro/kernels/flash_attention/ops.py:76"],
            "moonshot_global": k4["moonshot_global"],
            "zamba2_shared": k4["zamba2_shared"],
-           "musicgen": k4["musicgen"],
+           "musicgen": k4["musicgen"], "pixtral": k4["pixtral"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
                "global": k4l["global"], "local_window_512": k4l["local"],

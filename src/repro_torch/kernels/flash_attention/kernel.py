@@ -9,11 +9,14 @@ tensors and launch the kernels for CUDA tensors -- or raise: there is no
 fallback.  They take q, k, v (and o, dO) with any strides but a contiguous
 last dim (the model hands them transposed views), pad nothing (the kernels
 mask ragged T and D), allocate contiguous outputs and count launches in
-:data:`launches`.  K4 runs fp32 FMAs on the CUDA cores; K4b runs every
-product on the tensor cores in 3xTF32 (fp32 accuracy), as a delta
-pre-pass, one launch of dK / dV and dQ blocks, and, when Hq > Hkv, a sum
-of per-query-head fp32 partials that the wrapper allocates (2 x B Hq Tk D
-floats); one count per call of its kernels.
+:data:`launches`.  K4 has three instances, chosen by :func:`instance` from
+D alone before the launch (the source mirrors the choice and refuses
+another): at D <= 64 and D <= 128 every product runs on the tensor cores
+in 3xTF32 (fp32 accuracy), 128 query rows a block; at D <= 256 fp32 FMAs
+on the CUDA cores.  K4b runs every product on the tensor cores in 3xTF32,
+as a delta pre-pass, one launch of dK / dV and dQ blocks, and, when Hq >
+Hkv, a sum of per-query-head fp32 partials that the wrapper allocates (2 x
+B Hq Tk D floats); one count per call of its kernels.
 """
 from __future__ import annotations
 
@@ -25,22 +28,36 @@ import torch
 from .._build import KernelFamily
 from .ref import attention_bwd_ref, attention_fwd_ref
 
-__all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "flash_attention",
-           "flash_attention_bwd"]
+__all__ = ["SOURCES", "FAMILY", "D_MAX", "INSTANCES", "launches",
+           "instance", "flash_attention", "flash_attention_bwd"]
 
 SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu"}
 D_MAX = 256
+# K4's instances (their codes in flash_attention.cu) and the largest D each
+# takes; the tensor-core instances' query rows a block and keys a K / V tile
+INSTANCES = ("tc64", "tc128", "simt256")
+INSTANCE_D = {"tc64": 64, "tc128": 128, "simt256": D_MAX}
+TC_BQ, TC_BKV = 128, 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
-    {"flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+    {"flash_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
      + [_L] * 12 + [_F, _I, _I, _P],
      "flash_attention_bwd": [_I] + [_P] * 12 + [_I] * 6 + [_L] * 15
      + [_F, _I, _I, _P]})
 launches = FAMILY.launches
+
+
+def instance(d: int) -> str:
+    """The K4 instance that takes head width ``d`` (1 <= d <= D_MAX): the
+    first of :data:`INSTANCES` whose width holds it."""
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"flash_attention supports 1 <= D <= {D_MAX}, got "
+                         f"{d}")
+    return next(name for name in INSTANCES if d <= INSTANCE_D[name])
 
 
 def _check(q, k, v, window) -> None:
@@ -96,8 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = FAMILY.fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(),
+        err = fn(_DTYPE_CODE[q.dtype], INSTANCES.index(instance(d)),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), b, hq, hkv, tq, tk,
                  d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], float(scale), int(causal),

@@ -14,23 +14,36 @@
 // and not its 3.35 TB/s, would be the limit.  So the only levers are the
 // bytes in flight and the bytes moved.
 //
-// Design: one warp per row, 8 rows per 256-thread block, no shared memory
-// and no block barrier.  In the main variant ("warp", d <= D_MAX) each lane
-// issues all of its 16-byte loads of the row (4 fp32 or 8 bf16 each; NV of
-// them, a template parameter the wrapper picks from d) before it reduces:
-// the row then stays in registers, so device memory is read once and
-// written once, and a warp keeps NV x 512 bytes in flight.  The sum of
-// squares is a warp-shuffle butterfly in fp32.  Two variants of the same
-// entry point, chosen by the wrapper from shape and alignment before the
-// launch, take what the main one does not:
-//   "loop"   d > D_MAX, 16-byte aligned: two strided passes of 16-byte loads
-//            over the row (the second reads it again from L2);
+// Design: four variants of one entry point, chosen by the wrapper
+// (kernel.variant) from (rows, d, dtype, alignment) before the launch and
+// refused here when they do not fit.  The first two keep the row in
+// registers, so that device memory is read once and written once:
+//   "warp"   d <= D_MAX, rows enough to fill the card: one warp per row, 8
+//            rows per 256-thread block, no barrier.  Each lane issues all
+//            of its 16-byte loads of the row (4 fp32 or 8 bf16 each; NV of
+//            them, a template parameter the wrapper picks from d) before it
+//            reduces, so a warp keeps NV x 512 bytes in flight.  The sum of
+//            squares is a warp-shuffle butterfly in fp32.
+//   "block"  d > D_MAX, or rows too few to fill the card with a warp a row:
+//            one block of W = ceil(d / (EPV x 32 NV)) warps per row (W <=
+//            32), NV <= 8 16-byte vectors a lane, kept as loaded (4 words
+//            of 16 bytes, fp32 or bf16), so the row is read once however
+//            wide.  Each warp's butterfly sum goes to shared memory; after
+//            one block barrier every thread adds the W partials in warp
+//            order (no atomics: a fixed order, the same in every thread).
+//            At decode (8 rows) W is as large as d allows, so that the
+//            loads of a row are spread over up to 1,024 threads.
+//   "loop"   d > D_MAX, 16-byte aligned: two strided passes of one warp
+//            over its row in 16-byte loads (the second reads it again from
+//            L2); the wrapper takes it only for rows too wide for "block"
+//            (more than 32 x 32 x 8 vectors);
 //   "scalar" a pointer or row stride not 16-byte aligned, or d not a
-//            multiple of the vector width: two strided passes of scalar loads.
+//            multiple of the vector width: two strided passes of scalar
+//            loads, a warp per row.
 // Every variant writes x * inv * (1 + scale) in the reference's order of
 // operations, with inv = 1 / sqrtf(var + eps) by IEEE sqrt and division
 // (no fast math), which rounds like the reference's rsqrt; only the order
-// of the sum of squares differs from the reference.
+// of the sum of squares differs from the reference, and it is fixed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,10 +53,13 @@
 
 namespace {
 
-constexpr int WARPS = 8;              // rows per block
+constexpr int WARPS = 8;              // rows per block ("warp", "loop")
 constexpr int THREADS = 32 * WARPS;
-constexpr int D_MAX = 2048;           // largest d kept in registers
-constexpr int VARIANT_WARP = 0, VARIANT_LOOP = 1, VARIANT_SCALAR = 2;
+constexpr int D_MAX = 2048;           // largest d of "warp"
+constexpr int BLOCK_NV = 8;           // most 16-byte vectors a lane, "block"
+constexpr int BLOCK_WARPS = 32;       // most warps a row, "block"
+constexpr int VARIANT_WARP = 0, VARIANT_LOOP = 1, VARIANT_SCALAR = 2,
+              VARIANT_BLOCK = 3;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -92,6 +108,30 @@ template <> struct Vec<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+
+// A 16-byte vector as loaded, and its EPV values as floats.
+__device__ __forceinline__ uint4 load_raw(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& r, float* f) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r,
+                                                      float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -145,6 +185,57 @@ rmsnorm_warp(const T* __restrict__ x, long long ldx,
       Vec<T>::load(scale + c * EPV, s);
 #pragma unroll
       for (int e = 0; e < EPV; ++e) y[e] = v[i][e] * inv * (1.0f + s[e]);
+      Vec<T>::store(orow + c * EPV, y);
+    }
+  }
+}
+
+// "block": the row's 16-byte vectors c = i + T j (T = blockDim.x, j < NV)
+// in thread i, as loaded; warp partials summed in warp order.
+template <typename T, int NV>
+__global__ void __launch_bounds__(32 * BLOCK_WARPS)
+rmsnorm_block(const T* __restrict__ x, long long ldx,
+              const T* __restrict__ scale, T* __restrict__ out,
+              long long ldo, int rows, int d, float eps) {
+  constexpr int EPV = Vec<T>::EPV;
+  __shared__ float part[BLOCK_WARPS];
+  const int row = blockIdx.x;
+  const int nvec = d / EPV, stride = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* xr = x + static_cast<long long>(row) * ldx;
+  T* orow = out + static_cast<long long>(row) * ldo;
+
+  uint4 raw[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = threadIdx.x + stride * j;
+    raw[j] = c < nvec ? load_raw(xr + c * EPV) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float v[EPV];
+    unpack<T>(raw[j], v);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) ss = fmaf(v[e], v[e], ss);
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) part[warp] = ss;
+  __syncthreads();
+  float total = 0.0f;
+  const int warps = stride >> 5;
+  for (int w = 0; w < warps; ++w) total += part[w];
+  const float inv = inv_rms(total, d, eps);
+
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = threadIdx.x + stride * j;
+    if (c < nvec) {
+      float v[EPV], sc[EPV], y[EPV];
+      unpack<T>(raw[j], v);
+      Vec<T>::load(scale + c * EPV, sc);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) y[e] = v[e] * inv * (1.0f + sc[e]);
       Vec<T>::store(orow + c * EPV, y);
     }
   }
@@ -213,6 +304,13 @@ KernelPtr<T> warp_instance(int nv, std::integer_sequence<int, NV...>) {
   return k;
 }
 
+template <typename T, int... NV>
+KernelPtr<T> block_instance(int nv, std::integer_sequence<int, NV...>) {
+  KernelPtr<T> k = nullptr;
+  ((k = (nv == NV + 1) ? &rmsnorm_block<T, NV + 1> : k), ...);
+  return k;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -226,18 +324,28 @@ int launch(int variant, int nv, const void* x, long long ldx,
   const bool vec_ok = d % EPV == 0 && (ldx * sizeof(T)) % 16 == 0 &&
                       (ldo * sizeof(T)) % 16 == 0 && aligned16(x) &&
                       aligned16(scale) && aligned16(out);
+  const int nvec = d / EPV;
   KernelPtr<T> k = nullptr;
+  unsigned blocks = (rows + WARPS - 1) / WARPS, threads = THREADS;
   if (variant == VARIANT_WARP) {
     // nv must be exactly what d needs, so that every vector is covered
-    if (vec_ok && d <= D_MAX && nv == (d / EPV + 31) / 32)
+    if (vec_ok && d <= D_MAX && nv == (nvec + 31) / 32)
       k = warp_instance<T>(nv, std::make_integer_sequence<int, NV_MAX>());
+  } else if (variant == VARIANT_BLOCK) {
+    // a row's W warps of nv vectors a lane cover it: W = ceil(nvec / 32 nv)
+    const int w = nv >= 1 ? (nvec + 32 * nv - 1) / (32 * nv) : 0;
+    if (vec_ok && nv >= 1 && nv <= BLOCK_NV && w <= BLOCK_WARPS) {
+      k = block_instance<T>(nv, std::make_integer_sequence<int, BLOCK_NV>());
+      blocks = rows;
+      threads = 32 * w;
+    }
   } else if (variant == VARIANT_LOOP) {
     if (vec_ok && d > D_MAX) k = rmsnorm_loop<T, true>;
   } else if (variant == VARIANT_SCALAR) {
     if (!vec_ok) k = rmsnorm_loop<T, false>;
   }
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  k<<<(rows + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+  k<<<blocks, threads, 0, s>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(scale),
       static_cast<T*>(out), ldo, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
@@ -246,9 +354,10 @@ int launch(int variant, int nv, const void* x, long long ldx,
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (x, scale and out alike).  variant: 0 "warp"
-// (nv = 16-byte vectors per lane, d <= 2048), 1 "loop", 2 "scalar"; a
-// variant that does not fit the shape and alignment is refused.  Returns
-// the launch's cudaError_t.
+// (nv = 16-byte vectors per lane, d <= 2048), 1 "loop", 2 "scalar", 3
+// "block" (nv = 16-byte vectors per lane, 1..8; the block has
+// ceil(d / (EPV x 32 nv)) <= 32 warps); a variant that does not fit the
+// shape and alignment is refused.  Returns the launch's cudaError_t.
 extern "C" int rmsnorm(int dtype, int variant, int nv, const void* x,
                        long long ldx, const void* scale, void* out,
                        long long ldo, int rows, int d, float eps,

@@ -3,15 +3,16 @@ its gradient, their bindings and wrappers.
 
 Sources ``csrc/rmsnorm.cu`` and ``csrc/rmsnorm_bwd.cu`` (each with its
 design note), built by the port's shared builder
-(``repro_torch.kernels._build``) at first use.  One warp normalises one
-row: for d <= :data:`D_MAX` with 16-byte aligned rows it
-keeps the row in registers and reads device memory once; :func:`variant`
-picks, from shape and alignment and before the launch, that variant or one
-of the two strided variants for longer or unaligned rows.  The wrapper
-takes the plain version (``ref.rmsnorm_ref``) for a CPU tensor and launches
-the kernel for a CUDA tensor -- or raises: there is no fallback.  Launches
-are counted in :data:`launches`, one per call whatever the variant.
-:func:`rmsnorm_rows_bwd` does the same for the gradient (K3b, one count
+(``repro_torch.kernels._build``) at first use.  :func:`variant` picks,
+from the row count, d, the dtype and the alignment and before the launch,
+one of four variants: "warp" (a warp a row, d <= :data:`D_MAX`, rows enough
+to fill the card) and "block" (a block of up to 32 warps a row, wider rows
+or fewer) keep the row in registers and read device memory once; "loop"
+(rows too wide for "block") and "scalar" (unaligned rows) make two strided
+passes.  The wrapper takes the plain version (``ref.rmsnorm_ref``) for a
+CPU tensor and launches the kernel for a CUDA tensor -- or raises: there
+is no fallback.  Launches are counted in :data:`launches`, one per call
+whatever the variant.  :func:`rmsnorm_rows_bwd` does the same for the gradient (K3b, one count
 per call of its kernels; ``ref.rmsnorm_bwd_ref`` on the CPU), with
 :func:`variant` given g too: its "warp" variant keeps the rows of x and g
 in registers, reads each once and folds the partial dscale into the same
@@ -32,7 +33,15 @@ __all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "rmsnorm_rows",
 
 SOURCES = {"rmsnorm": "rmsnorm.cu", "rmsnorm_bwd": "rmsnorm_bwd.cu"}
 D_MAX = 2048           # the largest d whose row a warp keeps in registers
-VARIANTS = ("warp", "loop", "scalar")      # their codes in rmsnorm.cu
+VARIANTS = ("warp", "loop", "scalar", "block")   # their codes in rmsnorm.cu
+BLOCK_NV = 8           # "block": the most 16-byte vectors a lane
+BLOCK_WARPS = 32       # "block": the most warps a row
+# K3's "warp" takes d <= D_MAX from WARP_ROWS rows on (a warp a row, 16
+# warps an SM of the H100's 132); "block" takes fewer rows or wider ones,
+# over enough warps a row that the grid has FILL_WARPS warps (64 an SM, the
+# most an SM holds) where d allows
+WARP_ROWS = 132 * 16
+FILL_WARPS = 132 * 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -47,12 +56,17 @@ launches = FAMILY.launches
 def variant(x: torch.Tensor, scale: torch.Tensor,
             *others: torch.Tensor) -> tuple:
     """The K3 (or, given g, K3b) variant for ``x`` (rows, d), ``scale`` and
-    the ``others`` of x's shape, and its 16-byte vectors per lane:
-    ``("warp", nv)`` when the rows of x and of the others and ``scale`` are
-    16-byte aligned, d is a multiple of the vector width and d <= D_MAX;
-    ``("loop", 0)`` when only d is too long; ``("scalar", 0)`` otherwise.
-    (Outputs are fresh allocations, always aligned.)"""
-    d = x.shape[1]
+    the ``others`` of x's shape, and its 16-byte vectors per lane.
+    ``("scalar", 0)`` unless the rows of x and of the others and ``scale``
+    are 16-byte aligned and d is a multiple of the vector width.  Aligned,
+    K3b takes ``("warp", nv)`` for d <= D_MAX, else ``("loop", 0)``; K3
+    takes ``("warp", nv)`` for d <= D_MAX at WARP_ROWS rows or more,
+    ``("loop", 0)`` for rows wider than 32 x 32 x BLOCK_NV vectors, and
+    ``("block", nv)`` otherwise: a block of ceil(vectors / (32 nv)) warps a
+    row, nv as small as gives the grid FILL_WARPS warps, at most 32 warps,
+    at least one vector a lane and at most BLOCK_NV.  (Outputs are fresh
+    allocations, always aligned.)"""
+    rows, d = x.shape
     size = x.element_size()
     epv = 16 // size
     aligned = (d % epv == 0 and scale.data_ptr() % 16 == 0
@@ -60,9 +74,15 @@ def variant(x: torch.Tensor, scale: torch.Tensor,
                        for t in (x, *others)))
     if not aligned:
         return "scalar", 0
-    if d > D_MAX:
+    nvec = d // epv
+    if others or (d <= D_MAX and rows >= WARP_ROWS):
+        return ("warp", -(-nvec // 32)) if d <= D_MAX else ("loop", 0)
+    fewest = -(-nvec // (32 * BLOCK_NV))
+    if fewest > BLOCK_WARPS:
         return "loop", 0
-    return "warp", -(-d // (32 * epv))
+    warps = max(fewest, min(BLOCK_WARPS, -(-nvec // 32),
+                            -(-FILL_WARPS // rows)))
+    return "block", -(-nvec // (32 * warps))
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:

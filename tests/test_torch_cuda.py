@@ -318,13 +318,20 @@ def test_rmsnorm_kernel_every_width(cuda, dtype, rows, d):
 
 
 def test_rmsnorm_kernel_takes_each_variant(cuda):
-    """The three variants of K3 are chosen as documented, and each holds."""
+    """The four variants of K3 are chosen as documented, and each holds:
+    "warp" for many rows of d <= D_MAX, "block" for few rows or wider
+    ones, "loop" only past what a block of 32 warps holds, "scalar" for
+    unaligned rows."""
     x = torch.randn(64, 301, device=cuda)               # row stride 301
     s = torch.randn(301, device=cuda) * 0.1
+    wide = 32 * rn_kernel.BLOCK_WARPS * rn_kernel.BLOCK_NV * 4 + 4
     cases = {
-        "warp": (x[:, :256].contiguous(), s[:256].contiguous()),
-        "loop": (torch.randn(9, 4096, device=cuda),
-                 torch.randn(4096, device=cuda) * 0.1),
+        "warp": (torch.randn(rn_kernel.WARP_ROWS, 256, device=cuda),
+                 s[:256].contiguous()),
+        "block": (torch.randn(9, 4096, device=cuda),
+                  torch.randn(4096, device=cuda) * 0.1),
+        "loop": (torch.randn(3, wide, device=cuda),
+                 torch.randn(wide, device=cuda) * 0.1),
         "scalar": (x[:, :256], s[:256].contiguous()),
     }
     for kind, (xx, ss) in cases.items():
@@ -333,6 +340,26 @@ def test_rmsnorm_kernel_takes_each_variant(cuda):
         assert rmsnorm_close(rn_kernel.rmsnorm_rows(xx, ss),
                              rmsnorm_ref(xx, ss))
         assert rn_kernel.launches["rmsnorm"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 33])
+@pytest.mark.parametrize("d", [2048, 2056, 3584, 5120, 7168, 8192])
+def test_rmsnorm_kernel_block_variant(cuda, dtype, rows, d):
+    """K3's "block" variant (a row over up to 32 warps, in registers) at
+    the decode row counts and the served widths, and the same rows with a
+    row stride one element off 16 bytes, which stay "scalar"."""
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    s = (torch.randn(d, device=cuda, generator=g) * 0.1).to(dtype)
+    ld = d + 1
+    buf = (torch.randn(rows * ld, device=cuda, generator=g) * 2).to(dtype)
+    for x, kind in ((buf[:rows * d].view(rows, d), "block"),
+                    (buf.view(rows, ld)[:, :d], "scalar")):
+        assert rn_kernel.variant(x, s)[0] == kind
+        before = rn_kernel.launches["rmsnorm"]
+        got = rn_kernel.rmsnorm_rows(x, s)
+        assert rn_kernel.launches["rmsnorm"] == before + 1
+        assert rmsnorm_close(got, rmsnorm_ref(x, s)), (kind, rows, d)
 
 
 # --- K4 flash attention -----------------------------------------------------
@@ -351,9 +378,32 @@ FLASH_CASES = [
          window=None),
 ]
 
+# K4's tensor-core instances (D <= 64, D <= 128; 128 query rows a block,
+# 64-key tiles): D = 64, 112, 128 at Hq / Hkv 1 and 4; Tq and Tk one short
+# of and one past a query tile and a KV tile; D = 100 and 127 (staged
+# element by element); a window ending inside a KV tile; rows that see no
+# key (fully masked: 0)
+TC_CASES = [
+    dict(b=2, hq=4, hkv=4, tq=256, tk=256, d=64, causal=True, window=None),
+    dict(b=1, hq=8, hkv=2, tq=256, tk=256, d=64, causal=True, window=None),
+    dict(b=2, hq=4, hkv=4, tq=200, tk=200, d=112, causal=True, window=None),
+    dict(b=1, hq=8, hkv=2, tq=200, tk=200, d=112, causal=True, window=None),
+    dict(b=1, hq=4, hkv=4, tq=256, tk=256, d=128, causal=True, window=None),
+    dict(b=1, hq=8, hkv=2, tq=256, tk=256, d=128, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=127, tk=127, d=128, causal=True, window=None),
+    dict(b=1, hq=2, hkv=1, tq=129, tk=129, d=64, causal=True, window=None),
+    dict(b=1, hq=2, hkv=2, tq=129, tk=63, d=112, causal=False, window=None),
+    dict(b=1, hq=2, hkv=2, tq=127, tk=65, d=128, causal=False, window=None),
+    dict(b=2, hq=4, hkv=1, tq=300, tk=300, d=100, causal=True, window=None),
+    dict(b=1, hq=2, hkv=2, tq=129, tk=129, d=127, causal=True, window=None),
+    dict(b=1, hq=4, hkv=2, tq=300, tk=300, d=128, causal=True, window=90),
+    dict(b=1, hq=2, hkv=1, tq=200, tk=40, d=64, causal=True, window=20),
+]
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
-    f"{k}{v}" for k, v in c.items()))
+
+@pytest.mark.parametrize("case", FLASH_CASES + TC_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}"
+                                                for k, v in c.items()))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
@@ -400,6 +450,8 @@ FLASH_RAGGED = [
     dict(b=1, hq=2, hkv=1, tq=130, tk=700, d=256, causal=False, window=None),
     # Tq > Tk with a window: rows 23.. see no key (fully masked, 0)
     dict(b=1, hq=2, hkv=1, tq=64, tk=16, d=16, causal=True, window=8),
+    # the same past a query tile of the tensor-core instances, at D = 112
+    dict(b=1, hq=2, hkv=1, tq=200, tk=40, d=112, causal=True, window=20),
 ]
 
 
@@ -474,8 +526,9 @@ def _attn_inputs(cuda, case, dtype, seed):
             rand(case["b"], case["hq"], case["tq"], case["d"]))
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(
-    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("case", BWD_CASES + TC_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}"
+                                                for k, v in c.items()))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_lse_leaves_the_output_bitwise(cuda, case, dtype):
     """K4 with its L written gives the serving output bit for bit; L holds
@@ -532,6 +585,23 @@ def test_flash_attention_bwd_does_not_lean(cuda, window):
     for g, e in zip(got, exact):
         lean = float((g.double() * e).sum() / (e * e).sum() - 1.0)
         assert abs(lean) <= 5e-6, lean
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 1024, 128), (8, 32, 1024, 64)],
+                         ids=["moonshot", "musicgen"])
+def test_flash_attention_does_not_lean(cuda, shape):
+    """At moonshot's and musicgen's served layers K4's fp32 output leans
+    from the float64 one by at most 5e-6 (|sum(got exact) / sum(exact^2)
+    - 1|): the tensor-core instances' accumulators must not drift toward
+    zero, which max |diff| does not show and a model's output does."""
+    b, h, t, d = shape
+    case = dict(b=b, hq=h, hkv=h, tq=t, tk=t, d=d)
+    q, k, v, _ = _attn_inputs(cuda, case, torch.float32, 23)
+    got = fa_kernel.flash_attention(q, k, v, scale=d ** -0.5, causal=True)
+    exact = attention_ref(q.double(), k.double(), v.double(),
+                          scale=d ** -0.5)
+    lean = float((got.double() * exact).sum() / (exact * exact).sum() - 1.0)
+    assert abs(lean) <= 5e-6, lean
 
 
 def test_flash_attention_function_grads_through_transposed_views(cuda):

@@ -115,6 +115,9 @@ def test_rmsnorm_variant_choice(dtype):
     before the launch, so it is checked here on CPU tensors)."""
     epv = 16 // torch.empty((), dtype=dtype).element_size()
     dmax = rn_kernel.D_MAX
+    many = rn_kernel.WARP_ROWS
+    # the widest row "block" holds: 32 warps of BLOCK_NV vectors a lane
+    widest = 32 * rn_kernel.BLOCK_WARPS * rn_kernel.BLOCK_NV * epv
 
     def pick(rows, d, offset=0, ld=None):
         ld = d if ld is None else ld
@@ -126,10 +129,19 @@ def test_rmsnorm_variant_choice(dtype):
 
     assert pick(8192, 1152) == ("warp", -(-1152 // (32 * epv)))
     assert pick(32768, 256) == ("warp", -(-256 // (32 * epv)))
-    assert pick(3, epv) == ("warp", 1)
-    assert pick(3, dmax) == ("warp", dmax // (32 * epv))
-    assert pick(3, dmax + epv) == ("loop", 0)
-    assert pick(3, 8192) == ("loop", 0)
+    assert pick(many, epv) == ("warp", 1)
+    assert pick(many, dmax) == ("warp", dmax // (32 * epv))
+    # few rows, or rows wider than D_MAX: a block of warps a row
+    assert pick(3, epv) == ("block", 1)
+    # FILL_WARPS over 2111 rows: 5 warps a row
+    assert pick(many - 1, dmax) == ("block", -(-dmax // (160 * epv)))
+    assert pick(3, dmax) == ("block", 1)
+    assert pick(3, dmax + epv) == ("block", 1)
+    assert pick(8, 7168) == ("block", -(-7168 // (32 * 32 * epv)))
+    assert pick(3, 8192) == ("block", 8192 // (32 * 32 * epv))
+    assert pick(8192, 4096) == ("block", 8)
+    assert pick(3, widest) == ("block", 8)
+    assert pick(3, widest + epv) == ("loop", 0)
     assert pick(3, 1152, offset=1) == ("scalar", 0)
     assert pick(3, 256, ld=301) == ("scalar", 0)
     assert pick(3, 1150) == ("scalar", 0)
