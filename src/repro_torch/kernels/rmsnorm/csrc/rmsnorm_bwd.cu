@@ -17,7 +17,7 @@
 // the ~20 fp32 operations per byte where arithmetic would bound it.  So the
 // design reads each row once, as K3 forward does.
 //
-// Design: three variants of one entry point, chosen by the wrapper from
+// Design: four variants of one entry point, chosen by the wrapper from
 // shape and alignment before the launch (as K3's):
 //   "warp"   d <= D_MAX, every row and pointer 16-byte aligned, d a multiple
 //            of the vector width: two kernels.
@@ -40,8 +40,24 @@
 //       order, and the 32 sums are added in order.  A programmatic
 //       dependent launch: it waits on the rows kernel in the kernel, so its
 //       launch overlaps that kernel's tail.
-//   "loop" (d > D_MAX, aligned) and "scalar" (a row or pointer not 16-byte
-//   aligned, or d not a multiple of the vector width): three kernels.
+//   "block"  d > D_MAX, aligned, at most BLOCK_WARPS x 32 x BLOCK_NV vectors:
+//            two kernels.
+//     * rows: a row over the W warps of one block (W x 32 x NV >= the
+//       row's vectors, NV <= BLOCK_NV 16-byte vectors a lane: thread i
+//       holds vectors i, i + 32 W, ...); as many blocks as the card holds
+//       at once, block i walking the contiguous rows [i c, i c + c) and
+//       issuing the next row's loads before it reduces this one (where
+//       two rows fit in its registers).  x and g are read once into
+//       registers, 1 + scale once a block; the two row sums go by warp
+//       shuffles and then over the block in warp order through shared
+//       memory (one barrier a row); dx is written once, evict-first; each
+//       thread sums g x r of its own columns over the block's rows in
+//       registers and the block writes its partial row to the (chunks, d)
+//       scratch.  No rinv scratch, no second read of x or g.
+//     * ds: as for "warp".
+//   "loop" (d past what "block" holds, aligned) and "scalar" (a row or
+//   pointer not 16-byte aligned, or d not a multiple of the vector width):
+//   three kernels.
 //     * rows: one warp per row, two strided passes over it (16-byte or
 //       single-element loads): the first sums x^2 and g (1 + s) x, the
 //       second writes dx; the row's r goes to an fp32 (rows,) scratch.
@@ -67,7 +83,10 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int STRIP = 32;             // columns per partial block
 constexpr int D_MAX = 2048;           // largest d kept in registers
-constexpr int VARIANT_WARP = 0, VARIANT_LOOP = 1, VARIANT_SCALAR = 2;
+constexpr int BLOCK_NV = 8;           // "block": the most vectors a lane
+constexpr int BLOCK_WARPS = 16;       // "block": the most warps a row
+constexpr int VARIANT_WARP = 0, VARIANT_LOOP = 1, VARIANT_SCALAR = 2,
+              VARIANT_BLOCK = 3;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -128,6 +147,27 @@ template <> struct Vec<__nv_bfloat16> {
     else *reinterpret_cast<uint4*>(p) = r;
   }
 };
+
+// 16 loaded bytes as EPV floats.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& r, float* f) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r,
+                                                      float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -288,6 +328,136 @@ rows_warp(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
     partial[static_cast<long long>(blockIdx.x) * d + c] = s_part[c];
 }
 
+// "block": thread i of the W = blockDim.x / 32 warps holds the row's
+// 16-byte vectors i + 32 W j (j < NV) of x and g as loaded (raw bits);
+// block b walks rows [b c, b c + c).  The next row is loaded before this
+// one is reduced, and 1 + scale kept in registers, while they fit in the
+// 128 registers a thread has at 512 threads (NV <= 4 fp32, NV <= 3 bf16;
+// past NV EPV = 16, 1 + scale is read again a row, from L1).
+template <typename T, int NV>
+__global__ void __launch_bounds__(32 * BLOCK_WARPS)
+rows_block(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
+           long long ldg, const T* __restrict__ scale, T* __restrict__ dx,
+           float* __restrict__ partial, int rows, int d, int chunk_rows,
+           float eps) {
+  constexpr int EPV = Vec<T>::EPV;
+  constexpr bool PREFETCH = NV * (16 + 2 * EPV) <= 96;
+  constexpr bool WREG = NV * EPV <= 16;
+  __shared__ float part[2][2][BLOCK_WARPS];   // [row parity][sum][warp]
+  const int nvec = d / EPV, stride = blockDim.x, warps = stride >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * chunk_rows;
+  const int hi = min(rows, lo + chunk_rows);
+  auto load = [&](int row, uint4 (&xr)[NV], uint4 (&gr)[NV]) {
+    const T* xp = x + static_cast<long long>(row) * ldx;
+    const T* gp = g + static_cast<long long>(row) * ldg;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = threadIdx.x + stride * j;
+      const bool on = row < hi && c < nvec;
+      xr[j] = on ? __ldcs(reinterpret_cast<const uint4*>(xp + c * EPV))
+                 : make_uint4(0u, 0u, 0u, 0u);
+      gr[j] = on ? __ldcs(reinterpret_cast<const uint4*>(gp + c * EPV))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  uint4 xr[NV], gr[NV];
+  load(lo, xr, gr);
+  // 1 + scale of vector j (held, or read again)
+  float wr[WREG ? NV : 1][EPV], ds[NV][EPV];
+  auto weight = [&](int j, float (&w)[EPV]) {
+    const int c = threadIdx.x + stride * j;
+    if (c < nvec) {
+      Vec<T>::load(scale + c * EPV, w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) w[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) w[e] = 1.0f + w[e];
+  };
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if constexpr (WREG) weight(j, wr[j]);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) ds[j][e] = 0.f;
+  }
+  for (int row = lo; row < hi; ++row) {
+    uint4 xn[PREFETCH ? NV : 1], gn[PREFETCH ? NV : 1];
+    if constexpr (PREFETCH) load(row + 1, xn, gn);
+    float ss = 0.f, t = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float xv[EPV], gv[EPV], w[EPV];
+      unpack<T>(xr[j], xv);
+      unpack<T>(gr[j], gv);
+      if constexpr (WREG) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) w[e] = wr[j][e];
+      } else {
+        weight(j, w);
+      }
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) {
+        ss = fmaf(xv[e], xv[e], ss);
+        t = fmaf(gv[e] * w[e], xv[e], t);
+      }
+    }
+    ss = warp_sum(ss);
+    t = warp_sum(t);
+    if (lane == 0) {
+      part[row & 1][0][warp] = ss;
+      part[row & 1][1][warp] = t;
+    }
+    __syncthreads();
+    float s_all = 0.f, t_all = 0.f;
+    for (int i = 0; i < warps; ++i) {
+      s_all += part[row & 1][0][i];
+      t_all += part[row & 1][1][i];
+    }
+    // K3 forward's r: 1 / sqrtf(mean + eps) by IEEE sqrt and division
+    const float r = 1.0f / sqrtf(s_all / static_cast<float>(d) + eps);
+    const float k = r * r * (t_all / static_cast<float>(d));
+    T* orow = dx + static_cast<long long>(row) * d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = threadIdx.x + stride * j;
+      if (c < nvec) {
+        float xv[EPV], gv[EPV], w[EPV], y[EPV];
+        unpack<T>(xr[j], xv);
+        unpack<T>(gr[j], gv);
+        if constexpr (WREG) {
+#pragma unroll
+          for (int e = 0; e < EPV; ++e) w[e] = wr[j][e];
+        } else {
+          weight(j, w);
+        }
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) {
+          y[e] = r * (gv[e] * w[e] - xv[e] * k);
+          ds[j][e] = fmaf(gv[e] * xv[e], r, ds[j][e]);
+        }
+        Vec<T>::template store<true>(orow + c * EPV, y);
+      }
+    }
+    if constexpr (PREFETCH) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        xr[j] = xn[j];
+        gr[j] = gn[j];
+      }
+    } else {
+      load(row + 1, xr, gr);
+    }
+  }
+  float* prow = partial + static_cast<long long>(blockIdx.x) * d;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = threadIdx.x + stride * j;
+    if (c < nvec) sts<EPV>(prow + c * EPV, ds[j]);
+  }
+}
+
 // W elements at p (16 bytes when VEC, else one).
 template <typename T, bool VEC>
 __device__ __forceinline__ void load_w(const T* p, float* f) {
@@ -406,6 +576,21 @@ WarpPtr<T> warp_instance(int nv, std::integer_sequence<int, NV...>) {
   return k;
 }
 
+template <typename T, int... NV>
+WarpPtr<T> block_instance(int nv, std::integer_sequence<int, NV...>) {
+  WarpPtr<T> k = nullptr;
+  ((k = (nv == NV + 1) ? &rows_block<T, NV + 1> : k), ...);
+  return k;
+}
+
+// The "block" variant's warps for a row of nvec vectors at nv a lane: 0
+// when nv is past BLOCK_NV or the row would need more than BLOCK_WARPS.
+int block_warps(int nvec, int nv) {
+  if (nv < 1 || nv > BLOCK_NV) return 0;
+  const int warps = (nvec + 32 * nv - 1) / (32 * nv);
+  return warps <= BLOCK_WARPS ? warps : 0;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -434,6 +619,14 @@ int launch(int variant, int nv, const void* x, long long ldx, const void* g,
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     k<<<chunks, THREADS, 0, s>>>(xt, ldx, gt, ldg, st, dxt, partial, rows,
                                  d, chunk_rows, eps);
+  } else if (variant == VARIANT_BLOCK) {
+    const int warps = block_warps(d / EPV, nv);
+    if (!vec_ok || d <= D_MAX || warps == 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    WarpPtr<T> k = block_instance<T>(
+        nv, std::make_integer_sequence<int, BLOCK_NV>());
+    k<<<chunks, 32 * warps, 0, s>>>(xt, ldx, gt, ldg, st, dxt, partial,
+                                    rows, d, chunk_rows, eps);
   } else {
     const unsigned row_blocks = (rows + WARPS - 1) / WARPS;
     if (rinv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -470,34 +663,45 @@ int launch(int variant, int nv, const void* x, long long ldx, const void* g,
 }
 
 template <typename T>
-int blocks_per_sm(int nv, int* blocks) {
+int blocks_per_sm(int variant, int nv, int d, int* blocks) {
   constexpr int NV_MAX = D_MAX / (32 * Vec<T>::EPV);
   WarpPtr<T> k = nullptr;
-  if (nv >= 1 && nv <= NV_MAX)
+  int threads = THREADS;
+  if (variant == VARIANT_WARP && nv >= 1 && nv <= NV_MAX) {
     k = warp_instance<T>(nv, std::make_integer_sequence<int, NV_MAX>());
+  } else if (variant == VARIANT_BLOCK) {
+    threads = 32 * block_warps(d / Vec<T>::EPV, nv);
+    if (threads > 0)
+      k = block_instance<T>(nv, std::make_integer_sequence<int, BLOCK_NV>());
+  }
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, THREADS, 0));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads, 0));
 }
 
 }  // namespace
 
-// The blocks of the "warp" variant's rows kernel (nv vectors a lane) that
-// one SM holds at once, by their registers and shared memory, into
-// *blocks.  Returns the query's cudaError_t.
-extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int nv, int* blocks) {
-  if (dtype == 0) return blocks_per_sm<float>(nv, blocks);
-  if (dtype == 1) return blocks_per_sm<__nv_bfloat16>(nv, blocks);
+// The blocks of the "warp" or "block" variant's rows kernel (nv vectors a
+// lane; d, for "block", sets its warps) that one SM holds at once, by
+// their registers and shared memory, into *blocks.  Returns the query's
+// cudaError_t.
+extern "C" int rmsnorm_bwd_blocks_per_sm(int dtype, int variant, int nv,
+                                         int d, int* blocks) {
+  if (dtype == 0) return blocks_per_sm<float>(variant, nv, d, blocks);
+  if (dtype == 1)
+    return blocks_per_sm<__nv_bfloat16>(variant, nv, d, blocks);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype: 0 = fp32, 1 = bf16 (x, g, scale, dx and dscale alike).  variant:
 // 0 "warp" (nv = 16-byte vectors per lane, d <= 2048), 1 "loop", 2
-// "scalar"; a variant that does not fit the shape and alignment is refused.
-// x and g take any row stride with a unit inner stride; dx is a contiguous
-// (rows, d); rinv an fp32 (rows,) scratch ("loop" and "scalar"; null for
-// "warp"); partial an fp32 (chunks, d) scratch, 1 <= chunks <= 65535: the
-// row blocks of "warp", the row chunks of the others' partial pass.
+// "scalar", 3 "block" (d > 2048, nv vectors a lane over at most
+// BLOCK_WARPS warps); a variant that does not fit the shape and
+// alignment is refused.  x and g take any row stride with a unit inner
+// stride; dx is a contiguous (rows, d); rinv an fp32 (rows,) scratch
+// ("loop" and "scalar"; null for "warp" and "block"); partial an fp32
+// (chunks, d) scratch, 1 <= chunks <= 65535: the row blocks of "warp" and
+// "block", the row chunks of the others' partial pass.
 // Returns the launches' cudaError_t.
 extern "C" int rmsnorm_bwd(int dtype, int variant, int nv, const void* x,
                            long long ldx, const void* g, long long ldg,

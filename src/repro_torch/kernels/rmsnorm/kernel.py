@@ -14,9 +14,11 @@ CPU tensor and launches the kernel for a CUDA tensor -- or raises: there
 is no fallback.  Launches are counted in :data:`launches`, one per call
 whatever the variant.  :func:`rmsnorm_rows_bwd` does the same for the gradient (K3b, one count
 per call of its kernels; ``ref.rmsnorm_bwd_ref`` on the CPU), with
-:func:`variant` given g too: its "warp" variant keeps the rows of x and g
-in registers, reads each once and folds the partial dscale into the same
-kernel; "loop" and "scalar" make two strided passes and a partial pass.
+:func:`variant` given g too: its "warp" (a warp a row, d <= D_MAX) and
+"block" (a row over up to :data:`BWD_BLOCK_WARPS` warps, wider rows)
+variants keep the rows of x and g in registers, read each once and fold
+the partial dscale into the same kernel; "loop" and "scalar" make two
+strided passes and a partial pass.
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ BLOCK_WARPS = 32       # "block": the most warps a row
 # most an SM holds) where d allows
 WARP_ROWS = 132 * 16
 FILL_WARPS = 132 * 64
+# K3b's "block": a row over the fewest vectors a lane (at most BLOCK_NV)
+# that BWD_BLOCK_WARPS warps allow (512 threads: 128 registers a thread)
+BWD_BLOCK_WARPS = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -59,8 +64,10 @@ def variant(x: torch.Tensor, scale: torch.Tensor,
     the ``others`` of x's shape, and its 16-byte vectors per lane.
     ``("scalar", 0)`` unless the rows of x and of the others and ``scale``
     are 16-byte aligned and d is a multiple of the vector width.  Aligned,
-    K3b takes ``("warp", nv)`` for d <= D_MAX, else ``("loop", 0)``; K3
-    takes ``("warp", nv)`` for d <= D_MAX at WARP_ROWS rows or more,
+    K3b takes ``("warp", nv)`` for d <= D_MAX, else ``("block", nv)``: a
+    block of ceil(vectors / (32 nv)) warps a row, nv the fewest vectors a
+    lane that BWD_BLOCK_WARPS warps allow, ``("loop", 0)`` past BLOCK_NV.
+    K3 takes ``("warp", nv)`` for d <= D_MAX at WARP_ROWS rows or more,
     ``("loop", 0)`` for rows wider than 32 x 32 x BLOCK_NV vectors, and
     ``("block", nv)`` otherwise: a block of ceil(vectors / (32 nv)) warps a
     row, nv as small as gives the grid FILL_WARPS warps, at most 32 warps,
@@ -75,8 +82,13 @@ def variant(x: torch.Tensor, scale: torch.Tensor,
     if not aligned:
         return "scalar", 0
     nvec = d // epv
-    if others or (d <= D_MAX and rows >= WARP_ROWS):
-        return ("warp", -(-nvec // 32)) if d <= D_MAX else ("loop", 0)
+    if others:
+        if d <= D_MAX:
+            return "warp", -(-nvec // 32)
+        nv = -(-nvec // (32 * BWD_BLOCK_WARPS))
+        return ("block", nv) if nv <= BLOCK_NV else ("loop", 0)
+    if d <= D_MAX and rows >= WARP_ROWS:
+        return "warp", -(-nvec // 32)
     fewest = -(-nvec // (32 * BLOCK_NV))
     if fewest > BLOCK_WARPS:
         return "loop", 0
@@ -127,32 +139,37 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-_WARP_BLOCKS: dict = {}     # (device, dtype code, nv) -> blocks an SM
+_ROW_BLOCKS: dict = {}      # (device, dtype code, variant, nv, d) -> blocks
+                            # an SM
 
 
 def _bwd_chunks(rows: int, d: int, device: torch.device, kind: str,
                 dtype: int, nv: int) -> int:
     """Row chunks of K3b's partial dscale, from the card's streaming
-    multiprocessors (SMs).  "warp": the rows kernel's blocks, as many as
-    the card holds at once (``rmsnorm_bwd_blocks_per_sm``, by registers
-    and shared memory: one an SM at d = 1152 fp32), so one wave; each a
-    contiguous chunk of at least 8 rows (a row a warp) and a partial row of
-    d floats.  "loop" / "scalar": enough (column strip of 32, chunk) blocks
-    of the partial pass to fill the card (~4 an SM), at least 8 rows each."""
+    multiprocessors (SMs).  "warp" and "block": the rows kernel's blocks,
+    as many as the card holds at once (``rmsnorm_bwd_blocks_per_sm``, by
+    registers and shared memory: one an SM at d = 1152 fp32), so one wave;
+    "warp" gives each a contiguous chunk of at least 8 rows (a row a warp),
+    "block" of at least one, and each writes a partial row of d floats.
+    "loop" / "scalar": enough (column strip of 32, chunk) blocks of the
+    partial pass to fill the card (~4 an SM), at least 8 rows each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if kind == "warp":
-        key = (device.index, dtype, nv)
-        if key not in _WARP_BLOCKS:
+    if kind in ("warp", "block"):
+        key = (device.index, dtype, kind, nv, d if kind == "block" else 0)
+        if key not in _ROW_BLOCKS:
             out = ctypes.c_int(0)
             query = FAMILY.symbol("rmsnorm_bwd", "rmsnorm_bwd_blocks_per_sm",
-                                  [_I, _I, ctypes.POINTER(ctypes.c_int)])
+                                  [_I, _I, _I, _I,
+                                   ctypes.POINTER(ctypes.c_int)])
             with torch.cuda.device(device):
-                err = query(dtype, nv, ctypes.byref(out))
+                err = query(dtype, VARIANTS.index(kind), nv, d,
+                            ctypes.byref(out))
             if err != 0 or out.value < 1:
                 raise RuntimeError(f"rmsnorm_bwd_blocks_per_sm: cudaError "
                                    f"{err}, {out.value} blocks")
-            _WARP_BLOCKS[key] = out.value
-        return max(1, min(-(-rows // 8), _WARP_BLOCKS[key] * sms))
+            _ROW_BLOCKS[key] = out.value
+        per = 8 if kind == "warp" else 1
+        return max(1, min(-(-rows // per), _ROW_BLOCKS[key] * sms))
     strips = -(-d // 32)
     return max(1, min(-(-rows // 8), -(-4 * sms // strips), 65535))
 
@@ -179,7 +196,7 @@ def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     chunks = _bwd_chunks(rows, d, x.device, kind, _DTYPE_CODE[x.dtype], nv)
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
-    rinv = None if kind == "warp" else torch.empty(
+    rinv = None if kind in ("warp", "block") else torch.empty(
         (rows,), dtype=torch.float32, device=x.device)
     partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
     fn = FAMILY.fn("rmsnorm_bwd")

@@ -658,27 +658,43 @@ def test_rmsnorm_bwd_matches_plain(cuda, dtype, rows, d, off):
 
 
 def test_rmsnorm_bwd_takes_each_variant(cuda):
-    """The three variants of K3b are chosen as documented, and each holds:
-    "scalar" also when only g's rows are off a 16-byte boundary."""
+    """The four variants of K3b are chosen as documented, and each holds
+    (two calls bitwise): "block" at the widths past D_MAX (2056, the SSM
+    widths 3584 / 4096 / 7168, 8192) in fp32 and bf16 at 1, 8 and 4096
+    rows, "loop" only past what a block holds, "scalar" one element off a
+    16-byte boundary (also when only g's rows are)."""
     x = torch.randn(64, 301, device=cuda)               # row stride 301
     s = torch.randn(301, device=cuda) * 0.1
     g = torch.randn(64, 301, device=cuda)
     cases = [
         ("warp", x[:, :256].contiguous(), s[:256].contiguous(),
          g[:, :256].contiguous()),
-        ("loop", torch.randn(9, 4096, device=cuda),
-         torch.randn(4096, device=cuda) * 0.1,
-         torch.randn(9, 4096, device=cuda)),
+        ("loop", torch.randn(3, 16392, device=cuda),
+         torch.randn(16392, device=cuda) * 0.1,
+         torch.randn(3, 16392, device=cuda)),
         ("scalar", x[:, :256], s[:256].contiguous(), g[:, :256].contiguous()),
         ("scalar", x[:, :256].contiguous(), s[:256].contiguous(), g[:, :256]),
     ]
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (2056, 3584, 4096, 7168, 8192):
+            for rows in (1, 8, 4096):
+                cases.append(("block", torch.randn(rows, d, device=cuda)
+                              .to(dt) * 2, (torch.randn(d, device=cuda)
+                                            * 0.1).to(dt),
+                              torch.randn(rows, d, device=cuda).to(dt)))
+        buf = torch.randn(9 * 4096 + 1, device=cuda).to(dt)
+        cases.append(("scalar", buf[1:].view(9, 4096),
+                      (torch.randn(4096, device=cuda) * 0.1).to(dt),
+                      torch.randn(9, 4096, device=cuda).to(dt)))
     for kind, xx, ss, gg in cases:
-        assert rn_kernel.variant(xx, ss, gg)[0] == kind
+        assert rn_kernel.variant(xx, ss, gg)[0] == kind, (kind, xx.shape)
         before = rn_kernel.launches["rmsnorm_bwd"]
         got = rn_kernel.rmsnorm_rows_bwd(xx, ss, gg)
         assert rn_kernel.launches["rmsnorm_bwd"] == before + 1
         for a, b in zip(got, rmsnorm_bwd_ref(xx, ss, gg)):
             grad_close(a, b)
+        again = rn_kernel.rmsnorm_rows_bwd(xx, ss, gg)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_rmsnorm_function_grads_match_autograd_of_plain(cuda):
@@ -1503,14 +1519,32 @@ def test_ssm_loss_and_grads_on_card_match_cpu(fp32_matmul, name):
 CACHE_DTYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
 
 
+def _decode_sizes(d: int, dtype) -> list:
+    """S of the K6 checks: ragged and served sizes, and both sides of the
+    tile edge and of each step of the cluster size the launch rule can
+    take for this width and dtype, at either number of warps a CTA."""
+    from repro_torch.kernels.decode_attention import kernel as da
+
+    ts = da.tile(d, torch.empty((), dtype=dtype).element_size())
+    sizes = {1, 17, 512, 1312, ts - 1, ts, ts + 1}
+    for w in da.WARPS:
+        c = 1
+        while 2 * c <= da.CLUSTER_MAX:
+            c *= 2
+            edge = c * w * ts           # the first S that allows c CTAs of w
+            sizes |= {edge - 1, edge, edge + 1}
+    return sorted(x for x in sizes if x >= 1)
+
+
 @pytest.mark.parametrize("g", [1, 2, 4, 5])
 @pytest.mark.parametrize("dtype", CACHE_DTYPES, ids=["fp32", "bf16", "fp8"])
 @pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_decode_attention_matches_plain(cuda, d, dtype, g):
-    """K6 against its plain twin for every D instance (EPL 2, 4, 4, 8),
-    cache dtype and GQA group, S in {1, 17, 512, 1312}, global and local
-    (window 16), a cache partly written, full and wrapped: within 1e-5 x
-    max |want| (fp32 online against dense softmax), and two calls
+    """K6 against its plain twin for every D instance (DP 64, 128, 128,
+    256), cache dtype and GQA group, S ragged, served and on both sides of
+    the tile and cluster-size edges (:func:`_decode_sizes`), global and
+    local (window 16), a cache partly written, full and wrapped: within
+    1e-5 x max |want| (fp32 online against dense softmax), and two calls
     bitwise (a fixed merge order, no atomics)."""
     from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1518,7 +1552,7 @@ def test_decode_attention_matches_plain(cuda, d, dtype, g):
 
     rng = np.random.default_rng(d * 10 + g)
     b, hkv = 3, 2
-    for s in (1, 17, 512, 1312):
+    for s in _decode_sizes(d, dtype):
         q = torch.from_numpy(rng.normal(0, 1, (b, hkv * g, 1, d))
                              .astype(np.float32)).to(cuda)
         k, v = (to_cache_dtype(torch.from_numpy(
@@ -1537,6 +1571,47 @@ def test_decode_attention_matches_plain(cuda, d, dtype, g):
                     (s, window, pos, err)
                 assert torch.equal(got, da.decode_attention(q, k, v, pos,
                                                             window))
+
+
+@pytest.mark.parametrize("dtype", CACHE_DTYPES[1:], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("s,pos,window", [(1312, 700, None),
+                                          (512, 1055, 300),
+                                          (8192, 5000, None)])
+def test_decode_attention_never_reads_dead_slots(cuda, dtype, s, pos,
+                                                 window):
+    """NaN bytes in every dead slot of a bf16 / fp8 cache (unwritten past
+    pos, or out of the window of a rolled local cache) leave K6's output
+    finite and bitwise equal to its output with zeros there: the kernel
+    stages those slots as zeros without reading them (an old fp8 row past
+    464 is NaN, and 0 x NaN would be NaN)."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.models.layers import to_cache_dtype
+
+    rng = np.random.default_rng(s + pos)
+    b, hkv, g, d = 2, 8, 4, 128
+    q = torch.from_numpy(rng.normal(0, 1, (b, hkv * g, 1, d))
+                         .astype(np.float32)).to(cuda)
+    k, v = (to_cache_dtype(torch.from_numpy(
+        rng.normal(0, 2, (b, hkv, s, d)).astype(np.float32)).to(cuda), dtype)
+        for _ in range(2))
+    i = torch.arange(s, device=cuda)
+    back = torch.remainder(pos % s - i, s)          # steps back from pos
+    dead = (back > pos) | (back >= window if window else False)
+    assert bool(dead.any()) and not bool(dead.all())
+    # through integer views: the bits of a NaN (0x7f e4m3, 0x7fc0 bf16)
+    bits, nan = (torch.uint8, 0x7f) if dtype == torch.float8_e4m3fn \
+        else (torch.int16, 0x7fc0)
+    clean = []
+    for x in (k, v):
+        x.view(bits)[:, :, dead] = 0
+        clean.append(x.clone())
+    want = da.decode_attention(q, *clean, pos, window)
+    for x in (k, v):
+        x.view(bits)[:, :, dead] = nan
+    assert bool(k.float().isnan().any())
+    got = da.decode_attention(q, k, v, pos, window)
+    assert bool(got.isfinite().all())
+    assert torch.equal(got, want)
 
 
 def test_decode_attention_refuses_what_it_does_not_take(cuda):

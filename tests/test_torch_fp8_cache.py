@@ -340,9 +340,19 @@ def test_decode_attention_result_in_q_dtype_and_refusals():
                                          (8, 63, 132), (4096, 40, 132),
                                          (1, 1, 132)])
 def test_decode_attention_splits_cover_every_slot_once(n_bh, s, sms):
-    chunk, n = da_kernel.splits(n_bh, s, sms)
-    assert n >= 1 and chunk >= 1
-    assert chunk * n >= s > chunk * (n - 1)          # no empty split
-    assert n == 1 or (chunk >= da_kernel.MIN_CHUNK
-                      and chunk % da_kernel.TILE == 0)
-    assert n_bh * n <= max(n_bh, da_kernel.BLOCKS_PER_SM * sms + n_bh)
+    """K6's split of a cache over the CTAs of a cluster, for each cache
+    dtype at pixtral's D: the CTAs' tile spans partition the tiles, the
+    tiles cover the S slots with no empty tile, and a split (C > 1) gives
+    every CTA at least a tile a warp within one wave of 8 warps an SM."""
+    resident = {w: {c: 8 // w * sms // c for c in (1, 2, 4, 8, 16)}
+                for w in da_kernel.WARPS}
+    for size in (4, 2, 1):
+        ts = da_kernel.tile(128, size)
+        w, c = da_kernel.launch_shape(n_bh, s, ts, resident)
+        span = da_kernel.spans(s, ts, c)
+        tiles = -(-s // ts)
+        assert tiles * ts >= s > (tiles - 1) * ts     # no empty tile
+        assert [lo for lo, _ in span[1:]] == [hi for _, hi in span[:-1]]
+        assert span[0][0] == 0 and span[-1][1] == tiles
+        assert c == 1 or (min(hi - lo for lo, hi in span) >= w
+                          and n_bh * c * w <= 8 * sms)

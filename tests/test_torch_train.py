@@ -100,7 +100,8 @@ def test_rmsnorm_bwd_ref_matches_jax_grad(shape):
 def test_rmsnorm_bwd_variant_choice(dtype):
     """Which K3b variant a shape and the alignment of x and g take (decided
     on the host before the launch, so it is checked here on CPU tensors):
-    "warp" only when the rows of both are 16-byte aligned."""
+    "warp" (or "block" past D_MAX) only when the rows of both are 16-byte
+    aligned."""
     epv = 16 // torch.empty((), dtype=dtype).element_size()
     dmax = rn_kernel.D_MAX
 
@@ -118,7 +119,8 @@ def test_rmsnorm_bwd_variant_choice(dtype):
     assert pick(4096, 1152) == ("warp", -(-1152 // (32 * epv)))
     assert pick(16384, 256) == ("warp", -(-256 // (32 * epv)))
     assert pick(9, dmax) == ("warp", dmax // (32 * epv))
-    assert pick(9, dmax + epv) == ("loop", 0)
+    assert pick(9, dmax + epv) == (
+        "block", -(-(dmax // epv + 1) // (32 * rn_kernel.BWD_BLOCK_WARPS)))
     assert pick(9, 1152, x_off=1) == ("scalar", 0)
     assert pick(9, 1152, g_off=1) == ("scalar", 0)
     assert pick(9, 256, g_ld=301) == ("scalar", 0)
