@@ -41,6 +41,15 @@ just before and read just after:
   N=512 against scipy; (s) ``tools/torch_service_smoke.py`` against
   ``python -m repro_torch.service`` on the card, flat at n0=1,024 and
   hierarchical at n0=10,000;
+* the multi-device DGRO path (d) -- 4 ranks spawned once on this one card
+  (``torch.distributed`` over gloo, CUDA tensors staged through pinned
+  host buffers): (d-a) ``diameters_sharded`` of fig20's genomes and (d-b)
+  ``apsp_rowshard`` of the build's overlay, bitwise their one-process
+  results, (d-c) ``parallel_ring_shmap`` bitwise the host's Alg. 4, (d-d)
+  the int8 ring all-reduce of an embedding-sized leaf within its
+  quantization bound and equal on every rank, (d-e) pod-compressed
+  training of gemma3-1b cut to 4 layers, the ranks' parameters equal
+  after every step and K3 / K4 / K3b / K4b launched as the layers imply;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3 /
   K4 / K6 launch counts the config implies (decode attends over the cache
@@ -296,7 +305,7 @@ def phase_kernels(rng, errs: dict) -> None:
 def phase_build(counts: dict):
     """Main path at large N: ``overlay.build("dgro")`` at N=4096 scores its
     candidates with the tiled method (K2 + K1).  Returns the overlay (phase
-    routing routes over it)."""
+    routing routes over it) and scipy's diameter of it."""
     from repro_torch import overlay
     from repro_torch.core.diameter import diameter_scipy
     from repro_torch.core.topology import make_latency
@@ -319,7 +328,7 @@ def phase_build(counts: dict):
         f"({time.perf_counter() - t0:.1f} s)")
     if not np.isclose(got, want, rtol=1e-5, atol=0.0):
         raise AssertionError(f"diameter {got} != scipy {want} (rtol 1e-5)")
-    return ov
+    return ov, want
 
 
 def phase_adapt(counts: dict) -> None:
@@ -351,8 +360,9 @@ def phase_adapt(counts: dict) -> None:
             raise AssertionError(f"{label}: diameter {got} != scipy {want}")
 
 
-def phase_fig20(rng) -> None:
-    """fig20's cell: 64 random 12-ring genomes at N=4096, streamed."""
+def phase_fig20(rng) -> tuple:
+    """fig20's cell: 64 random 12-ring genomes at N=4096, streamed.
+    Returns (w, genomes, diameters) for phase (d)."""
     import torch
 
     from repro_torch.core import batcheval
@@ -378,6 +388,7 @@ def phase_fig20(rng) -> None:
     want = diameter_scipy(adjacency_from_rings(w, list(genomes[0])))
     if not np.isclose(out[0], want, rtol=1e-5, atol=0.0):
         raise AssertionError(f"genome 0: diameter {out[0]} != scipy {want}")
+    return w, genomes, out
 
 
 DQN = dict(n=200, dist="fabric", epochs=1, n_starts=10)
@@ -979,8 +990,9 @@ def forced_adapt(eng, counts: dict) -> np.ndarray:
     Its 4 candidates are scored at N~4,000 (K2 + K1) and the winner's new
     edges land in the maintained state as relaxations -- the path an adapt
     takes when rho leaves the keep band, which replay (a) may not reach.
-    Run once under the profiler (its launches counted there), then held
-    to scipy; returns the new live Dijkstra matrix."""
+    Its launches are counted, then it is held to scipy; returns the new
+    live Dijkstra matrix.  It runs without the profiler, which added ~18 s
+    to it (``PERF.md`` §5 keeps its last profile)."""
     import functools
 
     import torch
@@ -1004,8 +1016,8 @@ def forced_adapt(eng, counts: dict) -> np.ndarray:
         reset_all_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        profiled("(a') forced adapt at N~4,000 (eps 0.5)",
-                 lambda: pol.maybe_adapt(eng))
+        pol.maybe_adapt(eng)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     got = dict(kernel.launches)
     counts["churn (a') forced adapt"] = got
@@ -1014,8 +1026,8 @@ def forced_adapt(eng, counts: dict) -> np.ndarray:
     added = eng.inc.stats["relaxations"] - relax0
     log(f"  (a') forced adapt: added a {kind} ring (rho {rho:.4f}) as "
         f"{added} relaxations, {ledger.apsps('adapt')} candidates scored "
-        f"({sorted({(c[3], c[2]) for c in ledger.calls})}), {wall:.3f} s "
-        f"with the profiler on; launches {got} (expected {want})")
+        f"({sorted({(c[3], c[2]) for c in ledger.calls})}), {wall:.3f} s; "
+        f"launches {got} (expected {want})")
     if got != want or ledger.apsps("adapt") < 4 or added < 1:
         raise AssertionError(f"(a'): launches {got} != {want}, or no ring "
                              f"was scored and added")
@@ -1715,6 +1727,406 @@ def phase_service() -> None:
         if "error" in r["reopt_cycles"]:
             raise AssertionError(f"(s) {policy}: a reopt cycle failed: "
                                  f"{r['reopt_cycles']}")
+
+
+# phase (d): every rank on the card, gemma3-1b at full width
+DIST = dict(ranks=4, timeout=300, n=4096, emb=(262_144, 1_152),
+            small=1_000_003, layers=4, seq=1024, steps=3, lr=3e-3,
+            ce_chunk=256)
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's or an array's bytes (bitwise comparisons
+    across processes)."""
+    import hashlib
+
+    import torch
+
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _tree_digest(tree) -> str:
+    """A fingerprint of a tree's bits computed on its device: for each
+    leaf, in slices of 2^24 elements, the wrapping int64 sums of the
+    32-bit words and of each word times (1 + its place in the slice).  Any
+    one differing word changes the second sum by a nonzero product below
+    2^56; the sums of every leaf are hashed together."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    h = hashlib.sha256()
+    place = None
+    for leaf in tree_leaves(tree):
+        words = leaf.detach().contiguous().reshape(-1).view(torch.int32)
+        sums = []
+        for lo in range(0, words.numel(), 1 << 24):
+            w = words[lo:lo + (1 << 24)].to(torch.int64)
+            if place is None or place.device != w.device:
+                place = torch.arange(1, (1 << 24) + 1, device=w.device)
+            sums.append(torch.stack([w.sum(), (w * place[:w.numel()]).sum()]))
+        h.update(torch.stack(sums).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _counted(out: dict, key: str, fn):
+    """Run ``fn`` on this rank with every launch count and the transport's
+    counters reset just before; keep its wall, K1 / K2 launches and
+    traffic under ``out[key]``.  Returns ``fn``'s result."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.kernels.minplus import kernel as mp
+
+    reset_all_launches()
+    D.TRAFFIC.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    out[key] = {"wall": time.perf_counter() - t0,
+                "launches": {**mp.launches, **lm_launches()},
+                "traffic": dict(vars(D.TRAFFIC))}
+    return res
+
+
+def _ring_chunk_check(got, parts, first: int, scale: float) -> tuple:
+    """One ring chunk: ``got`` (flat) against ``scale`` x the fp64 sum of
+    the ranks' ``parts`` of it (ring order; the chunk starts at rank
+    ``first``), within ``scale`` x ``chunk_error_bound`` plus 2^-22 of the
+    value (the fp32 multiply by ``scale``).  Returns (within, worst
+    |diff| / bound, max |diff|)."""
+    import torch
+
+    from repro_torch.train.collectives import chunk_error_bound
+
+    exact = torch.zeros(got.numel(), dtype=torch.float64, device=got.device)
+    for p in parts:
+        exact += p.to(torch.float64)
+    exact *= scale
+    bound = chunk_error_bound(parts, first) * scale + exact.abs() * 2.0 ** -22
+    diff = (got.to(torch.float64) - exact).abs()
+    return (bool((diff <= bound).all()), float((diff / bound).max()),
+            float(diff.max()))
+
+
+def _fold(checks) -> dict:
+    return {"d_within": all(c[0] for c in checks),
+            "d_worst": max(c[1] for c in checks),
+            "d_err": max(c[2] for c in checks)}
+
+
+def dist_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of phase (d): every check's numbers, as plain values."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.configs import get_arch
+    from repro_torch.core import batcheval, parallel
+    from repro_torch.core.diameter import largest_cc_diameter
+    from repro_torch.core.topology import make_latency
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import collectives as C
+    from repro_torch.train import pod_compress as PC
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             tree_leaves, warmup_cosine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    torch.cuda.set_per_process_memory_fraction(0.9 / world)
+    out: dict = {}
+    line = Mesh(np.arange(world), ("batch",))
+    n = spec["n"]
+
+    marks = out["marks"] = [("start", time.time())]
+    # (d-a) sharded scoring of fig20's genomes
+    src = batcheval.RingBlockSource(make_latency("uniform", n, seed=n),
+                                    np.load(spec["genomes"]))
+    out["a_diam"] = _counted(out, "a",
+                             lambda: batcheval.diameters_sharded(
+                                 src, mesh=line, device=dev))
+    out["a_report"] = batcheval.last_eval_report()
+
+    marks.append(("(d-a)", time.time()))
+    # (d-b) row-sharded APSP of the build's overlay
+    adj = np.load(spec["adj"])
+    rows = _counted(out, "b", lambda: batcheval.apsp_rowshard(
+        adj, mesh=Mesh(np.arange(world), ("rows",)), device=dev))
+    out["b_digest"] = _digest(rows)
+    out["b_diam"] = float(largest_cc_diameter(torch.from_numpy(rows)[None]))
+    del rows, adj
+
+    marks.append(("(d-b)", time.time()))
+    # (d-c) partitioned construction, one partition a rank
+    w = make_latency("fabric", n, seed=0)
+    with batcheval.eval_options(device=dev):
+        out["c_ring"] = _counted(
+            out, "c", lambda: parallel.parallel_ring_shmap(
+                w, Mesh(np.arange(world), ("partitions",)), seed=0))
+
+    marks.append(("(d-c)", time.time()))
+    # (d-d) the int8 ring all-reduce
+    ring = Mesh(np.arange(world), ("data",)).group("data")
+
+    def leaf(r: int):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        return torch.randn(spec["emb"], generator=g, device=dev) * 1e-2
+
+    x = leaf(rank)
+    y = _counted(out, "d", lambda: C.ring_allreduce(x, ring))
+    out["d_digest"] = _digest(y)
+    if rank == 0:     # the fp64 sum and the bound, from every rank's seed
+        xs = [leaf(r).reshape(-1) for r in range(world)]
+        out.update(_fold([_ring_chunk_check(y.reshape(-1)[lo:hi],
+                                            [x[lo:hi] for x in xs], c, 1.0)
+                          for c, lo, hi in C.ring_chunks(x.numel(), world)]))
+        del xs
+    del x, y
+    xs_cpu = torch.randn(spec["small"],
+                         generator=torch.Generator().manual_seed(2000 + rank))
+    y_card = _counted(out, "d_small", lambda: C.ring_allreduce(
+        xs_cpu.to(dev), ring))
+    y_cpu = C.ring_allreduce(xs_cpu, ring)
+    out["d_small_equal"] = bool(torch.equal(y_card.cpu(), y_cpu))
+    torch.cuda.empty_cache()     # give the cache back: 4 ranks share a card
+
+    marks.append(("(d-d) and its check", time.time()))
+    # (d-e) pod-compressed training of gemma3-1b cut to 4 layers
+    cfg = get_arch("gemma3-1b")
+    cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    lr, steps = spec["lr"], spec["steps"]
+    tc = TT.TrainConfig(optimizer=AdamWConfig(
+        lr=lr, weight_decay=0.1,
+        schedule=warmup_cosine(lr, warmup=max(steps // 20, 5),
+                               total=steps)), remat=True,
+        ce_chunk=spec["ce_chunk"])
+    mesh = Mesh(np.asarray(spec["pod_order"]).reshape(world, 1, 1),
+                ("pod", "data", "model"))
+    step = PC.pod_compressed_train_step(cfg, tc, mesh)
+    pods = mesh.group("pod")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                  global_batch=world,
+                                  mean_doc_len=spec["seq"] / 2))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                PC.shard_batch(data.batch(i), mesh).items()}
+               for i in range(steps)]
+    params = TT.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev).params
+    out["e_params"] = sum(p.numel() for p in tree_leaves(params))
+    marks.append(("(d-e) set-up", time.time()))
+    # step 1's reduced gradient against the exact fp32 mean, within the
+    # ring's bound: every rank's gradients gathered a ring chunk at a time
+    _, _, grads = TT.loss_and_grads(cfg, tc, params, batches[0])
+    reduced = C.compressed_grad_mean(grads, pods)
+    inv = float(np.float32(1.0) / np.float32(world))
+    checks = []
+    for gl, rl in zip(tree_leaves(grads), tree_leaves(reduced)):
+        flat, red = gl.reshape(-1), rl.reshape(-1)
+        for c, lo, hi in C.ring_chunks(flat.numel(), world):
+            parts = D.all_gather(flat[lo:hi][None], pods)
+            if rank == 0:
+                checks.append(_ring_chunk_check(red[lo:hi], list(parts), c,
+                                                inv))
+            del parts
+    if rank == 0:
+        out["e_grad"] = _fold(checks)
+    del grads, reduced
+    marks.append(("(d-e) gradient check", time.time()))
+    state = TT.TrainState(params, adamw_init(params))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["e_steps"] = []
+    for i in range(steps):
+        state, met = _counted(out, "e_step",
+                              lambda: step(state, batches[i]))
+        rec = out.pop("e_step")
+        rec.update(loss=float(met["loss"]), gnorm=float(met["grad_norm"]),
+                   digest=_tree_digest(state.params))
+        out["e_steps"].append(rec)
+    marks.append(("(d-e) steps and digests", time.time()))
+    out["e_peak"] = torch.cuda.max_memory_allocated()
+    out["e_expected"] = expected_train_launches(cfg)
+    return out
+
+
+def phase_distributed(fig20: tuple, built, built_scipy: float,
+                      card: str) -> None:
+    """(d) The multi-device DGRO path over ``torch.distributed``: R = 4
+    ranks spawned once, all on ``cuda:0`` (NCCL needs a card a rank), gloo
+    over a ``FileStore`` in ``build/``, every CUDA tensor staged through
+    pinned host buffers.  Each rank writes its numbers to a file and this
+    process asserts on them; a rank that fails, or ranks that outlive 300
+    s, are killed and fail the phase.  (d-a) ``diameters_sharded`` of
+    fig20's 64 genomes at N = 4096, bitwise fig20's one-process scores;
+    (d-b) ``apsp_rowshard`` of the build's overlay, bitwise the
+    one-process ``apsp_rowshard`` on the card, its diameter within rtol
+    1e-5 of scipy's, K1 12 times a rank; (d-c) ``parallel_ring_shmap``
+    at M = R, bitwise ``parallel_ring_host``; (d-d) ``ring_allreduce`` of
+    gemma3-1b's embedding-sized leaf from per-rank seeds, equal on every
+    rank and within ``chunk_error_bound`` of the fp64 sum, and a
+    1,000,003-element ring on the card bitwise the same ring over CPU
+    tensors; (d-e) ``pod_compressed_train_step`` on gemma3-1b cut to 4
+    layers, mesh (pod R, data 1, model 1) in the DGRO order of
+    ``model_dcn_latency(R, n_pods=2)``, one 1024-token sequence a rank, 3
+    steps: parameters equal on every rank after each, step 1's reduced
+    gradient within the bound of the exact mean, losses and grad norms
+    finite, K3 / K4 / K3b / K4b launches a rank-step as
+    ``expected_train_launches``.  The ranks share one card: the phase
+    measures the transport and proves the protocol; it is no speed-up."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.core import batcheval
+    from repro_torch.core.parallel import parallel_ring_host
+    from repro_torch.core.topology import make_latency
+    from repro_torch.kernels.minplus import ops as minplus_ops
+    from repro_torch.launch.mesh import dgro_host_order, model_dcn_latency
+
+    r = DIST["ranks"]
+    work = os.path.join(ROOT, "build", "dist_smoke")
+    os.makedirs(work, exist_ok=True)
+    _, genomes, diam_one = fig20
+    adj = built.adjacency
+    spec = dict(DIST, genomes=os.path.join(work, "genomes.npy"),
+                adj=os.path.join(work, "adj.npy"))
+    np.save(spec["genomes"], genomes)
+    np.save(spec["adj"], adj)
+    t0 = time.perf_counter()
+    rows_one = batcheval.apsp_rowshard(adj, device="cuda")
+    one_wall = time.perf_counter() - t0
+    ring_host = parallel_ring_host(make_latency("fabric", DIST["n"], seed=0),
+                                   r, seed=0)
+    order, rep = dgro_host_order(model_dcn_latency(r, n_pods=2))
+    spec["pod_order"] = [int(i) for i in order]
+    log(f"  pod ring order {spec['pod_order']} ({rep['selected']}, diameter "
+        f"{rep['diameter']:.3f} vs random {rep['random_diameter']:.3f}); "
+        f"spawning {r} ranks on cuda:0 (gloo, FileStore) "
+        f"[{card}]")
+    torch.cuda.empty_cache()
+    t0, spawned = time.perf_counter(), time.time()
+    res = D.spawn_ranks(dist_rank, r, args=(spec,),
+                        timeout=DIST["timeout"], workdir=work)
+    done = time.time()
+    parts = []
+    for i, (what, at) in enumerate(res[0]["marks"]):
+        before = spawned if i == 0 else res[0]["marks"][i - 1][1]
+        parts.append(f"{'start-up' if i == 0 else what} {at - before:.1f}")
+    log(f"  (d) {r} ranks done in {time.perf_counter() - t0:.1f} s; rank "
+        f"0's wall by part, s: {', '.join(parts)}, exit "
+        f"{done - res[0]['marks'][-1][1]:.1f}")
+    fails = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    def walls(key):
+        return max(o[key]["wall"] for o in res)
+
+    def traffic(key, what):
+        return sum(o[key]["traffic"][what] for o in res)
+
+    # (d-a): the tiled method's ceil(N / T) diagonal steps of one K2 and
+    # two K1 for each of a rank's B / R genomes
+    k1 = [o["a"]["launches"]["minplus_acc"] for o in res]
+    k2 = [o["a"]["launches"]["fw_tile"] for o in res]
+    per = len(genomes) // r
+    steps = -(-DIST["n"] // minplus_ops.default_tile(DIST["n"]))
+    methods = {o["a_report"]["method"] for o in res}
+    same = all(np.array_equal(o["a_diam"], diam_one) for o in res)
+    log(f"  (d-a) diameters_sharded B={len(genomes)} N={DIST['n']} over {r} "
+        f"ranks: bitwise fig20's one-process scores {same}; {walls('a'):.3f}"
+        f" s wall (slowest rank); staged {traffic('a', 'bytes_staged')} B "
+        f"through the host in all; method {methods}, K2 / K1 launches a "
+        f"rank {k2} / {k1} (expected {per * steps} / {2 * per * steps}) "
+        f"[{card}]")
+    check(same, "(d-a) sharded scores differ from the one-process scores")
+    check(methods == {"tiled"}, f"(d-a) method {methods}, not tiled")
+    check(k2 == [per * steps] * r and k1 == [2 * per * steps] * r,
+          f"(d-a) K2 / K1 launches {k2} / {k1}, not {per * steps} / "
+          f"{2 * per * steps} a rank")
+    # (d-b)
+    k1 = [o["b"]["launches"]["minplus_acc"] for o in res]
+    same = all(o["b_digest"] == _digest(rows_one) for o in res)
+    d = res[0]["b_diam"]
+    log(f"  (d-b) apsp_rowshard N={DIST['n']} over {r} ranks: bitwise the "
+        f"one-process apsp_rowshard ({one_wall:.3f} s) {same}; diameter "
+        f"{d!r} vs scipy {built_scipy!r}; K1 launches a rank {k1}; "
+        f"{walls('b'):.3f} s wall; gathered "
+        f"{traffic('b', 'bytes_received')} B, staged "
+        f"{traffic('b', 'bytes_staged')} B in all [{card}]")
+    check(same, "(d-b) row-sharded APSP differs from one process")
+    check(np.isclose(d, built_scipy, rtol=1e-5, atol=0.0),
+          "(d-b) diameter beyond rtol 1e-5 of scipy")
+    check(k1 == [12] * r, f"(d-b) K1 launches {k1}, not 12 a rank")
+    # (d-c)
+    same = all(np.array_equal(o["c_ring"], ring_host) for o in res)
+    log(f"  (d-c) parallel_ring_shmap N={DIST['n']} M={r}: bitwise "
+        f"parallel_ring_host {same}; {walls('c'):.3f} s wall [{card}]")
+    check(same, "(d-c) the partitioned ring differs from the host's")
+    # (d-d)
+    o0 = res[0]
+    nbytes = int(np.prod(DIST["emb"])) * 4
+    wall = walls("d")
+    log(f"  (d-d) ring_allreduce of {DIST['emb']} fp32 ({nbytes} B a rank) "
+        f"over {r} ranks: equal on every rank "
+        f"{len({o['d_digest'] for o in res}) == 1}; max |ring - fp64 sum| "
+        f"{o0['d_err']:.4g}, worst |diff| / bound "
+        f"{o0['d_worst']:.3f}; {wall:.3f} s (slowest rank), "
+        f"{o0['d']['traffic']['seconds']:.3f} s of it in rank 0's "
+        f"{o0['d']['traffic']['hops']} hops; "
+        f"{traffic('d', 'bytes_received')} B received, "
+        f"{traffic('d', 'bytes_staged')} B staged in all: "
+        f"{traffic('d', 'bytes_staged') / wall / 1e9:.3f} GB/s through the "
+        f"host, {r * nbytes / wall / 1e9:.3f} GB/s of fp32 input reduced "
+        f"[{card}]")
+    check(len({o["d_digest"] for o in res}) == 1, "(d-d) ranks differ")
+    check(o0["d_within"], "(d-d) beyond the quantization bound")
+    log(f"  (d-d) a {DIST['small']}-element ring on the card bitwise the "
+        f"same ring over CPU tensors: "
+        f"{all(o['d_small_equal'] for o in res)}; {walls('d_small'):.3f} s")
+    check(all(o["d_small_equal"] for o in res),
+          "(d-d) the card's ring differs from the CPU's")
+    # (d-e)
+    want = o0["e_expected"]
+    log(f"  (d-e) gemma3-1b, {DIST['layers']} of 26 layers, "
+        f"{o0['e_params']} parameters a rank, mesh (pod {r}, data 1, model "
+        f"1), one {DIST['seq']}-token sequence a rank; step 1's reduced "
+        f"gradient vs the exact fp32 mean: within the bound "
+        f"{o0['e_grad']['d_within']}, worst |diff| / bound "
+        f"{o0['e_grad']['d_worst']:.3f}, max |diff| "
+        f"{o0['e_grad']['d_err']:.4g}")
+    check(o0["e_grad"]["d_within"], "(d-e) reduced gradient beyond the "
+          "bound")
+    for i in range(DIST["steps"]):
+        recs = [o["e_steps"][i] for o in res]
+        launches = [{k: v for k, v in rec["launches"].items()
+                     if k in want} for rec in recs]
+        same = len({rec["digest"] for rec in recs}) == 1
+        log(f"  (d-e) step {i}: loss {recs[0]['loss']:.6f} gnorm "
+            f"{recs[0]['gnorm']:.4f}; {max(rec['wall'] for rec in recs):.3f}"
+            f" s (slowest rank), {recs[0]['traffic']['seconds']:.3f} s of "
+            f"it in rank 0's collectives ({recs[0]['traffic']['hops']} "
+            f"hops); {recs[0]['traffic']['bytes_staged']} B staged a rank; "
+            f"parameters equal on every rank {same}")
+        check(same, f"(d-e) step {i}: ranks' parameters differ")
+        check(all(np.isfinite([rec["loss"], rec["gnorm"]]).all()
+                  for rec in recs),
+              f"(d-e) step {i}: loss or grad norm not finite")
+        check(all(l == want for l in launches),
+              f"(d-e) step {i}: launches {launches[0]} != {want}")
+    log(f"  (d-e) launches a rank-step {launches[0]} (expected {want}); "
+        f"peak memory a rank {[o['e_peak'] for o in res]} B [{card}]")
+    if fails:
+        raise AssertionError("; ".join(fails))
 
 
 def profiled(label: str, fn) -> None:
@@ -4400,11 +4812,11 @@ def main() -> int:
         "versions")
     phase_lm_bwd_kernels(rng, errs)
     log("phase: main path, overlay.build('dgro') at N=4096")
-    built = phase_build(counts)
+    built, built_scipy = phase_build(counts)
     log("phase: ring selection, selection.adapt at N=256")
     phase_adapt(counts)
     log("phase: fig20 cell, diameters_of_rings B=64 N=4096")
-    phase_fig20(rng)
+    fig20 = phase_fig20(rng)
     log(f"phase: dgro-dqn at N={DQN['n']}")
     phase_dqn(counts)
     log(f"phase: parallel at N={PARALLEL['n']}")
@@ -4419,13 +4831,16 @@ def main() -> int:
             ("(p) the churn engine's routing probe",
              lambda: phase_probe(counts, rate_b)),
             (f"(h) hierarchy at N={HIER['n']}", lambda: phase_hier(counts)),
-            ("(s) the control-plane service", phase_service)):
+            ("(s) the control-plane service", phase_service),
+            (f"(d) the multi-device DGRO path, {DIST['ranks']} ranks on "
+             f"one card", lambda: phase_distributed(fig20, built,
+                                                     built_scipy, card))):
         log(f"phase: {label}")
         t0 = time.perf_counter()
         run()
         log(f"  {label.split(' ')[0]} phase: "
             f"{time.perf_counter() - t0:.1f} s")
-    del built
+    del built, fig20
     log("phase: LM serving, gemma3-1b at full width")
     served = phase_serve(counts, errs)
     log("phase: device time by profiler")

@@ -23,12 +23,15 @@ diameter".  This module turns that into memory-bounded device calls.
   error on float32 probes and re-runs exactly past ``exact_rtol``.
   ``eval_options`` scopes any knob -- including ``device`` -- over a call
   tree; ``last_eval_report()`` returns the facts of the last call.
-* one-device versions of the reference's sharded entry points --
-  ``diameters_sharded`` is the streaming ``diameters`` (the reference's
-  own single-device fallback), and ``apsp_rowshard`` is the APSP of one
-  (N, N) matrix by min-plus squaring through ``ops.minplus`` (K1 with a
-  batch of one on the card).  There is no mesh: ``torch.distributed``
-  comes after every one-device slice.
+* sharded compute over the ranks of a ``launch.mesh.Mesh`` axis
+  (``torch.distributed``, collectives in ``repro_torch.distributed``) --
+  ``diameters_sharded`` scores a contiguous sub-batch on each rank with
+  the streaming ``diameters`` and gathers the scores;
+  ``apsp_rowshard`` squares one (N, N) matrix by (N/k, N) row blocks,
+  gathering the blocks once a squaring (``ops.minplus``: K1 with a batch
+  of one on the card).  Every rank calls them and gets the whole result;
+  on an axis of one rank, or with no process group, they are the
+  one-device facade (the reference's own fallback).
 
 Instrumentation is the reference's (``repro_torch.obs``): every device
 call lands in ``repro_apsp_seconds{method, phase}`` (first call per key
@@ -51,6 +54,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import distributed
 from repro_torch.device import resolve_device
 from repro_torch.kernels.minplus import ops as minplus_ops
 from repro_torch.obs import REGISTRY, jit_phase, jit_span
@@ -208,6 +212,30 @@ def _as_source(adjs):
     if hasattr(adjs, "block") and hasattr(adjs, "n"):
         return adjs
     return _ArraySource(adjs)
+
+
+class _RowSource:
+    """Rows ``rows`` of another block source (repeats allowed), fetching
+    each run of consecutive rows in one ``block`` call."""
+
+    def __init__(self, src, rows):
+        self.src = src
+        self.rows = np.asarray(rows, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    @property
+    def n(self) -> int:
+        return self.src.n
+
+    def block(self, lo: int, hi: int) -> np.ndarray:
+        rows = self.rows[lo:hi]
+        cuts = np.flatnonzero(np.diff(rows) != 1) + 1
+        runs = [np.asarray(self.src.block(int(r[0]), int(r[-1]) + 1),
+                           np.float32)
+                for r in np.split(rows, cuts)]
+        return runs[0] if len(runs) == 1 else np.concatenate(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -626,40 +654,130 @@ def diameters_of_rings(w: np.ndarray, genomes, *, use_kernel: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# the reference's sharded entry points, on one device
+# sharded compute (multi-device)
 # ---------------------------------------------------------------------------
 
-def diameters_sharded(adjs, *, use_kernel: bool = False,
-                      method: str | None = None, symmetric: bool = True,
-                      dtype: str | None = None, tile: int | None = None,
-                      device=None) -> np.ndarray:
-    """``repro.core.batcheval.diameters_sharded`` on one device: the
-    streaming ``diameters``, as the reference's own fallback for a
-    one-device mesh.  The keywords are the reference's, less ``mesh`` and
-    ``axis``; ``device`` follows the ``repro_torch.device`` rule."""
-    adjs = np.asarray(adjs, np.float32)
-    assert adjs.ndim == 3 and adjs.shape[1] == adjs.shape[2], adjs.shape
-    if adjs.shape[0] == 0:
+# the default meshes, one per (axis, world size), each beside the world's
+# process group it was made under: a mesh caches its groups, and
+# ``new_group`` is a collective whose gloo groups are never freed, so the
+# default mesh's groups are made once a process, not once a call
+_EVAL_MESHES: dict = {}
+
+
+def _axis_mesh(mesh, axis: str):
+    """``mesh`` or, where it is None, ``launch.mesh.make_eval_mesh`` over
+    the process group's world (one rank without a group), as the reference
+    builds one over every local device; the default is made once for each
+    axis and world (:data:`_EVAL_MESHES`)."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_eval_mesh
+
+        pg = distributed.world().pg
+        key = (axis, distributed.world_size())
+        hit = _EVAL_MESHES.get(key)
+        if hit is None or hit[0] is not pg:
+            hit = _EVAL_MESHES[key] = (pg, make_eval_mesh(axis=axis))
+        mesh = hit[1]
+    return mesh, int(mesh.shape[axis])
+
+
+def diameters_sharded(adjs, *, mesh=None, axis: str = "batch",
+                      use_kernel: bool = False, method: str | None = None,
+                      symmetric: bool = True, dtype: str | None = None,
+                      tile: int | None = None, device=None) -> np.ndarray:
+    """``diameters`` with the batch axis sharded over the ranks of a mesh
+    axis (``repro_torch.launch.mesh.Mesh``); every rank of the mesh calls
+    it with the same ``adjs`` -- a (B, N, N) array or, as ``diameters``
+    takes, a lazy block source such as :class:`RingBlockSource` -- and gets
+    the whole (B,) result.
+
+    As the reference does, B is padded to a multiple of the axis size k by
+    repeating ``adjs[:1]`` (and ``dtype="int16"`` quantizes the whole batch
+    on one grid first); rank i scores its contiguous sub-batch with the
+    streaming ``diameters`` on its device (K1 / K2 on the card), and the
+    scores are ``all_gather``ed over the axis's group and the pad dropped.
+    With no mesh, a 1-D ``make_eval_mesh`` over the world; with an axis of
+    one rank (or no process group) this is the streaming ``diameters``, the
+    reference's own single-device fallback.  ``device`` follows the
+    ``repro_torch.device`` rule."""
+    src = _as_source(adjs)
+    b, n = len(src), src.n
+    if b == 0:
         return np.zeros((0,), np.float32)
-    return diameters(adjs, use_kernel=use_kernel, method=method,
-                     symmetric=symmetric, dtype=dtype, tile=tile,
-                     device=device)
+    mesh, k = _axis_mesh(mesh, axis)
+    if k <= 1:
+        return diameters(src, use_kernel=use_kernel, method=method,
+                         symmetric=symmetric, dtype=dtype, tile=tile,
+                         device=device)
+    group = mesh.group(axis)
+    if (_opt("dtype", dtype) or "float32") == "int16":
+        if not isinstance(src, _ArraySource):
+            raise ValueError("dtype='int16' over a mesh quantizes the whole "
+                             "batch on one grid: pass it as an array")
+        # one grid for the whole batch, as the reference quantizes it
+        src, dtype = _ArraySource(quantize_latency(src.adjs)[0]), "float32"
+    per = -(-b // k)
+    rows = np.arange(group.index * per, (group.index + 1) * per)
+    rows[rows >= b] = 0                  # the pad repeats adjs[:1]
+    t0 = time.perf_counter()
+    local = diameters(_RowSource(src, rows), use_kernel=use_kernel,
+                      method=method, symmetric=symmetric, dtype=dtype,
+                      tile=tile, device=device)
+    rep = last_eval_report()
+    dev = eval_device(device)
+    out = distributed.all_gather(torch.from_numpy(local).to(dev),
+                                 group).cpu().numpy()
+    _observe_call(rep["method"], ("sharded", k, per, n, rep["method"],
+                                  symmetric, rep["dtype"], rep["tile"]),
+                  time.perf_counter() - t0, rep["workingset_bytes"])
+    rep.update(b=b, devices=k, chunk=per)
+    _report.data = rep
+    return out[:b]
 
 
-def apsp_rowshard(adj: np.ndarray, *, device=None) -> np.ndarray:
-    """APSP of ONE (N, N) matrix by min-plus squaring, as a host float32
-    array: ``repro.core.batcheval.apsp_rowshard`` with its row-block axis
-    on one device.  Each of the ceil(log2(N-1)) squarings is
-    ``diameter.minplus`` -- K1 with a batch of one on the card, its plain
-    twin on the CPU -- and equals the reference's per-row-block pivot
-    loop bit for bit (a min over the same sums; the 0 diagonal keeps the
-    old entry among the candidates).  Observed into ``repro_apsp_seconds``
-    under the reference's method ``"squaring"`` and key."""
+def apsp_rowshard(adj: np.ndarray, *, mesh=None, axis: str = "rows",
+                  device=None) -> np.ndarray:
+    """APSP of ONE (N, N) matrix with the ROW-BLOCK axis sharded over the
+    ranks of a mesh axis, as a host float32 array on every rank.
+
+    Min-plus squaring: N is padded to a multiple of the axis size k with
+    isolated nodes (INF rows, a 0 diagonal), and each of the
+    ``max(1, ceil(log2(max(npad - 1, 2))))`` squarings ``all_gather``s the
+    (npad / k, npad) row blocks and takes ``loc = minplus(loc, full)``
+    through ``kernels.minplus.ops`` -- K1 with a batch of one on the card,
+    its plain twin on the CPU.  That equals the reference's per-row-block
+    pivot loop bit for bit: a min over the same sums, the 0 diagonal
+    keeping the old entry among the candidates.  With an axis of one rank
+    (or no process group, or no mesh outside one) it is the one-device
+    squaring of the whole matrix.  Observed into ``repro_apsp_seconds``
+    under the reference's method ``"squaring"``, key and working set."""
     adj = np.asarray(adj, np.float32)
     assert adj.ndim == 2 and adj.shape[0] == adj.shape[1], adj.shape
     n = adj.shape[0]
+    dev = eval_device(device)
+    mesh, k = _axis_mesh(mesh, axis)
+    if k <= 1:
+        t0 = time.perf_counter()
+        out = apsp(torch.from_numpy(adj).to(dev)).cpu().numpy()
+        _observe_call("squaring", ("rowshard", 1, n),
+                      time.perf_counter() - t0, 4 * (n * n + 2 * n * n))
+        return out
+    group = mesh.group(axis)
+    npad = -(-n // k) * k
+    if npad != n:
+        padded = np.full((npad, npad), float(INF), np.float32)
+        padded[np.arange(npad), np.arange(npad)] = 0.0
+        padded[:n, :n] = adj
+        adj = padded
+    n_iters = max(1, int(np.ceil(np.log2(max(npad - 1, 2)))))
+    rows = npad // k
     t0 = time.perf_counter()
-    out = apsp(torch.from_numpy(adj).to(eval_device(device))).cpu().numpy()
-    _observe_call("squaring", ("rowshard", 1, n), time.perf_counter() - t0,
-                  4 * (n * n + 2 * n * n))
-    return out
+    loc = torch.from_numpy(
+        adj[group.index * rows:(group.index + 1) * rows]).to(dev)
+    for _ in range(n_iters):
+        loc = minplus_ops.minplus(loc, distributed.all_gather(loc, group))
+    out = distributed.all_gather(loc, group).cpu().numpy()
+    _observe_call("squaring", ("rowshard", k, npad),
+                  time.perf_counter() - t0,
+                  4 * (npad * npad + 2 * rows * npad))
+    return out[:n, :n]

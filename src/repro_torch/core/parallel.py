@@ -32,7 +32,8 @@ Engines, cross-validated in tests (all consume the same
 * :func:`parallel_ring_host` -- per-partition numpy loop, the reference
   implementation;
 * :func:`parallel_ring_shmap` -- the reference's one-block-per-device
-  ``shard_map`` engine, as its single-device fallback.
+  ``shard_map`` engine: one block per rank of a mesh axis over
+  ``torch.distributed``.
 
 Device tensors go to ``batcheval.eval_device()``: CUDA unless the caller
 asks for the CPU.
@@ -45,6 +46,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import distributed
 from . import batcheval
 from .construction import nearest_ring, nearest_ring_batched
 from .diameter import INF, adjacency_from_rings
@@ -429,11 +431,37 @@ def parallel_overlay(w: np.ndarray, m: int, seed: int = 0,
     return Overlay.from_rings(w, [perm], policy="parallel"), scores
 
 
-def parallel_ring_shmap(w: np.ndarray, m: int, seed: int = 0,
-                        stitch: str = "naive") -> np.ndarray:
-    """The reference's ``shard_map`` engine (one padded partition block per
-    device of an M-device mesh axis) as its single-device fallback: on one
-    device that is the batched engine, :func:`parallel_ring`.  ``m`` stands
-    for the mesh axis size.  Identical to :func:`parallel_ring_host` at a
-    fixed seed."""
-    return parallel_ring(w, m, seed=seed, stitch=stitch)
+def parallel_ring_shmap(w: np.ndarray, mesh, axis: str = "partitions",
+                        seed: int = 0, stitch: str = "naive") -> np.ndarray:
+    """Algorithm 4 with one padded partition block per rank of a mesh axis
+    (``launch.mesh.Mesh``): the reference's ``shard_map`` engine over
+    ``torch.distributed``.  Every rank of the mesh calls it and gets the
+    merged ring.
+
+    Every rank draws the same :class:`PartitionPlan` from ``seed``; rank r
+    builds partition r's nearest-neighbour ring on its INF-padded (P, P)
+    block (:func:`construction.nearest_ring_batched` on its device); the
+    (1, P) permutations are ``all_gather``ed over the axis's group, and
+    every rank extracts the segments and stitches them.  The same plan
+    randomness keeps the ring bit-identical to :func:`parallel_ring` /
+    :func:`parallel_ring_host` at a fixed seed.  An int in place of the
+    mesh is the partition count on one device (the batched engine,
+    :func:`parallel_ring`), as is an axis of one rank."""
+    if isinstance(mesh, (int, np.integer)):
+        return parallel_ring(w, int(mesh), seed=seed, stitch=stitch)
+    m = int(mesh.shape[axis])
+    if m <= 1:
+        return parallel_ring(w, m, seed=seed, stitch=stitch)
+    group = mesh.group(axis)
+    w = np.asarray(w, dtype=np.float32)
+    plan = plan_partitions(w.shape[0], m, np.random.default_rng(seed))
+    r = group.index
+    idx = _plans_index([plan], plan.p_max)[r:r + 1]
+    dev = batcheval.eval_device()
+    block = _gather_blocks(torch.from_numpy(w), torch.from_numpy(idx),
+                           float(INF)).to(dev)
+    perm = nearest_ring_batched(
+        block, torch.as_tensor(plan.starts[r:r + 1], device=dev))
+    perms = distributed.all_gather(perm, group).cpu().numpy()
+    segments = _extract_segments(plan, perms)
+    return stitch_segments(w, segments, stitch=stitch, seed=seed)

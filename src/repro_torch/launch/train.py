@@ -11,9 +11,11 @@ microbatching) -> async checkpointing -> the per-host straggler EWMA of
 
 Without ``--device cpu`` it runs on the CUDA card and raises where there is
 none.  ``--mesh none`` only: the production meshes (``single``, ``multi``)
-need ``torch.distributed`` over several devices and are not ported
-(ROADMAP Queue A item 13f).  The SSM families train too
-(``--arch falcon-mamba-7b`` or ``zamba2-7b``).
+are built (``launch.mesh.make_production_mesh``) and their collectives run
+(``train.collectives``, ``train.pod_compress``), but they shard parameters
+over a ``model`` axis, and the tensor-parallel model code and sharding
+specs they need are not ported (the rest of ROADMAP Queue A item 13f).
+The SSM families train too (``--arch falcon-mamba-7b`` or ``zamba2-7b``).
 """
 from __future__ import annotations
 
@@ -55,9 +57,10 @@ def main(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production mesh needs torch.distributed"
-            f" over several devices and is not ported (ROADMAP Queue A item "
-            f"13f); use --mesh none")
+            f"--mesh {args.mesh}: the mesh and the collectives are ported "
+            f"(launch.mesh, train.collectives), but the production mesh's "
+            f"model axis needs tensor parallelism, the rest of ROADMAP "
+            f"Queue A item 13f, which is not; use --mesh none")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.smoke:

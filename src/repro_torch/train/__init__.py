@@ -1,3 +1,3 @@
-"""Training substrate, ported (``repro.train``): the optimizer and the LM
-training step.  ``collectives`` and ``pod_compress`` are not ported yet
-(ROADMAP Queue A item 13f)."""
+"""Training substrate, ported (``repro.train``): the optimizer, the LM
+training step, the int8 ring all-reduce (``collectives``) and pod-compressed
+data parallelism over ``torch.distributed`` (``pod_compress``)."""
