@@ -49,7 +49,10 @@ just before and read just after:
   the int8 ring all-reduce of an embedding-sized leaf within its
   quantization bound and equal on every rank, (d-e) pod-compressed
   training of gemma3-1b cut to 4 layers, the ranks' parameters equal
-  after every step and K3 / K4 / K3b / K4b launched as the layers imply;
+  after every step and K3 / K4 / K3b / K4b launched as the layers imply,
+  (d-f) tensor and expert parallel training of moonshot-v1-16b-a3b at
+  full width cut to 2 layers over mesh (data 1, model 4), step 1 held to
+  the one-device step (routing flips only at near ties);
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3 /
   K4 / K6 launch counts the config implies (decode attends over the cache
@@ -117,6 +120,7 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -1731,8 +1735,11 @@ def phase_service() -> None:
 
 # phase (d): every rank on the card, gemma3-1b at full width
 DIST = dict(ranks=4, timeout=300, n=4096, emb=(262_144, 1_152),
-            small=1_000_003, layers=4, seq=1024, steps=3, lr=3e-3,
+            small=1_000_003, layers=4, seq=1024, steps=2, lr=3e-3,
             ce_chunk=256)
+# (d-f): moonshot at full width cut to 2 of 48 layers, mesh (data 1, model 4)
+DIST_TP = dict(arch="moonshot-v1-16b-a3b", layers=2, batch=2, seq=1024,
+               steps=2, lr=3e-3, ce_chunk=256, mesh=(1, 4))
 
 
 def _digest(t) -> str:
@@ -1954,11 +1961,203 @@ def dist_rank(rank: int, world: int, spec: dict) -> dict:
     marks.append(("(d-e) steps and digests", time.time()))
     out["e_peak"] = torch.cuda.max_memory_allocated()
     out["e_expected"] = expected_train_launches(cfg)
+    del state, batches, params, step, met
+    torch.cuda.empty_cache()
+    tp_rank(rank, world, spec, out, dev)
+    marks.append(("(d-f) tensor / expert parallel steps", time.time()))
     return out
 
 
+def tp_train_setup(dev):
+    """(d-f)'s config, train config and global batch (the port's Markov
+    data, seeded), on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import upload
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+
+    f = DIST_TP
+    cfg = dataclasses.replace(get_arch(f["arch"]), n_layers=f["layers"])
+    tc = TT.TrainConfig(optimizer=AdamWConfig(
+        lr=f["lr"], weight_decay=0.1,
+        schedule=warmup_cosine(f["lr"], warmup=5, total=f["steps"])),
+        remat=True, ce_chunk=f["ce_chunk"])
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=f["seq"],
+                                  global_batch=f["batch"],
+                                  mean_doc_len=f["seq"] / 2))
+    batches = [{k: upload(v, dev) for k, v in data.batch(i).items()}
+               for i in range(f["steps"])]
+    return cfg, tc, batches
+
+
+def tp_reference(work: str, dev) -> dict:
+    """(d-f)'s yardstick, in the parent before the ranks start: the
+    one-device port's step-1 loss, grad norm and gradient at the same seed
+    on the card.  The gradient leaves go to ``work`` as .npy files (each
+    rank reads its blocks of them), the router probabilities of the two
+    MoE layers beside them; the card's memory is given back."""
+    import torch
+
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.model import init_params
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import global_norm
+
+    cfg, tc, batches = tp_train_setup(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    with router_probs() as seen:
+        loss, met, grads = TT.loss_and_grads(cfg, tc, params, batches[0])
+    gnorm = float(global_norm(grads))
+    step_s = time.perf_counter() - t0
+    os.makedirs(work, exist_ok=True)
+    np.save(os.path.join(work, "probs.npy"),
+            torch.stack(seen[:cfg.n_layers]).cpu().numpy())
+    flat = flatten(grads)
+    for name, g in flat.items():
+        np.save(os.path.join(work, name.replace("/", "__") + ".npy"),
+                g.cpu().numpy())
+    n_params = sum(p.numel() for p in flat.values())
+    del params, grads, flat, seen
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "aux": float(met["aux"]), "gnorm": gnorm,
+            "dir": work, "n_params": n_params, "wall": step_s,
+            "saved_s": time.perf_counter() - t0 - step_s}
+
+
+def tp_rank(rank: int, world: int, spec: dict, out: dict, dev) -> None:
+    """(d-f) on this rank: moonshot at full width, 2 layers, expert and
+    tensor parallel over mesh (data 1, model 4) from the same seed as
+    ``tp_reference``: step 1's loss, grad norm and gradient blocks against
+    the one-device step's (per leaf, max |diff| and max |want| of this
+    rank's block), routing against the one-device pass, then 2 steps with
+    their walls, traffic, launches and the whole leaves' digests."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shardings import (batch_specs, local_slice,
+                                              spec_axes)
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.model import init_params, pattern_period
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import adamw_update, tree_leaves
+
+    ref = spec["tp_ref"]
+    cfg, tc, batches = tp_train_setup(dev)
+    mesh = Mesh(np.arange(world).reshape(DIST_TP["mesh"]), ("data", "model"))
+    specs = TT.state_layout(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = TT.init_sharded_state(
+        cfg, specs, mesh, rank, torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    # the init's peak over what the rank held before it, beside its blocks
+    # and the largest leaf drawn whole
+    out["f_init_peak"] = torch.cuda.max_memory_allocated() - before
+    out["f_state_bytes"] = sum(
+        t.numel() * t.element_size()
+        for t in tree_leaves(state.params) + tree_leaves(state.opt))
+    out["f_whole_leaf"] = max(
+        t.numel() * t.element_size()
+        for t in tree_leaves(init_params(cfg, device="meta")))
+    torch.cuda.empty_cache()
+    out["f_setup"] = time.perf_counter() - t0
+    local = []
+    for b in batches:
+        bs = batch_specs(b, mesh)
+        local.append({k: local_slice(v, bs[k], mesh, rank)
+                      for k, v in b.items()})
+    pspecs = flatten(specs.params)
+    whole = [k for k, sp in pspecs.items()
+             if not any(mesh.shape[a] > 1 for a in spec_axes(sp))]
+    torch.cuda.reset_peak_memory_stats()
+    out["f_steps"] = []
+    for i in range(DIST_TP["steps"]):
+        reset_all_launches()
+        D.TRAFFIC.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:       # train_step's own path, its gradient kept
+            with router_probs() as seen:
+                loss, met, grads = TT.loss_and_grads(
+                    cfg, tc, state.params, local[0], mesh=mesh)
+            params, opt, gnorm = adamw_update(
+                tc.optimizer, grads, state.opt, state.params, mesh=mesh,
+                specs=specs)
+            state = TT.TrainState(params, opt)
+            met = dict(met, loss=loss, grad_norm=gnorm)
+        else:
+            state, met = TT.train_step(cfg, tc, state, local[i], mesh=mesh,
+                                       specs=specs)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["f_steps"].append({
+            "wall": wall, "loss": loss, "gnorm": float(met["grad_norm"]),
+            "aux": float(met["aux"]), "launches": lm_launches(),
+            "traffic": dict(vars(D.TRAFFIC)),
+            "whole_digest": _tree_digest(
+                [flatten(state.params)[k] for k in whole])})
+        if i == 0:
+            # the gradient blocks against the one-device gradient's
+            from repro_torch.models.moe import dispatch_codes
+
+            # (max |diff|, max |want|, layer) of each leaf, a stacked
+            # leaf's layers apart
+            leaves, per = {}, pattern_period(cfg)
+            for name, g in flatten(grads).items():
+                want = np.load(os.path.join(ref["dir"], name.replace(
+                    "/", "__") + ".npy"), mmap_mode="c")
+                w = local_slice(torch.from_numpy(want), pspecs[name], mesh,
+                                rank).to(dev)
+                if name.startswith("blocks/pos"):
+                    j = int(name.split("/")[1][3:])
+                    for i in range(g.shape[0]):
+                        leaves[f"{name}[{i}]"] = (
+                            float((g[i] - w[i]).abs().max()),
+                            float(w[i].abs().max()), i * per + j)
+                else:
+                    leaves[name] = (float((g - w).abs().max()),
+                                    float(w.abs().max()), None)
+                del w, want
+            out["f_leaves"] = leaves
+            one = torch.from_numpy(np.load(os.path.join(ref["dir"],
+                                                        "probs.npy")))
+            # each MoE layer's dispatch against the one-device pass's:
+            # tokens routed to other experts (flips), with their top-k gap
+            # in the one-device probabilities; other drops with the same
+            # experts (knock-ons); probabilities of the tokens routed alike
+            out["f_routing"] = []
+            for a, b in zip(one, seen[:cfg.n_layers]):
+                a = a.to(dev)
+                ca, cb = dispatch_codes(a, cfg), dispatch_codes(b, cfg)
+                flip = ((ca > 0) != (cb > 0)).any(-1)
+                alike = ~(ca != cb).any(-1)
+                out["f_routing"].append({
+                    "flips": int(flip.sum()),
+                    "knock": int((~alike & ~flip).sum()),
+                    "gap": float(topk_gap(a, cfg.top_k)[flip].max())
+                    if bool(flip.any()) else 0.0,
+                    "probs_diff": float((a - b)[alike].abs().max())
+                    if bool(alike.any()) else 0.0})
+            del grads, seen
+    out["f_peak"] = torch.cuda.max_memory_allocated()
+    out["f_share"] = torch.cuda.get_device_properties(0).total_memory \
+        * 0.9 / world
+    out["f_whole_leaves"] = len(whole)
+    out["f_expected"] = expected_train_launches(cfg)
+
+
 def phase_distributed(fig20: tuple, built, built_scipy: float,
-                      card: str) -> None:
+                      card: str, counts: dict) -> None:
     """(d) The multi-device DGRO path over ``torch.distributed``: R = 4
     ranks spawned once, all on ``cuda:0`` (NCCL needs a card a rank), gloo
     over a ``FileStore`` in ``build/``, every CUDA tensor staged through
@@ -1975,12 +2174,26 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
     1,000,003-element ring on the card bitwise the same ring over CPU
     tensors; (d-e) ``pod_compressed_train_step`` on gemma3-1b cut to 4
     layers, mesh (pod R, data 1, model 1) in the DGRO order of
-    ``model_dcn_latency(R, n_pods=2)``, one 1024-token sequence a rank, 3
+    ``model_dcn_latency(R, n_pods=2)``, one 1024-token sequence a rank, 2
     steps: parameters equal on every rank after each, step 1's reduced
     gradient within the bound of the exact mean, losses and grad norms
     finite, K3 / K4 / K3b / K4b launches a rank-step as
-    ``expected_train_launches``.  The ranks share one card: the phase
-    measures the transport and proves the protocol; it is no speed-up."""
+    ``expected_train_launches``; (d-f) moonshot-v1-16b-a3b at full width
+    cut to 2 layers, tensor and expert parallel over mesh (data 1, model
+    4), a 2 x 1024 batch, remat, 2 steps: step 1's loss and grad norm
+    within rel 1e-5 of the one-device port step at the same seed
+    (``tp_reference``, computed here before the spawn), every MoE
+    layer's routing against the one-device pass's up to the first flip
+    (flips only at near ties, other drops only beside a flip, the router
+    probabilities of the tokens routed alike within ``TP_PROBS``), every
+    gradient leaf within 1e-4 x its max |want| but the MoE leaves of the
+    layers from a flip on (``tp_checks``), the init's peak a rank beside
+    its blocks and the largest leaf drawn whole, the leaves the specs leave
+    whole bitwise equal on every rank after each step, K3 / K3b / K4 /
+    K4b launches a rank-step as ``expected_train_launches``, and the peak
+    a rank under its share of the card.  The ranks share one card: the
+    phase measures the transport and proves the protocol; it is no
+    speed-up."""
     import torch
 
     from repro_torch import distributed as D
@@ -2006,14 +2219,25 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
                                    r, seed=0)
     order, rep = dgro_host_order(model_dcn_latency(r, n_pods=2))
     spec["pod_order"] = [int(i) for i in order]
+    spec["tp_ref"] = tp = tp_reference(os.path.join(work, "tp_ref"),
+                                       torch.device("cuda"))
+    log(f"  (d-f) one-device yardstick: {DIST_TP['arch']}, "
+        f"{DIST_TP['layers']} layers, {tp['n_params']} parameters, batch "
+        f"{DIST_TP['batch']} x {DIST_TP['seq']}: step-1 loss "
+        f"{tp['loss']:.7f} (aux {tp['aux']:.7f}), grad norm "
+        f"{tp['gnorm']:.7f}; {tp['wall']:.3f} s with the init, "
+        f"{tp['saved_s']:.1f} s to write the gradient [{card}]")
     log(f"  pod ring order {spec['pod_order']} ({rep['selected']}, diameter "
         f"{rep['diameter']:.3f} vs random {rep['random_diameter']:.3f}); "
         f"spawning {r} ranks on cuda:0 (gloo, FileStore) "
         f"[{card}]")
     torch.cuda.empty_cache()
     t0, spawned = time.perf_counter(), time.time()
-    res = D.spawn_ranks(dist_rank, r, args=(spec,),
-                        timeout=DIST["timeout"], workdir=work)
+    try:
+        res = D.spawn_ranks(dist_rank, r, args=(spec,),
+                            timeout=DIST["timeout"], workdir=work)
+    finally:       # the yardstick's 7.4 GB gradient
+        shutil.rmtree(tp["dir"], ignore_errors=True)
     done = time.time()
     parts = []
     for i, (what, at) in enumerate(res[0]["marks"]):
@@ -2125,8 +2349,99 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
               f"(d-e) step {i}: launches {launches[0]} != {want}")
     log(f"  (d-e) launches a rank-step {launches[0]} (expected {want}); "
         f"peak memory a rank {[o['e_peak'] for o in res]} B [{card}]")
+    tp_checks(res, tp, card, counts, check)
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+TP_TIE = 1e-6        # a flip's top-k gap over the row's max probability
+TP_PROBS = 1e-5      # router probabilities of tokens routed alike
+
+
+def tp_checks(res: list, tp: dict, card: str, counts: dict, check) -> None:
+    """(d-f)'s gates over the ranks' numbers (``tp_rank``) and the
+    one-device yardstick's (``tp_reference``).  Routing, layer by layer up
+    to the first layer with a flip (a later layer's input carries the
+    flip's difference): every flip a near tie (gap <= ``TP_TIE``), drops
+    that differ only beside a flip, the probabilities of the tokens routed
+    alike within ``TP_PROBS``.  Every gradient leaf within 1e-4 x its
+    max |want|, but the MoE leaves (router, experts) of the layers from
+    the first flip on, whose tokens differ by the flipped ones."""
+    o0 = res[0]
+    want = o0["f_expected"]
+    routing = [[o["f_routing"][l] for o in res]
+               for l in range(len(o0["f_routing"]))]
+    flips = [max(r["flips"] for r in rs) for rs in routing]
+    first = next((l for l, n in enumerate(flips) if n), None)
+    rec0 = [o["f_steps"][0] for o in res]
+    loss_ok = all(abs(r["loss"] - tp["loss"]) <= 1e-5 * abs(tp["loss"])
+                  for r in rec0)
+    gnorm_ok = all(abs(r["gnorm"] - tp["gnorm"]) <= 1e-5 * tp["gnorm"]
+                   for r in rec0)
+    skipped = sorted(n for n, (_, _, l) in o0["f_leaves"].items()
+                     if first is not None and l is not None and l >= first
+                     and "/moe/" in n)
+    worst = max((max(o["f_leaves"][n][0] for o in res)
+                 / max(max(o["f_leaves"][n][1] for o in res), 1e-30), n)
+                for n in o0["f_leaves"] if n not in skipped)
+    setup = max(o["f_setup"] for o in res)
+    log(f"  (d-f) {DIST_TP['arch']} at full width, {DIST_TP['layers']} "
+        f"layers, mesh (data 1, model 4): setup {setup:.1f} s a rank, the "
+        f"init's peak {max(o['f_init_peak'] for o in res)} B a rank beside "
+        f"{o0['f_state_bytes']} B of blocks and moments and a largest "
+        f"leaf of {o0['f_whole_leaf']} B drawn whole; step 1 loss "
+        f"{rec0[0]['loss']:.7f} vs one device {tp['loss']:.7f}, grad norm "
+        f"{rec0[0]['gnorm']:.7f} vs {tp['gnorm']:.7f}; worst gradient leaf "
+        f"max |dg| / max |g| {worst[0]:.3g} ({worst[1]}) [{card}]")
+    for l, rs in enumerate(routing):
+        log(f"  (d-f) layer {l} routing vs one device: {flips[l]} tokens "
+            f"routed to other experts (largest top-k gap "
+            f"{max(r['gap'] for r in rs):.3g} of the max probability), "
+            f"{max(r['knock'] for r in rs)} other drops beside them, "
+            f"probabilities of the tokens routed alike max |diff| "
+            f"{max(r['probs_diff'] for r in rs):.3g}"
+            + ("" if first is None or l <= first else
+               " (after a flip: not gated)"))
+        if first is not None and l > first:
+            continue
+        check(max(r["gap"] for r in rs) <= TP_TIE,
+              f"(d-f) layer {l}: a token routed to other experts beyond "
+              f"the near-tie gap {TP_TIE}")
+        check(flips[l] or not max(r["knock"] for r in rs),
+              f"(d-f) layer {l}: other drops with no routing flip")
+        check(max(r["probs_diff"] for r in rs) <= TP_PROBS,
+              f"(d-f) layer {l}: router probabilities beyond {TP_PROBS}")
+    if skipped:
+        log(f"  (d-f) leaves left out of the worst-leaf check (MoE leaves "
+            f"from layer {first} on, where a flip changed their tokens): "
+            f"{skipped}")
+    check(loss_ok, "(d-f) step-1 loss beyond rel 1e-5 of one device")
+    check(gnorm_ok, "(d-f) step-1 grad norm beyond rel 1e-5 of one device")
+    check(worst[0] <= 1e-4, f"(d-f) gradient leaf {worst[1]} beyond "
+          f"1e-4 x max |g|")
+    for i in range(DIST_TP["steps"]):
+        recs = [o["f_steps"][i] for o in res]
+        launches = [{k: v for k, v in rec["launches"].items() if k in want}
+                    for rec in recs]
+        same = len({rec["whole_digest"] for rec in recs}) == 1
+        staged = [rec["traffic"]["bytes_staged"] for rec in recs]
+        log(f"  (d-f) step {i}: loss {recs[0]['loss']:.6f} gnorm "
+            f"{recs[0]['gnorm']:.4f}; {max(rec['wall'] for rec in recs):.3f}"
+            f" s (slowest rank), {recs[0]['traffic']['seconds']:.3f} s of it"
+            f" in rank 0's collectives; {staged[0]} B staged a rank-step "
+            f"(ranks {min(staged)}..{max(staged)}); the "
+            f"{o0['f_whole_leaves']} whole leaves equal on every rank "
+            f"{same}; launches a rank {launches[0]} [{card}]")
+        check(same, f"(d-f) step {i}: whole leaves differ across ranks")
+        check(all(np.isfinite([rec["loss"], rec["gnorm"]]).all()
+                  for rec in recs), f"(d-f) step {i}: not finite")
+        check(all(l == want for l in launches),
+              f"(d-f) step {i}: launches {launches[0]} != {want}")
+    counts["moe_tp"] = res[0]["f_steps"][0]["launches"]
+    peaks = [o["f_peak"] for o in res]
+    log(f"  (d-f) launches a rank-step {launches[0]} (expected {want}); peak"
+        f" a rank {peaks} B, share {o0['f_share']:.0f} B [{card}]")
+    check(max(peaks) < o0["f_share"], "(d-f) a rank's peak over its share")
 
 
 def profiled(label: str, fn) -> None:
@@ -4558,6 +4873,61 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f"{lb['bound_by']}, 3xTF32 {lb['bound_ms_3xtf32']:.4f} ms)")
         del q, k, v, do, out, lse, qg, kg, vg
 
+    # K4 and K4b at (d-f)'s per-rank shape: moonshot's 16 heads over a
+    # 4-way model axis, batch 2 x 1024, D = 128, causal
+    fb, fh, fd = DIST_TP["batch"], 16 // DIST_TP["mesh"][1], 128
+    q, k, v, do = (rand(fb, fh, t, fd) for _ in range(4))
+    kw = dict(scale=fd ** -0.5, causal=True, window=None)
+    out, lse = fa_kernel.flash_attention(q, k, v, with_lse=True, **kw)
+    ms_f = time_ms(lambda: fa_ops.flash_attention(q, k, v), reps=20)
+    plain_f = time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1)
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    errs["flash_attention"] = max(errs["flash_attention"], check_close(
+        "K4 timed input, (d-f) rank", fa_ops.flash_attention(q, k, v),
+        attention_ref(q, k, v), 2e-5))
+    ms_b = time_ms(lambda: fa_kernel.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw), reps=10)
+    plain_b = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **kw),
+                      reps=3, warmup=1)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_rank():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        sdpa_rank(), (qg, kg, vg), do), reps=10) - time_ms(
+        lambda: sdpa_rank().detach(), reps=10)
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], max(
+        grad_close(f"K4b timed input, (d-f) rank {w}", g, ww)
+        for w, g, ww in zip(("dq", "dk", "dv"),
+                            fa_kernel.flash_attention_bwd(
+                                q, k, v, out, lse, do, **kw),
+                            attention_bwd_ref(q, k, v, out, lse, do,
+                                              **kw))))
+    pairs = t * (t + 1) / 2 * fb * fh
+    shape_s = f"({fb},{fh},{t},{fd}) Hkv {fh} fp32, causal (global)"
+    k4["moonshot_tp_rank"] = dict(
+        shape=shape_s, instance=fa_kernel.instance(fd), ms=ms_f,
+        plain_ms=plain_f, library_ms=lib_f, **k4_bounds(
+            pairs, fd, 4.0 * (2 * q.numel() + k.numel() + v.numel())))
+    nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+    b_ms, b_by = flop_bound(10.0 * pairs * fd, nbytes)
+    tc_ms, tc_by = flop_bound(30.0 * pairs * fd, nbytes, TF32_FLOP_PER_S)
+    k4b["moonshot_tp_rank"] = dict(
+        shape=shape_s, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
+        bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
+        bound_by_3xtf32=tc_by)
+    f4 = k4["moonshot_tp_rank"]
+    log(f"  (d-f) rank shape {shape_s}: K4 {ms_f:.4f} ms (plain "
+        f"{plain_f:.3f} ms, SDPA {lib_f:.4f} ms, bound "
+        f"{f4['bound_ms']:.4f} ms by {f4['bound_by']} as fp32, "
+        f"{f4['bound_ms_3xtf32']:.4f} ms as 3xTF32); K4b {ms_b:.4f} ms "
+        f"(plain {plain_b:.3f} ms, SDPA backward {lib_b:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} as fp32, {tc_ms:.4f} ms by {tc_by} as "
+        f"3xTF32)")
+    del q, k, v, do, out, lse, qg, kg, vg
+
     k3b = {}
     for label, rows, dd in (("residual", bt * t, 1152),
                             ("q_norm", bt * t * hq, d),
@@ -4666,6 +5036,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                 "launches_pixtral_serve_fp8":
                     counts["pixtral_serve_fp8"][name],
                 "launches_musicgen_serve": counts["musicgen_serve"][name],
+                "launches_moonshot_tp_rank_step": counts["moe_tp"][name],
                 "max_abs_err": errs[name],
                 "max_abs_err_bf16": errs[name + "_bf16"], **main,
                 other_label: other}
@@ -4693,6 +5064,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
            "moonshot_global": k4["moonshot_global"],
            "zamba2_shared": k4["zamba2_shared"],
            "musicgen": k4["musicgen"], "pixtral": k4["pixtral"],
+           "moonshot_tp_rank": k4["moonshot_tp_rank"],
            "train_with_lse": {
                "shape": f"({bt},{hq},{t},{d}) Hkv {hkv} fp32",
                "global": k4l["global"], "local_window_512": k4l["local"],
@@ -4713,7 +5085,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               f"({bt},{hq},{t},{d}) Hkv {hkv} fp32, causal (global layer)",
               k4b["global"], "local_window_512", k4b["local"], path="train")
         | {"moonshot_train": k4b["moonshot_train"],
-           "zamba2_train": k4b["zamba2_train"]},
+           "zamba2_train": k4b["zamba2_train"],
+           "moonshot_tp_rank": k4b["moonshot_tp_rank"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/selective_scan/csrc/"
                    "selective_scan.cu",
@@ -4834,7 +5207,8 @@ def main() -> int:
             ("(s) the control-plane service", phase_service),
             (f"(d) the multi-device DGRO path, {DIST['ranks']} ranks on "
              f"one card", lambda: phase_distributed(fig20, built,
-                                                     built_scipy, card))):
+                                                     built_scipy, card,
+                                                     counts))):
         log(f"phase: {label}")
         t0 = time.perf_counter()
         run()

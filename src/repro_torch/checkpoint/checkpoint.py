@@ -20,9 +20,14 @@ Layout:  <dir>/step_<N>/
   ``[<flat index 1>].mu['embed']``.  bf16 leaves are stored as fp32
   (lossless) and cast back to the template's dtype on restore.
 
-One device, one host: the JAX version's ``shardings`` (elastic restore onto
-another mesh) is not ported (ROADMAP Queue A item 13f); ``restore`` puts
-each leaf on its template leaf's device.
+* **Sharded** (``shardings``, a tree of ``launch.shardings.NamedSharding``
+  matching the tree, from ``to_shardings(specs, mesh)``): ``save`` of a
+  rank's blocks gathers each leaf whole over the mesh (every rank calls
+  it), rank 0 writes the reference's one-file layout of whole arrays, and
+  every rank waits for the commit.  ``restore(..., shardings=...)`` keeps
+  each rank's block of each leaf by its spec on the NEW mesh: an elastic
+  restart onto another mesh shape (or onto one device, with no
+  shardings).
 """
 from __future__ import annotations
 
@@ -36,6 +41,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import distributed as D
+from ..launch.shardings import (NamedSharding, gather_leaf, local_shape,
+                                local_slice)
+
 __all__ = ["save", "restore", "latest_steps", "AsyncCheckpointer",
            "flatten_with_keys"]
 
@@ -46,6 +55,8 @@ _MARKER = "COMMITTED"
 def _children(node):
     """(key string, child) pairs of a tree node in ``jax.tree.flatten``'s
     order, or None for a leaf."""
+    if isinstance(node, NamedSharding):
+        return None
     if isinstance(node, dict):
         return [(f"[{key!r}]", node[key]) for key in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -133,10 +144,39 @@ def _write(directory: str, step: int, arrays: Dict[str, np.ndarray],
     return final
 
 
+def _gathered(tree: Tree, shardings: Tree) -> Optional[Dict[str, np.ndarray]]:
+    """Every leaf of a rank's blocks gathered whole (a collective, one leaf
+    at a time), as the snapshot on rank 0 and None elsewhere."""
+    keyed, sh = flatten_with_keys(tree), flatten_with_keys(shardings)
+    out: Dict[str, np.ndarray] = {}
+    for k, leaf in keyed.items():
+        s = sh[k]
+        whole = gather_leaf(leaf, s.spec, s.mesh) \
+            if isinstance(leaf, torch.Tensor) else leaf
+        if D.rank() == 0:
+            out[k] = _to_numpy(whole)
+        del whole
+    return out if D.rank() == 0 else None
+
+
+def _barrier() -> None:
+    D.psum(torch.zeros(1), D.world())
+
+
 def save(directory: str, step: int, tree: Tree, *,
-         meta: Optional[Dict] = None) -> str:
-    """Synchronous save.  Returns the committed directory."""
-    return _write(directory, step, _snapshot(tree), meta)
+         meta: Optional[Dict] = None, shardings: Optional[Tree] = None
+         ) -> str:
+    """Synchronous save.  Returns the committed directory.  With
+    ``shardings``, ``tree`` holds a rank's blocks; every rank calls it and
+    returns once rank 0 has committed."""
+    if shardings is None:
+        return _write(directory, step, _snapshot(tree), meta)
+    arrays = _gathered(tree, shardings)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if arrays is not None:
+        _write(directory, step, arrays, meta)
+    _barrier()
+    return final
 
 
 class AsyncCheckpointer:
@@ -147,12 +187,24 @@ class AsyncCheckpointer:
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
         self.last_committed: Optional[str] = None
 
-    def save_async(self, step: int, tree: Tree, meta: Optional[Dict] = None):
+    def save_async(self, step: int, tree: Tree, meta: Optional[Dict] = None,
+                   shardings: Optional[Tree] = None):
+        """Snapshot now, write in the background.  With ``shardings`` (a
+        rank's blocks; every rank calls it) the leaves are gathered now and
+        rank 0 writes; :meth:`wait` then returns on every rank once the
+        write is committed."""
         self.wait()
         # copy to host memory NOW: the caller may update the tensors later
-        snapshot = _snapshot(tree)
+        snapshot = _snapshot(tree) if shardings is None else \
+            _gathered(tree, shardings)
+        self._sharded = shardings is not None
+        if snapshot is None:               # a rank other than 0
+            self.last_committed = os.path.join(self.directory,
+                                               f"step_{step:08d}")
+            return
 
         def work():
             self.last_committed = _write(self.directory, step, snapshot,
@@ -166,6 +218,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            _barrier()
 
     def _gc(self):
         steps = latest_steps(self.directory)
@@ -188,10 +243,14 @@ def latest_steps(directory: str):
 
 
 def restore(directory: str, template: Tree, *,
-            step: Optional[int] = None) -> tuple:
+            step: Optional[int] = None,
+            shardings: Optional[Tree] = None) -> tuple:
     """Restore into the structure of ``template`` (the newest committed
     step, or ``step``): each leaf in its template leaf's dtype, on its
-    device.  Returns (tree, step)."""
+    device.  Returns (tree, step).  ``shardings`` (a tree of
+    ``launch.shardings.NamedSharding`` matching ``template``): ``template``
+    holds this rank's blocks, and each leaf restored is this rank's block of
+    the stored whole by its spec on its mesh."""
     steps = latest_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoint under {directory}")
@@ -200,6 +259,7 @@ def restore(directory: str, template: Tree, *,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     keyed = flatten_with_keys(template)
+    sh = flatten_with_keys(shardings) if shardings is not None else {}
     stored = manifest["leaves"]
     missing = [k for k in keyed if k not in stored]
     if missing:
@@ -207,6 +267,8 @@ def restore(directory: str, template: Tree, *,
                          f"{missing[:5]}")
     for k, leaf in keyed.items():
         got, want = tuple(stored[k]["shape"]), tuple(np.shape(leaf))
+        if k in sh:
+            got = local_shape(got, sh[k].spec, sh[k].mesh)
         if got != want:
             raise ValueError(f"shape mismatch for {k}: ckpt {got} vs "
                              f"template {want}")
@@ -215,8 +277,11 @@ def restore(directory: str, template: Tree, *,
             arr = data[key]
             if isinstance(leaf, torch.Tensor):
                 # ascontiguousarray makes a 0-d array 1-d: shape it back
-                return torch.from_numpy(np.ascontiguousarray(arr).reshape(
-                    arr.shape)).to(device=leaf.device, dtype=leaf.dtype)
+                t = torch.from_numpy(np.ascontiguousarray(arr).reshape(
+                    arr.shape))
+                if key in sh:
+                    t = local_slice(t, sh[key].spec, sh[key].mesh, D.rank())
+                return t.to(device=leaf.device, dtype=leaf.dtype)
             return np.asarray(arr).astype(np.asarray(leaf).dtype)
 
         tree = _rebuild(template, leaf_of)

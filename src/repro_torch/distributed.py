@@ -24,6 +24,15 @@ Every group is made with a timeout of at most :data:`TIMEOUT_S` seconds,
 so a rank that hangs makes its peers raise instead of waiting forever.  No
 collective's failure is caught here.
 
+Under autograd, Megatron's conjugate pair carries tensor parallelism:
+:func:`copy_to` (identity forward, ``psum`` of the gradient backward) and
+:func:`reduce_from` (``psum`` forward, identity backward), beside
+:func:`gather_from` (a tiled ``all_gather`` whose backward keeps the
+member's block) and :func:`pmax` (not differentiated).  They are
+``torch.autograd.Function``s over the collectives above, so staging, ring
+order and ``TRAFFIC`` are theirs.  Every member runs the same autograd
+graph, so the backward's collectives come in the same order on each.
+
 Library entry points never start a process group: the caller does, as
 ``torchrun`` would (:func:`init_process_group`, or :func:`spawn_ranks` for
 tests, examples and ``chip_smoke.py``).  Without a process group every
@@ -46,7 +55,8 @@ import torch.distributed as dist
 __all__ = ["TIMEOUT_S", "TRAFFIC", "Traffic", "Group", "init_process_group",
            "is_initialized", "rank", "world_size", "world", "as_group",
            "new_group", "axis_size", "axis_index", "ppermute", "all_gather",
-           "psum", "pmean", "spawn_ranks"]
+           "psum", "pmean", "pmax", "copy_to", "reduce_from",
+           "gather_from", "spawn_ranks"]
 
 TIMEOUT_S = 120.0
 _BACKENDS = ("gloo", "nccl")
@@ -244,24 +254,101 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def psum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of every member's ``x`` (``dist.all_reduce``), as a new
-    tensor on ``x``'s device."""
-    g = as_group(group)
-    if g.size == 1:
-        return x
+def _all_reduce(x: torch.Tensor, g: Group, op) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = _to_wire(g, x, copy=True)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g.pg)
+    dist.all_reduce(buf, op=op, group=g.pg)
     TRAFFIC.bytes_received += buf.numel() * buf.element_size()
     out = _from_wire(buf, x.device)
     TRAFFIC.seconds += time.perf_counter() - t0
     return out
 
 
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every member's ``x`` (``dist.all_reduce``), as a new
+    tensor on ``x``'s device."""
+    g = as_group(group)
+    if g.size == 1:
+        return x
+    return _all_reduce(x, g, dist.ReduceOp.SUM)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of every member's ``x``; not differentiated
+    (the vocab-parallel cross-entropy's stabilizer)."""
+    g = as_group(group)
+    if g.size == 1:
+        return x
+    return _all_reduce(x.detach(), g, dist.ReduceOp.MAX)
+
+
 def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
     g = as_group(group)
     return x if g.size == 1 else psum(x, g) / g.size
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd: Megatron's conjugate operators
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return psum(dy, ctx.g), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return psum(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim, ctx.n = g, dim, x.shape[dim]
+        return all_gather(x.movedim(dim, 0), g).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.narrow(ctx.dim, ctx.g.index * ctx.n, ctx.n), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, ``psum`` of the gradient over ``group`` backward:
+    where a tensor replicated over the group feeds work that each member
+    does a part of (column-parallel products, a rank's heads or experts),
+    the parts' gradients add up to the whole on every member."""
+    g = as_group(group)
+    return x if g.size == 1 else _CopyTo.apply(x, g)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``psum`` forward, identity backward: the members' partial results
+    (a row-parallel product) summed into the replicated whole, whose
+    gradient each member passes on as it is."""
+    g = as_group(group)
+    return x if g.size == 1 else _ReduceFrom.apply(x, g)
+
+
+def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The members' blocks concatenated on ``dim`` in ring order forward;
+    backward, this member's block of the gradient.  For a result that every
+    member then uses whole, with the whole gradient (wrap it in
+    :func:`copy_to` where members use parts of it)."""
+    g = as_group(group)
+    if g.size == 1:
+        return x
+    return _GatherFrom.apply(x, g, dim % x.dim())
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,34 @@ past 464, where a bare ``.to(torch.float8_e4m3fn)`` may saturate to 448).
 
 The window of a local layer is a Python int (the JAX package may trace it;
 the port's loop over layers is plain Python).
+
+**Tensor parallelism** (``tp``, the ``distributed.Group`` of a mesh's
+model axis).  A rank holds the blocks ``launch.shardings.spec_for_param``
+gives it: column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up``
+(and the qkv biases), row-parallel ``wo`` / ``w_down``, each split only
+where its dim divides by the axis (else whole on every rank).  Which ones
+are split is read from the blocks themselves: a leaf narrower than its
+config width is split.  The residual
+stream is replicated; a column-parallel product takes it through
+``distributed.copy_to`` and a row-parallel one ends in
+``distributed.reduce_from`` (Megatron's conjugate pair), so every rank
+holds the whole gradient of every replicated tensor.  Attention runs on a
+rank's ``H / m`` query heads (K4 / K4b at the local head count) where the
+heads divide; a K / V projection split inside a head (gemma3-1b's one KV
+head of 256 columns at a 4-way axis) is gathered over the group first,
+and each local query head reads its own KV head.  Where the query heads do
+not divide, every rank runs all heads and keeps its columns of the output
+for ``wo``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .. import distributed as D
 from ..configs.base import ArchConfig
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
@@ -44,16 +64,30 @@ CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 # init helpers
 # ---------------------------------------------------------------------------
 
-def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
-               dtype, device, lead: Tuple[int, ...] = ()) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Draws:
+    """A generator for the init functions whose every drawn leaf is handed
+    to ``keep`` before the next draw, and replaced by what it returns (a
+    rank's block: ``train_step.init_sharded_state`` then holds one whole
+    leaf at a time).  The bits are ``generator``'s, as drawn without it."""
+    generator: Optional[torch.Generator]
+    keep: Callable[[torch.Tensor], torch.Tensor]
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype, device,
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
     """(lead..., d_in, d_out) normal weights scaled by sqrt(2/(d_in+d_out)),
-    drawn in fp32 from ``generator`` (which lives on ``device``).  On the
-    ``meta`` device only the shape is made."""
+    drawn in fp32 from ``generator`` (a ``torch.Generator`` on ``device``,
+    or :class:`Draws`).  On the ``meta`` device only the shape is made."""
+    keep = None
+    if isinstance(generator, Draws):
+        generator, keep = generator.generator, generator.keep
     shape = tuple(lead) + (d_in, d_out)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if w.device.type != "meta":
         w.normal_(generator=generator).mul_((2.0 / (d_in + d_out)) ** 0.5)
-    return w.to(dtype)
+    w = w.to(dtype)
+    return w if keep is None else keep(w)
 
 
 def zeros(shape, dtype, device) -> torch.Tensor:
@@ -249,6 +283,7 @@ def attention_apply(
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,Hkv,S,hd)
     cache_pos: Optional[int] = None,      # decode: write index
     impl: str = "flash",
+    tp: Optional[D.Group] = None,         # tensor parallel (train modes)
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA attention for train / prefill (cache None) and decode (cache
     given).
@@ -258,11 +293,20 @@ def attention_apply(
     attention runs over the cache; the cache tensors are returned.
     ``impl``: "flash" = the kernels (K4 for train / prefill attention, K6
     for decode, K3 for the q / k norms) on CUDA; "ref" = the plain versions
-    throughout.
+    throughout.  ``tp``: this rank's blocks of the weights, tensor-parallel
+    over the model group (the module docstring; train and prefill without
+    a cache only).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     plain = impl == "ref"
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "decode attention over a model axis is not ported "
+                "(ROADMAP Queue A item 13f)")
+        return _attention_tp(p, x, cfg, positions=positions, window=window,
+                             plain=plain, tp=tp), None
     b, t, _ = x.shape
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q = x @ p["wq"]
@@ -284,14 +328,8 @@ def attention_apply(
 
     if cache is None:
         # train / prefill: self-attention over the block
-        if not plain:
-            out = flash_attention(q, k, v, causal=True, window=window)
-        elif t > CHUNKED_THRESHOLD and t % 1024 == 0:
-            out = _chunked_attention(q, k, v, window=window)
-        else:
-            kv_valid = positions[None, :].expand(b, t)
-            out = _masked_attention(q, k, v, causal_from=positions,
-                                    kv_valid=kv_valid, window=window)
+        out = _self_attention(q, k, v, positions=positions, window=window,
+                              plain=plain)
         new_cache = None
     else:
         ck, cv = cache                                 # (B, Hkv, S, hd)
@@ -305,6 +343,106 @@ def attention_apply(
 
     out = out.transpose(1, 2).reshape(b, t, hq * hd)
     return out @ p["wo"], new_cache
+
+
+def _self_attention(q, k, v, *, positions, window, plain):
+    """Causal self-attention of (B, H*, T, D) q / k / v at ``positions``:
+    K4 (K4b under autograd) unless ``plain``."""
+    b, _, t, _ = q.shape
+    if not plain:
+        return flash_attention(q, k, v, causal=True, window=window)
+    if t > CHUNKED_THRESHOLD and t % 1024 == 0:
+        return _chunked_attention(q, k, v, window=window)
+    kv_valid = positions[None, :].expand(b, t)
+    return _masked_attention(q, k, v, causal_from=positions,
+                             kv_valid=kv_valid, window=window)
+
+
+def _kv_for_heads(k: torch.Tensor, hq: int, h0: int, hl: int) -> torch.Tensor:
+    """The KV heads that query heads h0 .. h0 + hl - 1 of ``hq`` read, of the
+    whole (B, Hkv, T, D) ``k``, laid out for grouped attention over the hl
+    local heads: a run of whole groups, one shared head, or one head per
+    query head where the groups straddle the local heads."""
+    hkv = k.shape[1]
+    g = hq // hkv
+    if hl % g == 0:
+        return k[:, h0 // g:h0 // g + hl // g]
+    if g % hl == 0:
+        return k[:, h0 // g:h0 // g + 1]
+    idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(1, idx)
+
+
+def _attention_tp(p, x, cfg: ArchConfig, *, positions, window, plain: bool,
+                  tp: D.Group) -> torch.Tensor:
+    """Tensor-parallel self-attention of the replicated (B, T, d) ``x``:
+    (B, T, d), replicated.  Where the query heads divide by m, a rank runs
+    its H / m heads; else every rank runs all heads and keeps its columns
+    of the output (or, where ``wo`` is whole, all of them)."""
+    b, t, _ = x.shape
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    m, r = tp.size, tp.index
+    q_split = p["wq"].shape[-1] != hq * hd
+    kv_split = p["wk"].shape[-1] != hkv * hd
+    wo_split = p["wo"].shape[-2] != hq * hd
+    local_heads = q_split and wo_split and hq % m == 0
+    local_kv = local_heads and kv_split and hkv % m == 0
+    xc = D.copy_to(x, tp)
+
+    def proj(w, bias, split):
+        y = (xc if split else x) @ p[w]
+        return y + p[bias] if cfg.qkv_bias else y
+
+    def whole(y, split):
+        """A projection's output over every head (gathered if split)."""
+        return D.gather_from(y, tp, dim=-1) if split else y
+
+    q = proj("wq", "bq", q_split)
+    k = proj("wk", "bk", kv_split)
+    v = proj("wv", "bv", kv_split)
+    if not local_heads:
+        q = whole(q, q_split)
+    if not local_kv:
+        k, v = whole(k, kv_split), whole(v, kv_split)
+    q = q.reshape(b, t, -1, hd)
+    k = k.reshape(b, t, -1, hd)
+    v = v.reshape(b, t, -1, hd)
+    if cfg.qk_norm:
+        # a norm applied to one rank's heads has a part of its gradient
+        qn, kn = p["q_norm"], p["k_norm"]
+        if local_heads:
+            qn = D.copy_to(qn, tp)
+        if local_kv:
+            kn = D.copy_to(kn, tp)
+        q = rms_norm(q, qn, cfg.norm_eps, plain)
+        k = rms_norm(k, kn, cfg.norm_eps, plain)
+    q = rope(q, positions, cfg.rope_theta).transpose(1, 2)
+    k = rope(k, positions, cfg.rope_theta).transpose(1, 2)
+    v = v.transpose(1, 2)
+
+    if local_heads:
+        hl = hq // m
+        if not local_kv:
+            # every rank holds every KV head; its heads use a part of them
+            k, v = D.copy_to(k, tp), D.copy_to(v, tp)
+            k = _kv_for_heads(k, hq, r * hl, hl)
+            v = _kv_for_heads(v, hq, r * hl, hl)
+        out = _self_attention(q, k, v, positions=positions, window=window,
+                              plain=plain)
+        out = out.transpose(1, 2).reshape(b, t, hl * hd)
+        return D.reduce_from(out @ p["wo"], tp)
+    if wo_split:
+        # all heads on every rank, each keeping its columns for its rows
+        # of wo: the heads' gradient is summed over the group
+        q, k, v = (D.copy_to(y, tp) for y in (q, k, v))
+    out = _self_attention(q, k, v, positions=positions, window=window,
+                          plain=plain)
+    out = out.transpose(1, 2).reshape(b, t, hq * hd)
+    if not wo_split:
+        return out @ p["wo"]
+    c = p["wo"].shape[-2]                 # this rank's rows of wo
+    return D.reduce_from(out[..., r * c:(r + 1) * c] @ p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +459,16 @@ def init_mlp(generator, d: int, f: int, kind: str, dtype, device,
             "w_down": dense_init(generator, f, d, dtype, device, lead)}
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              kind: str) -> torch.Tensor:
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, kind: str,
+              group=None) -> torch.Tensor:
+    """SwiGLU or GELU MLP of x.  ``group``: the model group over which this
+    rank holds column-parallel ``w_gate`` / ``w_up`` and row-parallel
+    ``w_down`` blocks (None: the whole weights)."""
+    if group is not None:
+        x = D.copy_to(x, group)
     if kind == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return y if group is None else D.reduce_from(y, group)

@@ -91,7 +91,7 @@ def init_mamba1(generator: Optional[torch.Generator], cfg: ArchConfig, dtype,
         "wx": dense_init(generator, d, di, dtype, device, lead),
         "wz": dense_init(generator, d, di, dtype, device, lead),
         "conv_w": dense_init(generator, cfg.ssm_conv, di, dtype, device,
-                             lead) * 0.5,
+                             lead).mul_(0.5),
         "conv_b": zeros(lead + (di,), dtype, device),
         "w_dt": dense_init(generator, di, r, dtype, device, lead),
         "w_b": dense_init(generator, di, n, dtype, device, lead),
@@ -178,7 +178,7 @@ def init_mamba2(generator: Optional[torch.Generator], cfg: ArchConfig, dtype,
         "wc": dense_init(generator, d, n, dtype, device, lead),
         "wdt": dense_init(generator, d, nh, dtype, device, lead),
         "conv_w": dense_init(generator, cfg.ssm_conv, conv_dim, dtype,
-                             device, lead) * 0.5,
+                             device, lead).mul_(0.5),
         "conv_b": zeros(lead + (conv_dim,), dtype, device),
         "dt_b": torch.full(lead + (nh,), -4.6, dtype=f32, device=device),
         "A_log": zeros(lead + (nh,), f32, device),

@@ -16,11 +16,10 @@ the layer pattern (gemma3: 5 local + 1 global; llama4: a dense layer, then
 an MoE one; zamba2: 6 Mamba2 layers, the last followed by the shared
 attention block), and ``params["rem"]["rem{j}"]`` the ``n_layers % period``
 remainder layers, which take the kinds of pattern positions 0, 1, ...  The
-JAX ``lax.scan`` over blocks is a Python loop over the block axis here;
-``shard(...)`` is a no-op without a mesh and is dropped.  Local layers get
-window-sized rolling KV caches, global ones full-length caches.  An MoE
-layer (``models.moe``) replaces the MLP with routed experts, plus a shared
-expert where the config has one; its router's load-balancing loss is the
+JAX ``lax.scan`` over blocks is a Python loop over the block axis here.
+Local layers get window-sized rolling KV caches, global ones full-length
+caches.  An MoE layer (``models.moe``) replaces the MLP with routed
+experts, plus a shared expert where the config has one; its router's load-balancing loss is the
 layer's aux, summed over the layers in order.  An SSM layer
 (``models.mamba``) is a norm and a Mamba1 or Mamba2 block; its cache is
 the conv state (in the cache dtype) and the SSM state (always fp32).  In
@@ -54,6 +53,23 @@ modes K3, K4 and K5 are autograd Functions (K3b, K4b and K5b backward).
 the JAX package's
 ``jax.checkpoint(..., nothing_saveable)`` over its scan body; the
 remainder layers and the final norm are not recomputed, as there.
+
+**Over a mesh** (``mesh``, a ``launch.mesh.Mesh`` with a ``model`` axis
+and ``data_axes``; the train modes of the attention families): ``params``
+are this rank's blocks by ``launch.shardings.param_specs`` and ``tokens``
+its data shard by ``batch_specs``.  Attention and MLPs are Megatron
+tensor-parallel over ``model`` (``layers``), MoE layers expert-parallel
+(``moe``); the embedding is vocab-parallel (a rank looks up the ids of its
+vocabulary range, zero rows elsewhere, summed over the model group),
+``vision_proj`` column-parallel and gathered, and the head (``lm_head``,
+or ``embed.T`` when tied) gives this rank's vocabulary columns of the
+logits, for ``train_step``'s vocab-parallel cross-entropy.  The residual
+stream is replicated over ``model``, where the reference's ``shard(x,
+"batch", "seq", "embed")`` lets its partitioner split it (Megatron-SP); the
+port's ``models.sharding.shard`` moves nothing.  A mesh of one rank on
+every axis is the one-device path, bitwise.  Prefill and decode over a
+model axis of more than one rank, and the SSM and hybrid families over
+one, raise (ROADMAP Queue A item 13f).
 """
 from __future__ import annotations
 
@@ -62,16 +78,18 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import distributed as D
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .layers import (CACHE_DTYPES, IMPLS, attention_apply, dense_init,
-                     init_attention, init_mlp, mlp_apply, rms_norm, rope,
-                     write_cache, zeros)
+from .layers import (CACHE_DTYPES, IMPLS, attention_apply,
+                     dense_init, init_attention, init_mlp, mlp_apply,
+                     rms_norm, rope, write_cache, zeros)
 from . import mamba as M
 from . import moe
 
 __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
-           "init_caches", "forward", "check_supported", "MODES"]
+           "init_caches", "forward", "check_supported", "MODES",
+           "mesh_groups"]
 
 Tree = Dict[str, Any]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -218,12 +236,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     for a global one; for an SSM layer its conv state in ``dtype`` (bf16
     for an fp8 cache: the reference keeps fp8 to the K/V buffers) and its
     SSM state in fp32 (``mamba*_state_shape``), plus a full-length K/V
-    where the shared attention block follows it."""
+    where the shared attention block follows it.  ``device`` "meta" gives
+    the shapes alone."""
     check_supported(cfg)
     if dtype not in CACHE_DTYPES:
         raise ValueError(f"KV cache dtype {dtype}: one of {CACHE_DTYPES}")
     state_dtype = torch.bfloat16 if dtype == torch.float8_e4m3fn else dtype
-    dev = resolve_device(device)
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
     per = pattern_period(cfg)
     n_blocks, n_rem = divmod(cfg.n_layers, per)
 
@@ -302,10 +321,12 @@ def _prefill_kv(cfg: ArchConfig, ap: Tree, h: torch.Tensor,
 
 
 def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
-                    positions, cache, cache_pos, mode, impl) -> tuple:
+                    positions, cache, cache_pos, mode, impl, mesh=None,
+                    data_axes=("data",), tp=None) -> tuple:
     """One attention + MLP (or MoE) layer: (x, aux), aux the router's
     load-balancing loss, None for a dense layer (the reference adds a zero
-    aux there)."""
+    aux there).  ``tp`` / ``mesh``: tensor and expert parallel (the module
+    docstring)."""
     window = kind["window"]
     plain = impl == "ref"
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plain)
@@ -315,22 +336,32 @@ def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
             cache=(cache["k"], cache["v"]), cache_pos=cache_pos, impl=impl)
     else:
         attn_out, _ = attention_apply(lp["attn"], h, cfg, positions=positions,
-                                      window=window, impl=impl)
+                                      window=window, impl=impl, tp=tp)
         if mode == "prefill":
             _prefill_kv(cfg, lp["attn"], h, positions, cache, plain)
     x = x + attn_out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps, plain)
     if kind["type"] == "moe":
-        moe_out, probs = moe.moe_apply(lp["moe"], h2, cfg)
+        moe_out, probs = moe.moe_apply(lp["moe"], h2, cfg, mesh=mesh,
+                                       data_axes=data_axes)
         if cfg.shared_expert:
-            moe_out = moe_out + mlp_apply(lp["shared_mlp"], h2, cfg.mlp_kind)
+            sp = lp["shared_mlp"]
+            moe_out = moe_out + mlp_apply(sp, h2, cfg.mlp_kind,
+                                          _ff_group(tp, sp, cfg))
         return x + moe_out, moe.router_aux_loss(probs)
-    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_kind), None
+    return x + mlp_apply(lp["mlp"], h2, cfg.mlp_kind,
+                         _ff_group(tp, lp["mlp"], cfg)), None
+
+
+def _ff_group(tp, p: Tree, cfg: ArchConfig):
+    """``tp`` where this rank holds a column block of the MLP ``p`` (its
+    ``w_up`` narrower than d_ff), else None (the whole weights)."""
+    return tp if tp is not None and p["w_up"].shape[-1] != cfg.d_ff else None
 
 
 def _ssm_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
                positions, cache, cache_pos, mode, impl,
-               shared_params) -> tuple:
+               shared_params, **mesh_kw) -> tuple:
     """One SSM layer (norm + Mamba1 / Mamba2, residual), then the shared
     attention + MLP block where the kind says so: (x, None), an SSM layer
     having no aux.  Prefill and decode write the layer's states (and the
@@ -355,7 +386,7 @@ def _ssm_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
         x, _ = _attn_mlp_layer(cfg, {"type": "dense", "window": None},
                                shared_params, x, positions=positions,
                                cache=cache, cache_pos=cache_pos, mode=mode,
-                               impl=impl)
+                               impl=impl, **mesh_kw)
     return x, None
 
 
@@ -376,23 +407,62 @@ MODES = ("train", "train_hidden", "prefill", "decode")
 TRAIN_MODES = ("train", "train_hidden")
 
 
+def mesh_groups(mesh, data_axes=("data",)) -> tuple:
+    """(model group or None, data group or None) of ``mesh`` for this
+    rank: each None where its axes hold one rank (or no mesh)."""
+    if mesh is None:
+        return None, None
+    tp = None
+    if "model" in mesh.shape and mesh.shape["model"] > 1:
+        tp = mesh.group("model")
+    data = tuple(a for a in data_axes if a in mesh.shape)
+    dg = mesh.group(data) if data and mesh.axis_size(data) > 1 else None
+    return tp, dg
+
+
+def vocab_range(cfg: ArchConfig, tp, n: int) -> Optional[tuple]:
+    """(model group, first id, ids) of this rank's block of ``n``
+    vocabulary ids where a table holds fewer than ``cfg.vocab`` (vocab-
+    sharded over ``tp``), else None."""
+    if tp is None or n == cfg.vocab:
+        return None
+    return tp, tp.index * n, n
+
+
+def head_range(cfg: ArchConfig, params: Tree, tp) -> Optional[tuple]:
+    """:func:`vocab_range` of the head's columns (``lm_head``, or the tied
+    ``embed``'s rows)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return vocab_range(cfg, tp, head.shape[-1])
+
+
 def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             mode: str = "train", caches: Optional[Tree] = None,
             pos: Optional[int] = None, impl: str = "flash",
             remat: bool = False,
-            vision_embeds: Optional[torch.Tensor] = None):
+            vision_embeds: Optional[torch.Tensor] = None,
+            mesh=None, data_axes=("data",)):
     """tokens (B, S) integer (S = 1 for decode, at absolute position
     ``pos``).  ``vision_embeds`` (B, Np, d), for a vision config in the
     train and prefill modes, are projected and prepended to the tokens'
     embeddings: positions then run over Np + S, and decode continues at
     ``pos`` >= Np + S.  See the module docstring for what each mode
-    returns."""
+    returns, and for ``mesh`` / ``data_axes``."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     training = mode in TRAIN_MODES
+    if mesh is not None and mesh.size == 1:
+        mesh = None                     # the one-device path, bitwise
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m > 1 and (not training or cfg.family in ("ssm", "hybrid")):
+        raise NotImplementedError(
+            f"{cfg.name}: {mode!r} over a {m}-way model axis is not ported "
+            f"(tensor parallelism covers the train modes of the attention "
+            f"families; ROADMAP Queue A item 13f)")
+    tp, _ = mesh_groups(mesh, data_axes)
     if not training and caches is None:
         raise ValueError(f"mode {mode!r} needs caches (init_caches)")
     if remat and not training:
@@ -401,7 +471,17 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     kinds = [layer_kind(cfg, j) for j in range(per)]
     n_blocks, n_rem = divmod(cfg.n_layers, per)
 
-    x = params["embed"][tokens]
+    vocab = vocab_range(cfg, tp, params["embed"].shape[0])
+    if vocab is None:
+        x = params["embed"][tokens]
+    else:
+        # vocab-parallel: this rank's ids, zero rows elsewhere, summed
+        group, v0, n = vocab
+        local = tokens - v0
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None],
+                        params["embed"][local.clamp(0, n - 1)], 0.0)
+        x = D.reduce_from(x, group)
     if cfg.qk_norm:                          # gemma3 scales embeddings
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -412,6 +492,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
         proj = params["vision_proj"]
         dt = torch.promote_types(vision_embeds.dtype, proj.dtype)
         vis = vision_embeds.to(dt) @ proj.to(dt)     # jnp's promotion
+        if proj.shape[-1] != cfg.d_model:             # column-parallel
+            vis = D.gather_from(vis, tp, dim=-1)
         x = torch.cat([vis.to(x.dtype), x], dim=1)   # early fusion
     s = x.shape[1]
     if mode == "decode":
@@ -427,6 +509,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     kw = dict(positions=positions, cache_pos=cache_pos,
               mode="train" if training else mode, impl=impl,
               shared_params=params.get("shared_attn"))
+    if mesh is not None:
+        kw.update(mesh=mesh, data_axes=data_axes, tp=tp)
 
     def block(x_, aux_, i):
         """Repetition i of the layer pattern; aux_ plus its layers' aux."""
@@ -457,6 +541,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     if mode == "train_hidden":
         return x, head, aux
     if mode == "train":
+        if head_range(cfg, params, tp) is not None:   # its vocab columns
+            return D.copy_to(x, tp) @ head, aux
         return x @ head, aux
     # prefill / decode: only the last position's logits are needed
     logits = x[:, -1, :] @ head

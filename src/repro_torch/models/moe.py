@@ -22,8 +22,18 @@ twice (or recomputed under remat) is bitwise the same:
   dropped copy reads it) and adds the k slots in order, ``c0 + c1 + ...``,
   the JAX CPU scatter-add's order; no ``index_add_`` (atomics) anywhere.
 
-The expert parallel path over a mesh (the reference's ``shard_map``) is
-not ported: ``moe_apply`` raises for a mesh (ROADMAP Queue A item 13f).
+**Expert parallelism** (``moe_apply(mesh=...)``, the reference's
+``shard_map`` body): the tokens are replicated over the ``model`` axis, so
+every rank routes all of them identically, fills only its ``E / m``
+experts' buffers (ids from ``rank x E / m``), runs their batched SwiGLU,
+combines its copies in slot order (zero for another rank's) and the
+ranks' partial outputs are summed over the model group
+(``distributed.reduce_from``).  The tokens and the gate probabilities
+enter the rank's part through ``distributed.copy_to``, so the router's
+gradient is whole on every rank; the router probabilities returned (for
+the aux loss) are gathered over the data axes, as the reference's
+``out_specs`` gather them.  Each data shard routes its own tokens, with
+the capacity of its own token count, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import distributed as D
 from ..configs.base import ArchConfig
 from .layers import dense_init
 
@@ -105,46 +116,78 @@ def dispatch_codes(probs: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _moe_local(router, w_gate, w_up, w_down, xf: torch.Tensor,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE body on (T, d) tokens with all E experts: (y (T, d), router
-    probabilities (T, E) in fp32)."""
+               cfg: ArchConfig, e_local: Optional[int] = None,
+               e_offset: int = 0,
+               group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE body on (T, d) tokens with the ``e_local`` experts from id
+    ``e_offset`` (default: all E): (y (T, d), router probabilities (T, E)
+    in fp32).  ``group``: the model group whose ranks hold the other
+    experts (y is then summed over it)."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_local = e if e_local is None else e_local
     c = _capacity(t, cfg)
 
     probs = torch.softmax(xf.float() @ router, dim=-1)         # (T, E)
-    gate, eid, slot, keep = route(probs, cfg, c)
-    # each kept copy's row in the (E C) buffer; dropped ones -> row E C
-    didx = torch.where(keep, eid.reshape(-1) * c + slot, e * c)
-    copies = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = xf.new_zeros((e * c + 1, d)).index_copy(0, didx, copies)
+    xs, ps = xf, probs
+    if group is not None:
+        xs, ps = D.copy_to(xf, group), D.copy_to(probs, group)
+    gate, eid, slot, keep = route(ps, cfg, c)
+    # each kept copy of this rank's experts: its row in the (E_l C)
+    # buffer; every other copy -> row E_l C
+    lid = eid.reshape(-1) - e_offset
+    mine = keep & (lid >= 0) & (lid < e_local)
+    didx = torch.where(mine, lid * c + slot, e_local * c)
+    copies = xs[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = xs.new_zeros((e_local * c + 1, d)).index_copy(0, didx, copies)
 
-    h = buf[:e * c].reshape(e, c, d)
+    h = buf[:e_local * c].reshape(e_local, c, d)
     act = F.silu(torch.bmm(h, w_gate)) * torch.bmm(h, w_up)
-    out = torch.bmm(act, w_down).reshape(e * c, d)
+    out = torch.bmm(act, w_down).reshape(e_local * c, d)
 
-    # gather back (a dropped copy reads the zero row), weight by the gate,
-    # and add each token's k copies in slot order
+    # gather back (another rank's or a dropped copy reads the zero row),
+    # weight by the gate, and add each token's k copies in slot order
     picked = torch.cat([out, out.new_zeros((1, d))])[didx]
     contrib = (picked * gate.reshape(-1, 1).to(picked.dtype)).reshape(t, k, d)
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
+    if group is not None:
+        y = D.reduce_from(y, group)
     return y, probs
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, d), router probabilities (B S, E) for the aux loss) of
-    x (B, S, d) on one device.  A ``mesh`` (the reference's expert-parallel
-    path) raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_apply over a mesh (expert parallelism) is not ported "
-            "(ROADMAP Queue A item 13f); pass mesh=None")
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, mesh=None,
+              model_axis: str = "model",
+              data_axes: Tuple[str, ...] = ("data",)
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, d), router probabilities (B S, E) for the aux loss) of x
+    (B, S, d).  With a ``mesh`` holding ``model_axis``, expert parallel
+    (the module docstring): ``p``'s experts are this rank's E / m, x is
+    this rank's data shard, and the probabilities are gathered over
+    ``data_axes``.  Raises unless E divides by the model axis."""
     b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    if mesh is None or model_axis not in mesh.shape:
+        y, probs = _moe_local(p["router"], p["w_gate"], p["w_up"],
+                              p["w_down"], xf, cfg)
+        return y.reshape(b, s, d), probs
+    m = mesh.shape[model_axis]
+    if cfg.n_experts % m:
+        raise ValueError(f"{cfg.n_experts} experts do not divide over a "
+                         f"{m}-way {model_axis!r} axis")
+    e_local = cfg.n_experts // m
+    if p["w_gate"].shape[0] != e_local:
+        raise ValueError(f"expert parallel over {m} ranks: this rank holds "
+                         f"{p['w_gate'].shape[0]} experts, not {e_local}")
+    group = mesh.group(model_axis) if m > 1 else None
     y, probs = _moe_local(p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                          x.reshape(b * s, d), cfg)
+                          xf, cfg, e_local=e_local,
+                          e_offset=mesh.axis_index(model_axis) * e_local,
+                          group=group)
+    data = tuple(a for a in data_axes if a in mesh.shape)
+    if data and mesh.axis_size(data) > 1:
+        probs = D.gather_from(probs, mesh.group(data), dim=0)
     return y.reshape(b, s, d), probs
 
 

@@ -11,6 +11,15 @@ by their bias corrections before the square root, so the same gradients
 give the same step only when the arithmetic is copied.  Moments are fp32
 by default; the step counter is a 0-d int32 tensor on the parameters'
 device, so an update never waits for the host.
+
+Over a mesh (``adamw_update(..., mesh=, specs=)``, ``specs`` the state's
+``launch.shardings.state_specs``): the leaves are a rank's blocks.  The
+clip's global norm adds each leaf's sum of squares, summed over the mesh
+axes its spec splits it over (so a replicated leaf counts once), in leaf
+order.  Where a moment's spec splits a dim that its parameter's does not
+(ZeRO over the data axes), the rank holds that data slice of ``mu`` /
+``nu``, updates that slice of the parameter and all-gathers the slices
+over the data axes into its block.
 """
 from __future__ import annotations
 
@@ -19,6 +28,9 @@ import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from .. import distributed as D
+from ..models.sharding import PartitionSpec
 
 Tree = Any   # nested dicts / lists / tuples of tensors
 
@@ -45,11 +57,13 @@ class AdamWState(NamedTuple):
 
 
 def tree_leaves(tree: Tree) -> list:
-    """The tensors of ``tree`` in ``jax.tree.flatten``'s order."""
+    """The tensors of ``tree`` in ``jax.tree.flatten``'s order (a
+    ``PartitionSpec`` is a leaf, as in a spec tree)."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree)
                 for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and \
+            not isinstance(tree, PartitionSpec):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 
@@ -112,15 +126,64 @@ def warmup_cosine(peak_lr: float, warmup: int, total: int,
     return sched
 
 
+def _sharded_norm(grads: list, pspecs: list, mesh) -> torch.Tensor:
+    """The global norm of a rank's gradient blocks: each leaf's fp32 sum of
+    squares, summed over the axes its spec splits it over (one collective
+    an axis set), added in leaf order."""
+    from ..launch.shardings import spec_axes
+
+    sums = [torch.sum(torch.square(g.float())) for g in grads]
+    by_axes: dict = {}
+    for i, sp in enumerate(pspecs):
+        axes = tuple(a for a in spec_axes(sp) if mesh.shape[a] > 1)
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        total = D.psum(torch.stack([sums[i] for i in idx]),
+                       mesh.group(axes))
+        for i, t in zip(idx, total):
+            sums[i] = t
+    total = 0
+    for t in sums:
+        total = total + t
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _zero_dim(pspec, mspec) -> Optional[tuple]:
+    """(dim, axes) where the moment's spec splits a dim the parameter's
+    does not (its ZeRO slice), else None."""
+    for d, (pe, me) in enumerate(zip(tuple(pspec) + (None,) * len(mspec),
+                                     mspec)):
+        if pe is None and me is not None:
+            return d, PartitionSpec.axes_of(me)
+    return None
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
-                 params: Tree) -> Tuple[Tree, AdamWState, torch.Tensor]:
+                 params: Tree, *, mesh=None, specs=None
+                 ) -> Tuple[Tree, AdamWState, torch.Tensor]:
     """One AdamW step.  Returns (new_params, new_state, grad_norm); the
-    inputs are left as they were."""
-    if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    inputs are left as they were.  ``mesh`` / ``specs``: a rank's blocks
+    of a sharded state (the module docstring)."""
+    g_leaves = tree_leaves(grads)
+    if mesh is not None and mesh.size > 1:
+        if specs is None:
+            raise ValueError("a sharded update needs the state's specs "
+                             "(launch.shardings.state_specs)")
+        pspecs = tree_leaves(specs.params)
+        mspecs = tree_leaves(specs.opt.mu)
+        gnorm = _sharded_norm(g_leaves, pspecs, mesh)
+        if cfg.clip_norm is not None:
+            scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
+            g_leaves = [g * scale.to(g.dtype) for g in g_leaves]
     else:
-        gnorm = global_norm(grads)
+        pspecs = mspecs = None
+        if cfg.clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+            g_leaves = tree_leaves(grads)
+        else:
+            gnorm = global_norm(grads)
 
     step = state.step + 1
     stepf = step.float()
@@ -129,18 +192,36 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
     b1c = 1 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
     b2c = 1 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
 
-    new_p, new_m, new_v = [], [], []
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
-                          tree_leaves(state.nu), tree_leaves(params)):
+    def upd(g, m, v, p):
         g32 = g.float()
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g32)
         delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * delta).to(p.dtype))
-        new_m.append(m32.to(m.dtype))
-        new_v.append(v32.to(v.dtype))
+        return (p.float() - lr * delta).to(p.dtype), m32.to(m.dtype), \
+            v32.to(v.dtype)
+
+    new_p, new_m, new_v = [], [], []
+    for i, (g, m, v, p) in enumerate(zip(g_leaves, tree_leaves(state.mu),
+                                         tree_leaves(state.nu),
+                                         tree_leaves(params))):
+        zero = None if pspecs is None else _zero_dim(pspecs[i], mspecs[i])
+        if zero is None or mesh.axis_size(zero[1]) == 1:
+            out = upd(g, m, v, p)
+        else:
+            # ZeRO: this rank's data slice, then the slices gathered
+            d, axes = zero
+            n = m.shape[d]
+            lo = mesh.axis_index(axes) * n
+            pn, mn, vn = upd(g.narrow(d, lo, n), m, v, p.narrow(d, lo, n))
+            pn = D.all_gather(pn.movedim(d, 0).contiguous(),
+                              mesh.group(axes)).movedim(0, d).contiguous()
+            out = (pn, mn, vn)
+        new_p.append(out[0])
+        new_m.append(out[1])
+        new_v.append(out[2])
     return (tree_like(params, new_p),
             AdamWState(step, tree_like(params, new_m),
                        tree_like(params, new_v)), gnorm)
+

@@ -41,7 +41,8 @@ def test_import_leaves_jax_out():
             "repro_torch.data.pipeline, repro_torch.checkpoint.checkpoint, "
             "repro_torch.launch.train, repro_torch.distributed, "
             "repro_torch.launch.mesh, repro_torch.train.collectives, "
-            "repro_torch.train.pod_compress; "
+            "repro_torch.train.pod_compress, repro_torch.models.sharding, "
+            "repro_torch.launch.shardings; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -89,7 +90,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "service/state.py", "train/train_step.py",
                 "data/pipeline.py", "checkpoint/checkpoint.py",
                 "launch/train.py", "distributed.py", "launch/mesh.py",
-                "train/collectives.py", "train/pod_compress.py"):
+                "train/collectives.py", "train/pod_compress.py",
+                "models/sharding.py", "launch/shardings.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)

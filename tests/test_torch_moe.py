@@ -220,6 +220,10 @@ def test_router_aux_loss_matches_jax(given):
 
 
 def test_init_moe_layout_and_a_mesh_raises():
+    """The layout, and a mesh whose model axis does not divide the experts
+    raises (the reference asserts E % m == 0)."""
+    from repro_torch.launch.mesh import Mesh
+
     jcfg, tcfg = _cfgs(MOONSHOT)
     want = {k: v.shape for k, v in JMoE.init_moe(
         jax.random.PRNGKey(0), jcfg, jnp.bfloat16).items()}
@@ -229,8 +233,58 @@ def test_init_moe_layout_and_a_mesh_raises():
     assert got["router"].dtype == torch.float32
     assert got["w_down"].dtype == torch.bfloat16
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="13f"):
-        TMoE.moe_apply(got, x, tcfg, mesh=object())
+    mesh = Mesh(np.arange(3).reshape(1, 3), ("data", "model"))
+    with pytest.raises(ValueError, match="do not divide"):
+        TMoE.moe_apply(got, x, tcfg, mesh=mesh)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_expert_parallel_matches_jax(tmp_path, shape):
+    """``moe_apply(mesh=...)`` on 4 gloo ranks, each holding E / m experts
+    and its data shard, against the JAX package's ``moe_apply`` on each
+    data shard's tokens (the reference's ``shard_map`` body with its
+    psum over model): y and the router probabilities rtol 1e-5, atol
+    1e-6; the gradients of sum(y dy) + aux over every shard (tokens, router,
+    each rank's experts) within 1e-5 x their max."""
+    from repro_torch import distributed as D
+    from test_torch_expert_parallel import ep_layer_rank
+
+    jcfg, tcfg = _cfgs(MOONSHOT)
+    rng = np.random.default_rng(11)
+    p = {k: _np(v) for k, v in JMoE.init_moe(
+        jax.random.PRNGKey(3), jcfg, jnp.float32).items()}
+    x = rng.normal(0, 1, (4, 16, jcfg.d_model)).astype(np.float32)
+    dy = rng.normal(0, 1, x.shape).astype(np.float32)
+    np.savez(tmp_path / "layer.npz", x=x, dy=dy, **p)
+    ranks = D.spawn_ranks(ep_layer_rank, 4,
+                          args=(str(tmp_path / "layer.npz"), shape),
+                          timeout=120, workdir=str(tmp_path))
+
+    d, m = shape
+
+    def loss(p, x):
+        ys, probs = zip(*(JMoE.moe_apply(p, xs, jcfg)
+                          for xs in jnp.split(x, d)))
+        y = jnp.concatenate(ys)
+        return (jnp.sum(y * dy) + JMoE.router_aux_loss(
+            jnp.concatenate(probs))), (y, jnp.concatenate(probs))
+
+    (_, (y, probs)), (gp, gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    el, bl = jcfg.n_experts // m, x.shape[0] // d
+    for r, out in enumerate(ranks):
+        di, mi = divmod(r, m)
+        rows = slice(di * bl, (di + 1) * bl)
+        np.testing.assert_allclose(out["y"], _np(y)[rows], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(out["probs"], _np(probs), rtol=1e-5,
+                                   atol=1e-6)
+        for got, want in ((out["gx"], _np(gx)[rows]),
+                          (out["grouter"], _np(gp["router"])),
+                          (out["gw_gate"],
+                           _np(gp["w_gate"])[mi * el:(mi + 1) * el])):
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 # --- whole models ------------------------------------------------------------

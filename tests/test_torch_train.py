@@ -551,6 +551,46 @@ def test_train_cli_without_a_card_raises_the_device_error():
 
 
 def test_train_cli_refuses_the_production_mesh():
+    """``--mesh single`` in one process (no world of 256 ranks) raises,
+    naming both sizes."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(ValueError, match="256 ranks.*has 1"):
         train.main(["--mesh", "single", "--device", "cpu"])
+
+
+def test_train_cli_trains_over_a_mesh_on_four_ranks():
+    """``--mesh single`` on 4 gloo ranks with the production mesh patched
+    to (data 2, model 2) inside each rank: rank 0 prints the reference's
+    lines (``[train]``, ``[mesh] DGRO order``, ``step ...``, ``[done]``),
+    the others nothing, and every rank's losses equal a direct
+    ``train_step`` loop's over the same mesh."""
+    from repro_torch import distributed as D
+    from test_torch_tensor_parallel import launcher_rank
+
+    ranks = D.spawn_ranks(launcher_rank, 4, timeout=180)
+    lines = ranks[0][0].splitlines()
+    assert lines[0].startswith("[train] arch=gemma3-1b-smoke")
+    assert lines[1].startswith("[mesh] DGRO order: {'rho'")
+    assert sum(line.startswith("step ") for line in lines) == 3
+    assert lines[-1].startswith("[done] 3 steps")
+    assert all(out == "" for out, _, _ in ranks[1:])
+    for _, losses, direct in ranks:
+        assert losses == direct == ranks[0][1]
+        assert np.all(np.isfinite(losses))
+
+
+def test_train_cli_over_a_mesh_takes_the_global_microbatches():
+    """``--mesh single --microbatches 2`` on 4 gloo ranks (mesh patched to
+    (data 2, model 2)): each rank holds its part of both microbatches of
+    the global batch, so the losses are the one-device launcher's with 2
+    microbatches (rel 1e-5) and a direct loop's."""
+    from repro_torch import distributed as D
+    from repro_torch.launch import train
+    from test_torch_tensor_parallel import LAUNCH, launcher_rank
+
+    ranks = D.spawn_ranks(launcher_rank, 4, args=(2,), timeout=180)
+    one = [a for a in LAUNCH if a not in ("--mesh", "single")]
+    want = train.main(one + ["--microbatches", "2"])
+    for _, losses, direct in ranks:
+        assert losses == direct == ranks[0][1]
+        assert losses == pytest.approx(want, rel=1e-5)
