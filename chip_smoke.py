@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 plain-torch twin on the card: the min-plus kernels K1/K2 bitwise, RMSNorm
 K3 and flash attention K4, their gradients K3b and K4b, Mamba1's
 selective scan K5 and its gradient K5b, and decode attention K6 over an
-fp32, bf16 or fp8 cache, within stated tolerances.  Then it
+fp32, bf16 or fp8 cache (and its partial form over a rank's slots),
+within stated tolerances.  Then it
 drives the port's two paths, each with the kernels' launch counters reset
 just before and read just after:
 
@@ -52,7 +53,12 @@ just before and read just after:
   after every step and K3 / K4 / K3b / K4b launched as the layers imply,
   (d-f) tensor and expert parallel training of moonshot-v1-16b-a3b at
   full width cut to 2 layers over mesh (data 1, model 4), step 1 held to
-  the one-device step (routing flips only at near ties);
+  the one-device step (routing flips only at near ties), (d-g) serving
+  over the same mesh, held to the one-device port served on the card:
+  gemma3-1b at full width and depth (its caches split over slots, K6's
+  partial form on every decode layer), zamba2-7b cut to 6 layers and
+  falcon-mamba-7b cut to 4 (tensor-parallel Mamba2 / Mamba1), each with a
+  train step;
 * LM serving -- ``launch.serve.generate`` on gemma3-1b at full width
   (8 requests of 1024-token prompts, 32 new tokens, greedy), with the K3 /
   K4 / K6 launch counts the config implies (decode attends over the cache
@@ -676,7 +682,7 @@ def phase_parallel(counts: dict) -> None:
     log(f"  M={m} nearest ring equals parallel_ring_host's (numpy segments)")
 
 
-CHURN = dict(n0=4000, dist="bitnode", horizon=30_000.0, rate=2e-3,
+CHURN = dict(n0=4000, dist="bitnode", horizon=15_000.0, rate=2e-3,
              k_rings=2, adapt_every=8, threshold=8, fail_n0=1024,
              maint_n=4096, maint_ops=80, maint_full_ops=16,
              maint_threshold=16, replicas=16, stream_c=1024, stream_t=64,
@@ -1734,12 +1740,29 @@ def phase_service() -> None:
 
 
 # phase (d): every rank on the card, gemma3-1b at full width
-DIST = dict(ranks=4, timeout=300, n=4096, emb=(262_144, 1_152),
+DIST = dict(ranks=4, timeout=600, n=4096, emb=(262_144, 1_152),
             small=1_000_003, layers=4, seq=1024, steps=2, lr=3e-3,
             ce_chunk=256)
 # (d-f): moonshot at full width cut to 2 of 48 layers, mesh (data 1, model 4)
 DIST_TP = dict(arch="moonshot-v1-16b-a3b", layers=2, batch=2, seq=1024,
                steps=2, lr=3e-3, ce_chunk=256, mesh=(1, 4))
+# (d-g): serving over mesh (data 1, model 4), every part held to the
+# one-device port on the card: (d-g1) gemma3-1b at full width and depth
+# (its one KV head: every cache split over slots, K6's partial form on
+# every decode layer); (d-g2) zamba2-7b at full width cut to 6 of 81
+# layers (one shared-attention call) and (d-g3) falcon-mamba-7b at full
+# width cut to 4 of 64, each served and trained one step (remat)
+# logit_tol: max |diff| / max |logit| of a row, the CPU parity tests'
+# bound (tests/test_torch_tp_serve.py), which a merge or slot-ownership
+# fault at 1e-5 would pass no more than there
+DIST_SERVE = dict(
+    mesh=(1, 4), logit_tol=1e-5, tie=1e-5,
+    parts=(dict(tag="g1", arch="gemma3-1b", layers=None, batch=8,
+                prompt_len=1000, max_len=1024, steps=16),
+           dict(tag="g2", arch="zamba2-7b", layers=6, batch=4,
+                prompt_len=512, max_len=528, steps=8, train=(2, 512)),
+           dict(tag="g3", arch="falcon-mamba-7b", layers=4, batch=4,
+                prompt_len=512, max_len=528, steps=8, train=(2, 1024))))
 
 
 def _digest(t) -> str:
@@ -1965,6 +1988,12 @@ def dist_rank(rank: int, world: int, spec: dict) -> dict:
     torch.cuda.empty_cache()
     tp_rank(rank, world, spec, out, dev)
     marks.append(("(d-f) tensor / expert parallel steps", time.time()))
+    torch.cuda.empty_cache()
+    for part in DIST_SERVE["parts"]:
+        serve_tp_rank(rank, world, part, spec, out, dev)
+        torch.cuda.empty_cache()
+        marks.append((f"(d-{part['tag']}) {part['arch']} over the mesh",
+                      time.time()))
     return out
 
 
@@ -2191,9 +2220,17 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
     its blocks and the largest leaf drawn whole, the leaves the specs leave
     whole bitwise equal on every rank after each step, K3 / K3b / K4 /
     K4b launches a rank-step as ``expected_train_launches``, and the peak
-    a rank under its share of the card.  The ranks share one card: the
-    phase measures the transport and proves the protocol; it is no
-    speed-up."""
+    a rank under its share of the card; (d-g) serving over mesh (data 1,
+    model 4), each part held to the one-device port served on the card
+    before the spawn (``serve_tp_reference``, ``serve_tp_checks``): (d-g1)
+    gemma3-1b at full width and depth, batch 8 x 1000, max_len 1024, 16
+    greedy decode steps (every KV cache split over slots: K6's partial form
+    on every decode layer, merged across ranks), (d-g2) zamba2-7b at full
+    width cut to 6 layers, batch 4 x 512 and 8 decode steps, and a train
+    step at 2 x 512 with remat, (d-g3) falcon-mamba-7b at full width cut
+    to 4 layers, the same serving and a train step at 2 x 1024 (K5 / K5b on
+    2,048 channels a rank).  The ranks share one card: the phase measures
+    the transport and proves the protocol; it is no speed-up."""
     import torch
 
     from repro_torch import distributed as D
@@ -2227,6 +2264,13 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
         f"{tp['loss']:.7f} (aux {tp['aux']:.7f}), grad norm "
         f"{tp['gnorm']:.7f}; {tp['wall']:.3f} s with the init, "
         f"{tp['saved_s']:.1f} s to write the gradient [{card}]")
+    t0 = time.perf_counter()
+    spec["serve_ref"] = serve_ref = serve_tp_reference(
+        os.path.join(work, "serve_ref"), torch.device("cuda"))
+    log(f"  (d-g) one-device yardsticks (gemma3-1b, zamba2-7b, "
+        f"falcon-mamba-7b served; the SSM parts' train steps): "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
     log(f"  pod ring order {spec['pod_order']} ({rep['selected']}, diameter "
         f"{rep['diameter']:.3f} vs random {rep['random_diameter']:.3f}); "
         f"spawning {r} ranks on cuda:0 (gloo, FileStore) "
@@ -2236,7 +2280,7 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
     try:
         res = D.spawn_ranks(dist_rank, r, args=(spec,),
                             timeout=DIST["timeout"], workdir=work)
-    finally:       # the yardstick's 7.4 GB gradient
+    finally:       # the yardstick's 7.4 GB gradient, the logits
         shutil.rmtree(tp["dir"], ignore_errors=True)
     done = time.time()
     parts = []
@@ -2350,6 +2394,8 @@ def phase_distributed(fig20: tuple, built, built_scipy: float,
     log(f"  (d-e) launches a rank-step {launches[0]} (expected {want}); "
         f"peak memory a rank {[o['e_peak'] for o in res]} B [{card}]")
     tp_checks(res, tp, card, counts, check)
+    serve_tp_checks(res, serve_ref, card, counts, check)
+    shutil.rmtree(os.path.join(work, "serve_ref"), ignore_errors=True)
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -2442,6 +2488,307 @@ def tp_checks(res: list, tp: dict, card: str, counts: dict, check) -> None:
     log(f"  (d-f) launches a rank-step {launches[0]} (expected {want}); peak"
         f" a rank {peaks} B, share {o0['f_share']:.0f} B [{card}]")
     check(max(peaks) < o0["f_share"], "(d-f) a rank's peak over its share")
+
+
+def serve_tp_setup(part: dict, dev):
+    """(d-g)'s config, prompts and (for an SSM part) train config and
+    global batch, on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import upload
+    from repro_torch.train import train_step as TT
+
+    cfg = get_arch(part["arch"])
+    if part["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=part["layers"])
+    prompts = np.random.default_rng(len(part["tag"]) + part["batch"]) \
+        .integers(1, cfg.vocab, (part["batch"], part["prompt_len"]))
+    tc = batch = None
+    if "train" in part:
+        b, t = part["train"]
+        tc = TT.TrainConfig(remat=True)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=t,
+                                      global_batch=b, mean_doc_len=t / 2))
+        batch = {k: upload(v, dev) for k, v in data.batch(0).items()}
+    return cfg, prompts, tc, batch
+
+
+def _serve_loop(cfg, params, prompts, part: dict, dev, **mesh_kw):
+    """Prefill and ``part["steps"]`` greedy decode steps (``launch.serve.
+    greedy``): (logits of every step as returned, tokens (B, steps + 1),
+    prefill wall, each decode step's wall and bytes staged)."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import model as Mdl
+
+    mesh = mesh_kw.get("mesh")
+    tp, _ = Mdl.mesh_groups(mesh)
+    rank = None if mesh is None else D.rank()
+    caches = Mdl.init_caches(cfg, part["batch"], part["max_len"], device=dev,
+                             mesh=mesh, rank=rank)
+    kw = {} if mesh is None else dict(mesh=mesh, max_len=part["max_len"])
+    toks = torch.as_tensor(prompts, device=dev).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, _ = Mdl.forward(cfg, params, toks, mode="prefill",
+                                    caches=caches, **kw)
+    out = [greedy(cfg, params, logits, tp)]
+    torch.cuda.synchronize()
+    prefill = time.perf_counter() - t0
+    seen, steps = [logits], []
+    for i in range(part["steps"]):
+        staged = D.TRAFFIC.bytes_staged
+        t0 = time.perf_counter()
+        logits, caches = Mdl.forward(cfg, params, out[-1][:, None],
+                                     mode="decode", caches=caches,
+                                     pos=part["prompt_len"] + i, **kw)
+        out.append(greedy(cfg, params, logits, tp))
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      D.TRAFFIC.bytes_staged - staged))
+        seen.append(logits)
+    return seen, torch.stack(out, 1), prefill, steps
+
+
+def serve_tp_reference(work: str, dev) -> dict:
+    """(d-g)'s yardstick, in the parent before the ranks start: each part
+    served on one card by the one-device port (its logits of every step
+    to ``work``, with their greedy tokens, each row's max |logit| and its
+    top-2 gap), and an SSM part's one-device train step (loss, grad norm)
+    at the same seed; the card's memory is given back."""
+    import torch
+
+    from repro_torch.models.model import init_params
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import global_norm
+
+    os.makedirs(work, exist_ok=True)
+    ref = {}
+    for part in DIST_SERVE["parts"]:
+        cfg, prompts, tc, batch = serve_tp_setup(part, dev)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        seen, toks, prefill, steps = _serve_loop(cfg, params, prompts, part,
+                                                 dev)
+        lg = torch.stack(seen)                       # (steps + 1, B, V)
+        top2 = lg.topk(2, dim=-1).values
+        path = os.path.join(work, f"{part['tag']}_logits.npy")
+        np.save(path, lg.cpu().numpy())
+        rec = {"logits": path, "tokens": toks.cpu().numpy(),
+               "gap": (top2[..., 0] - top2[..., 1]).cpu().numpy(),
+               "max_logit": lg.abs().amax(-1).cpu().numpy(),
+               "prefill_s": prefill, "step_s": [w for w, _ in steps]}
+        del seen, lg, top2
+        if tc is not None:
+            loss, met, grads = TT.loss_and_grads(cfg, tc, params, batch)
+            rec["loss"], rec["gnorm"] = float(loss), float(global_norm(grads))
+            del grads
+        ref[part["tag"]] = rec
+        del params
+        torch.cuda.empty_cache()
+    return ref
+
+
+def serve_tp_rank(rank: int, world: int, part: dict, spec: dict, out: dict,
+                  dev) -> None:
+    """One (d-g) part on this rank over mesh (data 1, model 4), from the
+    seed of ``serve_tp_reference``: the rank's blocks of the parameters
+    (``init_sharded_params``) and of the caches (``init_caches(mesh=)``),
+    prefill and greedy decode with the launches and the transport's
+    counters reset just before; rank 0 gathers each step's logits and holds
+    them, row by row up to a row's first token that differs, to the
+    one-device logits.  An SSM part then takes one train step (remat) from
+    ``init_sharded_state``: loss, grad norm, launches and the whole leaves'
+    digest."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shardings import (gather_leaf, local_batch,
+                                              param_specs, spec_axes)
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.sharding import P
+    from repro_torch.train import train_step as TT
+
+    tag = part["tag"]
+    ref = spec["serve_ref"][tag]
+    cfg, prompts, tc, batch = serve_tp_setup(part, dev)
+    mesh = Mesh(np.arange(world).reshape(DIST_SERVE["mesh"]),
+                ("data", "model"))
+    tp, _ = Mdl.mesh_groups(mesh)
+    t0 = time.perf_counter()
+    params = TT.init_sharded_params(
+        cfg, param_specs(Mdl.init_params(cfg, device="meta"), mesh), mesh,
+        rank, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    rec = {"setup": time.perf_counter() - t0}
+    reset_all_launches()
+    D.TRAFFIC.reset()
+    seen, toks, prefill, steps = _serve_loop(cfg, params, prompts, part, dev,
+                                             mesh=mesh)
+    rec.update(launches=lm_launches(), prefill_s=prefill, steps=steps,
+               traffic=dict(vars(D.TRAFFIC)), tokens=toks.cpu().numpy())
+    cols = "model" if Mdl.head_range(cfg, params, tp) is not None else None
+    whole = [gather_leaf(lg, P(None, cols), mesh) for lg in seen]
+    if rank == 0:
+        # rows held up to (and with) the step whose input first differs
+        want_toks = torch.from_numpy(ref["tokens"]).to(dev)
+        same_in = torch.cumprod((toks == want_toks).long(), dim=1).bool()
+        lg_ref = np.load(ref["logits"], mmap_mode="r")
+        worst = []
+        for i, lg in enumerate(whole):
+            rows = torch.ones(toks.shape[0], dtype=torch.bool, device=dev) \
+                if i == 0 else same_in[:, i - 1]
+            want = torch.from_numpy(np.array(lg_ref[i])).to(dev)
+            diff = (lg - want).abs().amax(-1) / want.abs().amax(-1)
+            worst.append(float(diff[rows].max()) if bool(rows.any())
+                         else 0.0)
+        rec["logit_rel"] = worst
+        del lg_ref
+    del seen, whole
+    if tc is not None:
+        del params
+        torch.cuda.empty_cache()
+        specs = TT.state_layout(cfg, mesh)
+        state = TT.init_sharded_state(
+            cfg, specs, mesh, rank, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        mine = local_batch(batch, mesh, rank)
+        reset_all_launches()
+        D.TRAFFIC.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = TT.train_step(cfg, tc, state, mine, mesh=mesh,
+                                   specs=specs)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        pspecs = flatten(specs.params)
+        kept = [k for k, sp in pspecs.items()
+                if not any(mesh.shape[a] > 1 for a in spec_axes(sp))]
+        rec["train"] = {
+            "wall": time.perf_counter() - t0, "loss": loss,
+            "gnorm": float(met["grad_norm"]), "launches": lm_launches(),
+            "traffic": dict(vars(D.TRAFFIC)),
+            "whole_digest": _tree_digest([flatten(state.params)[k]
+                                          for k in kept]),
+            "whole_leaves": len(kept)}
+        del state, met
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    out[f"serve_{tag}"] = rec
+
+
+def serve_tp_checks(res: list, ref: dict, card: str, counts: dict,
+                    check) -> None:
+    """(d-g)'s gates over the ranks' numbers and the one-device yardstick:
+    every rank's greedy tokens equal the one device's up to a row's first
+    difference, which must come at a near tie (top-2 gap under ``tie`` x
+    max |logit|); the logits of the rows so far within ``logit_tol`` x max
+    |logit|; every kernel's launches a rank those of the one-device serve
+    (``expected_lm_launches``: K3 on every norm, the gate norms' split form
+    included; K4 once an attention layer in prefill; K5 once a Mamba1
+    layer a forward; K6 once an attention layer a decode step, in its
+    partial form for gemma3-1b's slot-split caches); an SSM part's train
+    step's loss and grad norm within rel 1e-5 of the one device's, its
+    whole leaves equal on every rank, every launch (K3 / K3b with the
+    others) as ``expected_train_launches``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import layer_kind, pattern_period
+
+    tie, tol = DIST_SERVE["tie"], DIST_SERVE["logit_tol"]
+    for part in DIST_SERVE["parts"]:
+        tag, steps = part["tag"], part["steps"]
+        recs = [o[f"serve_{tag}"] for o in res]
+        r0, want = recs[0], ref[tag]
+        cfg = get_arch(part["arch"])
+        if part["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=part["layers"])
+        per = pattern_period(cfg)
+        kinds = [layer_kind(cfg, i % per) for i in range(cfg.n_layers)]
+        ssm = cfg.family in ("ssm", "hybrid")
+        attn = sum(k["shared_attn"] for k in kinds) if ssm else cfg.n_layers
+        mamba1 = sum(k["type"] == "mamba1" for k in kinds) if ssm else 0
+        # tokens: equal on every rank, and to the one device's up to a
+        # row's first difference, at a near tie
+        same_ranks = all(np.array_equal(r["tokens"], r0["tokens"])
+                         for r in recs)
+        diff = r0["tokens"] != want["tokens"]
+        flips = []
+        for b in range(diff.shape[0]):
+            if diff[b].any():
+                i = int(np.argmax(diff[b]))
+                flips.append((b, i, float(want["gap"][i, b]
+                                          / want["max_logit"][i, b])))
+        ties_ok = all(g < tie for _, _, g in flips)
+        la = r0["launches"]
+        k6 = la["decode_attention_partial"] + la["decode_attention"]
+        walls = [w for w, _ in r0["steps"]]
+        staged = [[b for _, b in r["steps"]] for r in recs]
+        log(f"  (d-{tag}) {cfg.name}, {cfg.n_layers} layers at full width, "
+            f"mesh (data 1, model 4), batch {part['batch']} x "
+            f"{part['prompt_len']}, {steps} greedy decode steps: parameters "
+            f"a rank in {max(r['setup'] for r in recs):.1f} s; prefill "
+            f"{max(r['prefill_s'] for r in recs):.4f} s (one device "
+            f"{want['prefill_s']:.4f} s); decode step walls, s (rank 0) "
+            f"{[round(w, 4) for w in walls]} (mean {np.mean(walls):.4f}; one "
+            f"device {np.mean(want['step_s']):.4f}); bytes staged a "
+            f"rank-step {staged[0]} (ranks "
+            f"{min(min(x) for x in staged)}..{max(max(x) for x in staged)}), "
+            f"prefill + decode {r0['traffic']['bytes_staged']} B, "
+            f"{r0['traffic']['seconds']:.3f} s in rank 0's collectives "
+            f"[{card}]")
+        log(f"  (d-{tag}) tokens equal on every rank {same_ranks}; vs one "
+            f"device: {len(flips)} rows part (row, step, top-2 gap / max "
+            f"|logit|) {flips}; logits of the rows so far, max |diff| / max "
+            f"|logit| by step {[f'{x:.2e}' for x in r0['logit_rel']]}; "
+            f"launches a rank {la}; peak a rank "
+            f"{max(r['peak'] for r in recs)} B [{card}]")
+        check(same_ranks, f"(d-{tag}) ranks' tokens differ")
+        check(ties_ok, f"(d-{tag}) a token differs from one device beyond "
+              f"a near tie: {flips}")
+        check(max(r0["logit_rel"]) <= tol, f"(d-{tag}) logits beyond {tol} "
+              f"x max |logit| of one device")
+        check(all(r["launches"] == la for r in recs),
+              f"(d-{tag}) ranks' launches differ")
+        # every kernel as the one-device serve launches it; gemma3-1b's
+        # caches are split over slots, so its K6 runs in the partial form
+        exp = expected_lm_launches(cfg, steps + 1)
+        if tag == "g1":
+            exp["decode_attention_partial"] = exp.pop("decode_attention")
+            exp["decode_attention"] = 0
+        check(la == exp and k6 == attn * steps
+              and la["selective_scan"] == mamba1 * (steps + 1),
+              f"(d-{tag}) launches {la} != {exp}")
+        if tag == "g1":
+            counts["serve_tp"] = la
+        if "train" not in part:
+            continue
+        trs = [r["train"] for r in recs]
+        exp = expected_train_launches(cfg)
+        got = trs[0]["launches"]
+        same = len({t["whole_digest"] for t in trs}) == 1
+        log(f"  (d-{tag}) train step, batch {part['train'][0]} x "
+            f"{part['train'][1]}, remat: loss {trs[0]['loss']:.7f} vs one "
+            f"device {want['loss']:.7f}, grad norm {trs[0]['gnorm']:.7f} vs "
+            f"{want['gnorm']:.7f}; {max(t['wall'] for t in trs):.3f} s "
+            f"(slowest rank), {trs[0]['traffic']['seconds']:.3f} s in rank "
+            f"0's collectives, {trs[0]['traffic']['bytes_staged']} B staged "
+            f"a rank; the {trs[0]['whole_leaves']} whole leaves equal on "
+            f"every rank {same}; launches a rank {trs[0]['launches']} "
+            f"(expected {exp}) [{card}]")
+        check(all(abs(t["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+                  for t in trs), f"(d-{tag}) loss beyond rel 1e-5")
+        check(all(abs(t["gnorm"] - want["gnorm"]) <= 1e-5 * want["gnorm"]
+                  for t in trs), f"(d-{tag}) grad norm beyond rel 1e-5")
+        check(same, f"(d-{tag}) whole leaves differ across ranks")
+        check(got == exp, f"(d-{tag}) train launches {got} != {exp}")
+        counts[f"{cfg.name}_tp_train"] = trs[0]["launches"]
 
 
 def profiled(label: str, fn) -> None:
@@ -2808,7 +3155,56 @@ def phase_lm_kernels(rng, errs: dict) -> None:
             err = check_close(tag, got, want, 1e-6, rel=True) \
                 if dt == torch.float32 else bf16_ulp_close(tag, got, want)
             errs[key] = max(errs.get(key, 0.0), err)
+    rmsnorm_split_checks(rng, errs)
     decode_attention_checks(rng, errs)
+
+
+def rmsnorm_split_checks(rng, errs: dict) -> None:
+    """K3 / K3b's split form (a row split across ranks by columns,
+    normalised by the ranks' summed sum of squares) against its plain
+    version on the card at (d-g2)'s rank shapes, zamba2-7b's gate norm a
+    rank (1792 of d_inner 7168: prefill 4 x 512, decode 4, training 2 x
+    512 rows), fp32: the output within 1e-6 x max(1, |want|), dx / dscale
+    / the statistic's gradient as K3b's default form is held
+    (``grad_close``: 5e-5 x max(1, max |want|); dscale sums 2,048 rows in
+    another order).  The blocks of 4 ranks normalised by their summed
+    statistic are held to K3 over the whole row, within 1e-6."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    dev = torch.device("cuda")
+
+    def rand(*shape, sd=1.0):
+        return torch.from_numpy(rng.normal(0, sd, shape).astype(
+            np.float32)).to(dev)
+
+    dd, whole = 1792, 7168
+    for rows in (4 * 512, 4, 2 * 512):
+        x, s, g = rand(rows, whole, sd=2.0), rand(whole, sd=0.1), \
+            rand(rows, whole)
+        parts = [slice(i * dd, (i + 1) * dd) for i in range(4)]
+        ss = sum(x[:, p].square().sum(-1) for p in parts).contiguous()
+        xs, ssl = x[:, parts[1]].contiguous(), s[parts[1]].contiguous()
+        gs = g[:, parts[1]].contiguous()
+        tag = f"K3 split form ({rows}, {dd}) of rows of {whole}"
+        err = check_close(tag, rn.rmsnorm_rows(xs, ssl, 1e-6, ss, whole),
+                          rmsnorm_ref(xs, ssl, 1e-6, ss, whole), 1e-6,
+                          rel=True)
+        merged = torch.cat([rn.rmsnorm_rows(x[:, p].contiguous(),
+                                            s[p].contiguous(), 1e-6, ss,
+                                            whole) for p in parts], dim=1)
+        err = max(err, check_close(f"{tag}, 4 blocks vs K3 on the whole row",
+                                   merged, rn.rmsnorm_rows(x, s, 1e-6), 1e-6,
+                                   rel=True))
+        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), err)
+        got = rn.rmsnorm_rows_bwd(xs, ssl, gs, 1e-6, ss, whole)
+        want = rmsnorm_bwd_ref(xs, ssl, gs, 1e-6, ss, whole)
+        errs["rmsnorm_bwd"] = max(errs.get("rmsnorm_bwd", 0.0), max(
+            grad_close(f"K3b split form ({rows}, {dd}) {what}", a, b)
+            for what, a, b in zip(("dx", "dscale", "dss"), got, want)))
+        del x, s, g, xs, gs, merged, got, want
 
 
 DECODE_CASES = [   # (B, Hq, Hkv, S, D, window, pos): ragged, then the paths'
@@ -2862,6 +3258,7 @@ def decode_attention_checks(rng, errs: dict) -> None:
     errs["decode_attention"] = worst["float32"]
     errs["decode_attention_bf16"] = worst["bfloat16"]
     errs["decode_attention_fp8"] = worst["float8_e4m3fn"]
+    decode_partial_checks(rng, errs)
     # torch's own CUDA cast past 464, beside the port's (recorded, not
     # gated: the port never writes a cache with it)
     x = torch.tensor([448.0, 464.0, 464.00003, 500.0, -500.0, 1e4],
@@ -2873,6 +3270,84 @@ def decode_attention_checks(rng, errs: dict) -> None:
     log(f"  K6: {len(DECODE_CASES)} shapes x 3 cache dtypes within 1e-5 x "
         f"max |want| of the plain twin, two calls bitwise; worst max |diff| "
         f"{worst}")
+
+
+# K6's partial form at (d-g1)'s rank shapes, 4 ranks: gemma3-1b's global
+# layer (256 of 1024 slots a rank) and local layer (128 of its rolled
+# 512-slot cache), both at pos 1015 (the last decode step's), and a
+# partly written cache (pos 300: ranks 2 and 3 hold no valid slot)
+PARTIAL_CASES = [(8, 4, 1, 1024, 256, None, 1015),
+                 (8, 4, 1, 512, 256, 512, 1015),
+                 (8, 4, 1, 1024, 256, None, 300)]
+
+
+def decode_partial_checks(rng, errs: dict) -> None:
+    """K6's partial form against its plain version on the card for every
+    cache dtype at :data:`PARTIAL_CASES`: each rank's output within 1e-5 x
+    max |want|, its log-sum-exp within 1e-5 absolute (-inf where the plain
+    one is), the ranks' results merged as ``layers.merge_partials`` merges
+    them within 1e-5 x max |want| of the whole-cache plain version; the
+    whole-cache call bitwise the partial form over (0, S)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import to_cache_dtype
+
+    dev = torch.device("cuda")
+    worst = {}
+    for b, hq, hkv, s, d, window, pos in PARTIAL_CASES:
+        q = torch.from_numpy(rng.normal(0, 1, (b, hq, 1, d))
+                             .astype(np.float32)).to(dev)
+        kv = torch.from_numpy(rng.normal(0, 2, (2, b, hkv, s, d))
+                              .astype(np.float32)).to(dev)
+        n = s // 4
+        for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+            name = str(dt)[6:]
+            k, v = (to_cache_dtype(t, dt) for t in kv)
+            tag = f"K6 partial S{s} window={window} pos={pos} {name}"
+            parts = []
+            for r in range(4):
+                kr = k[:, :, r * n:(r + 1) * n].contiguous()
+                vr = v[:, :, r * n:(r + 1) * n].contiguous()
+                out, lse = da.decode_attention(q, kr, vr, pos, window,
+                                               slots=(r * n, s))
+                w_out, w_lse = decode_attention_ref(q, kr, vr, pos, window,
+                                                    (r * n, s))
+                err = rel_close(f"{tag} rank {r} output", out, w_out) \
+                    if bool(w_out.any()) else float(out.abs().max())
+                if err and not bool(w_out.any()):
+                    raise AssertionError(f"{tag} rank {r}: output not zero "
+                                         f"with no valid slot")
+                if not torch.equal(torch.isneginf(lse), torch.isneginf(w_lse)):
+                    raise AssertionError(f"{tag} rank {r}: -inf differs")
+                fin = torch.isfinite(w_lse)
+                lse_err = float((lse - w_lse)[fin].abs().max()) \
+                    if bool(fin.any()) else 0.0
+                if lse_err > 1e-5:
+                    raise AssertionError(f"{tag} rank {r}: lse off by "
+                                         f"{lse_err}")
+                parts.append((out, lse))
+                worst[name] = max(worst.get(name, 0.0), err)
+            outs = torch.stack([o for o, _ in parts])
+            lses = torch.stack([l for _, l in parts])
+            w = torch.exp(lses - lses.max(0).values)
+            merged = (outs * w[..., None]).sum(0) / w.sum(0)[..., None]
+            rel_close(f"{tag} merged over 4 ranks vs the whole cache",
+                      merged, decode_attention_ref(q, k, v, pos, window))
+            whole = da.decode_attention(q, k, v, pos, window)
+            if not torch.equal(whole, da.decode_attention(
+                    q, k, v, pos, window, slots=(0, s))[0]):
+                raise AssertionError(f"{tag}: the whole-cache call differs "
+                                     f"from the partial form over (0, S)")
+        del q, kv, k, v
+    errs["decode_attention_partial"] = worst["float32"]
+    errs["decode_attention_partial_bf16"] = worst["bfloat16"]
+    errs["decode_attention_partial_fp8"] = worst["float8_e4m3fn"]
+    log(f"  K6 partial form: {len(PARTIAL_CASES)} shapes x 3 cache dtypes x "
+        f"4 ranks within 1e-5 x max |want| of its plain version, merged "
+        f"within 1e-5 of the whole cache, whole-cache call bitwise the "
+        f"partial form over (0, S); worst max |diff| {worst}")
 
 
 BWD_CASES = [   # K4b: ragged T and D, GQA, the training shapes
@@ -3145,14 +3620,16 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
         return {"rmsnorm": forward * max_new, "flash_attention": attn,
                 "selective_scan": mamba1 * max_new, "rmsnorm_bwd": 0,
                 "flash_attention_bwd": 0, "selective_scan_bwd": 0,
-                "decode_attention": attn * steps}
+                "decode_attention": attn * steps,
+                "decode_attention_partial": 0}
     qk = 2 if cfg.qk_norm else 0
     prefill = cfg.n_layers * (2 + qk + qk // 2) + 1
     decode = cfg.n_layers * (2 + qk) + 1
     return {"rmsnorm": prefill + steps * decode,
             "flash_attention": cfg.n_layers, "rmsnorm_bwd": 0,
             "flash_attention_bwd": 0, "selective_scan": 0,
-            "selective_scan_bwd": 0, "decode_attention": cfg.n_layers * steps}
+            "selective_scan_bwd": 0, "decode_attention": cfg.n_layers * steps,
+            "decode_attention_partial": 0}
 
 
 def phase_serve(counts: dict, errs: dict) -> dict:
@@ -3259,7 +3736,7 @@ def expected_train_launches(cfg) -> dict:
     return {"rmsnorm": k3 + 1 + k3_again, "rmsnorm_bwd": k3 + 1,
             "flash_attention": k4 + k4_again, "flash_attention_bwd": k4,
             "selective_scan": k5 + k5_again, "selective_scan_bwd": k5,
-            "decode_attention": 0}
+            "decode_attention": 0, "decode_attention_partial": 0}
 
 
 def phase_train(counts: dict, card: str) -> dict:
@@ -4661,6 +5138,61 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         del kv
     del q
 
+    # K6's partial form at (d-g1)'s global layer on one rank: q (8, 4, 1,
+    # 256), the rank's 256 of 1024 fp32 slots (pos 1015: rank 3's block
+    # 768..1023 holds 768..1015, 248 live; the kernel zero-fills the dead
+    # slots without reading them).  Bound: the live slots' K / V read
+    # once, q read, the output and the log-sum-exp written; 4 FLOP per
+    # (query head, live slot, element).  SDPA on the rank's slots: the
+    # same block, a boolean mask of its live slots, GQA (no log-sum-exp).
+    # Cold, as K6's whole-cache timing: between two reads of one layer's
+    # block a (d-g1) decode step reads 26 layers' blocks (~80 MB against a
+    # 50 MB L2), so the timed calls (K6's and SDPA's) walk copies of the
+    # block in turn, more than 64 MB of them.
+    gb, ghq, ghkv, gd, gs, gpos = 8, 4, 1, 256, 1024, 1015
+    n = gs // 4
+    q = rand(gb, ghq, 1, gd)
+    kv = rand(2, gb, ghkv, n, gd, sd=2.0)
+    kc, vc = kv[0].contiguous(), kv[1].contiguous()
+    slots = (3 * n, gs)
+    idx = 3 * n + torch.arange(n, device=dev)
+    live = (torch.remainder(gpos - idx, gs) <= gpos)[None, None, None, :]
+    n_live = int(live.sum())
+    block = 2.0 * kc.numel() * 4
+    n_rot = max(2, -(-64_000_000 // int(block)) + 1)
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_rot - 1)]
+    turn = itertools.cycle(copies)
+    ms = time_ms(lambda: da_kernel.decode_attention(
+        q, *next(turn), gpos, slots=slots), reps=50)
+    plain = time_ms(lambda: decode_attention_ref(q, kc, vc, gpos, None,
+                                                 slots), reps=10)
+
+    def lib():
+        kk, vv = next(turn)
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=live,
+                                              enable_gqa=True)
+
+    lib_ms = time_ms(lib, reps=50)
+    got, _ = da_kernel.decode_attention(q, kc, vc, gpos, slots=slots)
+    want, _ = decode_attention_ref(q, kc, vc, gpos, None, slots)
+    err = rel_close("K6 partial timed input", got, want)
+    nbytes = 2.0 * 4 * gb * ghkv * n_live * gd + 4.0 * q.numel() * 2 \
+        + 4.0 * gb * ghq
+    b_ms, b_by = flop_bound(4.0 * gb * ghq * n_live * gd, nbytes)
+    warps, cluster = da_kernel.plan(kc)
+    k6p = dict(shape=f"q ({gb},{ghq},1,{gd}), a rank's block ({gb},{ghkv},"
+                     f"{n},{gd}) fp32 of a {gs}-slot cache, {n_live} live, "
+                     f"cold ({n_rot} copies in turn)",
+               ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err, warps=warps, cluster=cluster)
+    log(f"  K6 partial, gemma3-1b's global layer on a rank: {k6p['shape']}, "
+        f"{warps} warps a CTA, clusters of {cluster}, the timed calls walk "
+        f"{n_rot * block / 1e6:.1f} MB: {ms:.4f} ms (plain {plain:.4f} ms "
+        f"warm, SDPA on the rank's slots {lib_ms:.4f} ms cold, bound "
+        f"{b_ms:.5f} ms by {b_by} ({nbytes:.0f} B); {b_ms / ms:.1%} of the "
+        f"bound)")
+    del q, kv, kc, vc, copies, turn
+
     # K5 at falcon-mamba-7b's prefill layer, scan-only and gated (what the
     # model runs), and the yardstick: scan-only K5 and the four torch passes
     # of the gate it replaced, timed in turns.  Bytes: dt and x read (and z),
@@ -4763,6 +5295,44 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f" (plain {plain:.4f} ms, F.rms_norm {lib_ms:.4f} ms, "
             f"{ms / lib_ms:.3f}x; bound {b_ms:.5f} ms by {b_by}: "
             f"{b_ms / ms:.1%})")
+    # K3's split form at (d-g2)'s rank shapes: zamba2-7b's gate norm over a
+    # 4-way model axis, a rank's 1792 of d_inner 7168, normalised by the
+    # summed statistic (ss read beside x).  No PyTorch call normalises by
+    # an outside statistic.  Cold: the timed calls walk copies of x and ss,
+    # more than 64 MB of them (the prefill's block is 14.7 MB, which the
+    # 50 MB L2 would otherwise hold between calls).
+    for label, rows in (("zamba2_gate_rank_split", 4 * 512),
+                        ("zamba2_decode_gate_rank_split", 4)):
+        dd = 7168 // 4
+        x, s = rand(rows, dd), rand(dd, sd=0.1)
+        ss = (x.square().sum(-1) * 4.0).contiguous()
+        n_rot = max(2, -(-64_000_000 // (4 * x.numel())) + 1)
+        turn = itertools.cycle([(x, ss)] + [(x.clone(), ss.clone())
+                                            for _ in range(n_rot - 1)])
+
+        def split_call():
+            xx, sq = next(turn)
+            return rn_ops.rmsnorm(xx, s, 1e-6, sq, 4 * dd)
+
+        ms = time_ms(split_call, reps=50)
+        plain = time_ms(lambda: rmsnorm_ref(x, s, 1e-6, ss, 4 * dd),
+                        reps=10)
+        errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
+            f"K3 timed input, {label}", rn_ops.rmsnorm(x, s, 1e-6, ss,
+                                                       4 * dd),
+            rmsnorm_ref(x, s, 1e-6, ss, 4 * dd), 1e-6, rel=True))
+        b_ms, b_by = flop_bound(4.0 * x.numel(),
+                                4.0 * (2 * x.numel() + dd + rows))
+        kind, nv = rn_kernel.variant(x, s)
+        k3[label] = dict(shape=f"({rows}, {dd}) fp32 of rows of {4 * dd}, "
+                               f"cold ({n_rot} copies in turn)",
+                         variant=kind, nv=nv, ms=ms, plain_ms=plain,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"  K3 split form, {label} ({rows}, {dd}) fp32 of rows of "
+            f"{4 * dd}, {kind} nv {nv}, cold ({n_rot} copies): {ms:.4f} ms "
+            f"(plain {plain:.4f} ms warm; bound {b_ms:.5f} ms by {b_by}: "
+            f"{b_ms / ms:.1%})")
+        del turn
 
     # the backward kernels at the training shapes
     bt = TRAIN["batch"]
@@ -5053,7 +5623,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         | {label: k3[label] for label in (
             "falcon_residual", "falcon_decode_residual", "zamba2_residual",
             "zamba2_decode_residual", "zamba2_gate", "zamba2_decode_gate",
-            "pixtral_residual", "pixtral_decode_residual")},
+            "pixtral_residual", "pixtral_decode_residual",
+            "zamba2_gate_rank_split", "zamba2_decode_gate_rank_split")},
         entry("flash_attention",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention.cu",
@@ -5131,6 +5702,17 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
          "max_abs_err_fp32": errs["decode_attention"],
          "max_abs_err_bf16": errs["decode_attention_bf16"],
          "by_cache": k6},
+        {"name": "decode_attention_partial", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                   "decode_attention.cu",
+         "replaces": "src/repro/models/layers.py:79 (_masked_attention over "
+                     "a cache split over slots by the partitioner at decode, "
+                     "called at :221; plain jnp, no Pallas kernel)",
+         "launches": counts["serve_tp"]["decode_attention_partial"],
+         **k6p,
+         "max_abs_err": errs["decode_attention_partial"],
+         "max_abs_err_bf16": errs["decode_attention_partial_bf16"],
+         "max_abs_err_fp8": errs["decode_attention_partial_fp8"]},
     ]
 
 

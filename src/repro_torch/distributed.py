@@ -236,12 +236,18 @@ def ppermute(xs, group=None, shift: int = 1):
     return out[0] if single else out
 
 
+_BYTE_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every member's ``x`` concatenated on dim 0 in ring order: JAX's
     ``all_gather(x, axis, axis=0, tiled=True)``."""
     g = as_group(group)
     if g.size == 1:
         return x
+    if x.dtype in _BYTE_DTYPES:
+        # fp8 goes as its bytes (gloo has no float8 type)
+        return all_gather(x.view(torch.uint8), g).view(x.dtype)
     t0 = time.perf_counter()
     buf = _to_wire(g, x)
     parts = [torch.empty_like(buf) for _ in range(g.size)]
@@ -316,7 +322,9 @@ class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, dim):
         ctx.g, ctx.dim, ctx.n = g, dim, x.shape[dim]
-        return all_gather(x.movedim(dim, 0), g).movedim(0, dim)
+        # contiguous: the kernels downstream (K3 on a gathered q / k) take
+        # rows of unit stride
+        return all_gather(x.movedim(dim, 0), g).movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, dy):

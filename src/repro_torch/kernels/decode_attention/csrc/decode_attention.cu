@@ -70,6 +70,14 @@
 //     order through distributed shared memory, each CTA finishing a
 //     strided share of the g x D outputs.  No partials in device memory,
 //     one launch, no atomics: two calls give the same bits.
+//   * Partial form (decode_attention_partial): the cache holds slots s0 ..
+//     s0 + S - 1 of a cache of s_all slots split over ranks by slot, so
+//     local slot i is whole slot s0 + i and takes its absolute position
+//     from s_all; the merge writes, beside the output normalised over those
+//     slots, its log-sum-exp (natural log) per (b, query head), -inf with a
+//     zero output where no slot is valid.  The ranks' results then merge by
+//     their log-sum-exps.  The whole-cache call is s0 = 0, s_all = S and no
+//     log-sum-exp: the same instructions on the same values.
 // Instances: dtype {fp32, bf16, fp8} x DP {32, 64, 128, 256}; g is an
 // argument (1 to 8 query rows a KV head).
 
@@ -107,7 +115,9 @@ struct Params {
   const void* k;           // (B, Hkv, S, D)
   const void* v;
   float* out;              // (B, Hkv * g, D)
+  float* lse;              // (B, Hkv * g) or null: the partial form's
   int n_bh, g, d, s, pos, window, cluster, warps;   // n_bh = B * Hkv
+  int s0, s_all;           // local slot i is slot s0 + i of s_all
   float qscale;            // log2(e) / sqrt(D)
 };
 
@@ -270,8 +280,21 @@ __device__ __forceinline__ uint4 hilo(float x0, float x1) {
 
 __device__ __forceinline__ bool live(const Params& p, int pm, int i) {
   if (i >= p.s) return false;
-  const int r = i <= pm ? pm - i : pm - i + p.s;     // steps back from pos
+  const int j = p.s0 + i;                            // the whole cache's slot
+  const int r = j <= pm ? pm - j : pm - j + p.s_all;   // steps back from pos
   return r <= p.pos && (p.window <= 0 || r < p.window);
+}
+
+// The normalised output and, in the partial form, the log-sum-exp (natural
+// log) of query row r of (b, KV head) bh from its merged state: running max
+// top (log2 domain), sum `sum` and accumulator `a` at column d.
+__device__ __forceinline__ void finish(const Params& p, int bh, int r, int d,
+                                       float top, float sum, float a) {
+  const long long row = static_cast<long long>(bh) * p.g + r;
+  p.out[row * p.d + d] = sum == 0.0f ? 0.0f : a / sum;
+  if (p.lse != nullptr && d == 0)
+    p.lse[row] = sum == 0.0f ? -INFINITY
+                             : (top + log2f(sum)) * 0.6931471805599453f;
 }
 
 // The factor that brings a state of running max m (log2 domain) to the
@@ -371,7 +394,7 @@ decode_attention_kernel(Params p) {
   const bool vec = (p.d * G::SZ) % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(p.k) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(p.v) & 15) == 0;
-  const int pm = p.pos % p.s;                   // the slot pos writes
+  const int pm = p.pos % p.s_all;               // the slot pos writes
   unsigned char* ring = smem + warp * STAGES * G::STAGEB;
 
   auto issue = [&](int k) {
@@ -541,8 +564,7 @@ decode_attention_kernel(Params p) {
       a = fmaf(macc[(w * G_MAX + r) * DP + d], c, a);
     }
     if (nc == 1) {
-      p.out[(static_cast<long long>(bh) * p.g + r) * p.d + d] =
-          sum == 0.0f ? 0.0f : a / sum;
+      finish(p, bh, r, d, top, sum, a);
     } else {
       sacc[r * DP + d] = a;
       if (d == 0) {
@@ -569,8 +591,7 @@ decode_attention_kernel(Params p) {
       sum = fmaf(o[r * 2 + 1], f, sum);
       a = fmaf(o[G_MAX * 2 + r * DP + d], f, a);
     }
-    p.out[(static_cast<long long>(bh) * p.g + r) * p.d + d] =
-        sum == 0.0f ? 0.0f : a / sum;
+    finish(p, bh, r, d, top, sum, a);
   }
   cluster.sync();           // no CTA leaves while another reads its state
 }
@@ -658,6 +679,33 @@ extern "C" int decode_attention_limits(int dtype, int d, int warps,
   return static_cast<int>(cudaSuccess);
 }
 
+namespace {
+
+int launch(int dtype, const float* q, const void* k, const void* v,
+           float* out, float* lse, int batch, int hkv, int g, int d, int s,
+           int s0, int s_all, int pos, int window, int cluster, int warps,
+           float scale, void* stream) {
+  if (batch < 1 || hkv < 1 || g < 1 || g > G_MAX || d < 1 || d > D_MAX ||
+      s < 1 || s0 < 0 || s_all < s0 + s || pos < 0 || cluster < 1 ||
+      cluster > CLUSTER_MAX || (cluster & (cluster - 1)) != 0 ||
+      batch * hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(Params) = nullptr;
+  int smem = 0;
+  cudaError_t err = instance(dtype, d, warps, kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p{q, k, v, out, lse, batch * hkv, g, d, s, pos, window, cluster,
+           warps, s0, s_all, LOG2E * scale};
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(cluster, batch * hkv, warps, smem,
+                                  static_cast<cudaStream_t>(stream), attr);
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // dtype: 0 fp32, 1 bf16, 2 float8_e4m3fn (the cache's; q and out are
 // fp32).  window <= 0: a global layer.  cluster: CTAs a (b, KV head), 1
 // to 16, a power of two; warps: a CTA's, 4 or 8.  scale: 1 / sqrt(D).
@@ -668,20 +716,20 @@ extern "C" int decode_attention(int dtype, const float* q, const void* k,
                                 int hkv, int g, int d, int s, int pos,
                                 int window, int cluster, int warps,
                                 float scale, void* stream) {
-  if (batch < 1 || hkv < 1 || g < 1 || g > G_MAX || d < 1 || d > D_MAX ||
-      s < 1 || pos < 0 || cluster < 1 || cluster > CLUSTER_MAX ||
-      (cluster & (cluster - 1)) != 0 || batch * hkv > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  void (*kern)(Params) = nullptr;
-  int smem = 0;
-  cudaError_t err = instance(dtype, d, warps, kern, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Params p{q, k, v, out, batch * hkv, g, d, s, pos, window, cluster, warps,
-           LOG2E * scale};
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(cluster, batch * hkv, warps, smem,
-                                  static_cast<cudaStream_t>(stream), attr);
-  err = cudaLaunchKernelEx(&cfg, kern, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(dtype, q, k, v, out, nullptr, batch, hkv, g, d, s, 0, s,
+                pos, window, cluster, warps, scale, stream);
+}
+
+// The partial form: k / v hold slots s0 .. s0 + s - 1 of a cache of s_all
+// slots; lse (B, Hkv * g) fp32 receives each row's log-sum-exp.
+extern "C" int decode_attention_partial(int dtype, const float* q,
+                                        const void* k, const void* v,
+                                        float* out, float* lse, int batch,
+                                        int hkv, int g, int d, int s, int s0,
+                                        int s_all, int pos, int window,
+                                        int cluster, int warps, float scale,
+                                        void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, q, k, v, out, lse, batch, hkv, g, d, s, s0, s_all,
+                pos, window, cluster, warps, scale, stream);
 }

@@ -12,6 +12,14 @@ merge their states in one launch) from B x Hkv, S and the CTAs and
 clusters of each size the card holds at once for the instance
 (``decode_attention_limits``), allocates the fp32 output and counts one
 launch a call in :data:`launches`.
+
+The partial form (``slots=(s0, s_all)``, C entry point
+``decode_attention_partial``) takes a cache that holds slots s0 .. s0 + S
+- 1 of a cache of ``s_all`` slots split over ranks by slot, and returns
+beside the output normalised over those slots its log-sum-exp per (b,
+query head): a rank's share, merged across ranks by
+``models.layers.merge_partials``.  Its launches count under
+``"decode_attention_partial"``.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from .._build import KernelFamily
 from .ref import decode_attention_ref
 
 __all__ = ["SOURCES", "FAMILY", "D_MAX", "GROUPS", "launches",
-           "decode_attention", "width", "tile", "cluster_size",
+           "decode_attention", "check_slots", "width", "tile", "cluster_size",
            "launch_shape", "plan", "spans"]
 
 SOURCES = {"decode_attention": "decode_attention.cu"}
@@ -40,6 +48,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FAMILY = KernelFamily(
     Path(__file__).resolve().with_name("csrc"), SOURCES,
     {"decode_attention": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P]})
+PARTIAL = "decode_attention_partial"
+FAMILY.launches[PARTIAL] = 0
 launches = FAMILY.launches
 
 _LIMITS: dict = {}             # (device, dtype code, width) -> {warps:
@@ -156,6 +166,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def check_slots(slots, s: int) -> None:
+    """``slots`` = (s0, s_all): a rank's first slot and the whole cache's
+    slot count, for a cache block of ``s`` slots."""
+    s0, s_all = (int(x) for x in slots)
+    if s0 < 0 or s_all < s0 + s:
+        raise ValueError(f"slots {s0} .. {s0 + s - 1} do not lie in a cache "
+                         f"of {s_all} slots")
+
+
 def _check_cuda(q, k, v) -> None:
     if q.device.type != "cuda" or k.dtype not in _DTYPE_CODE:
         raise ValueError(f"decode_attention runs on CUDA with an fp32, bf16 "
@@ -172,26 +191,45 @@ def _check_cuda(q, k, v) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int, window: Optional[int] = None) -> torch.Tensor:
+                     pos: int, window: Optional[int] = None,
+                     slots: Optional[tuple] = None):
     """K6: q (B, Hq, 1, D), any float dtype, at absolute position ``pos``
     against the cache k / v (B, Hkv, S, D) (fp32, bf16 or float8_e4m3fn,
     contiguous), ``window`` None for a global layer.  Returns (B, Hq, 1, D)
-    fp32: ``ref.decode_attention_ref``'s function."""
+    fp32: ``ref.decode_attention_ref``'s function.  With ``slots`` = (s0,
+    s_all), k / v hold slots s0 .. s0 + S - 1 of a cache of s_all slots:
+    returns (out, lse), the output over those slots and its log-sum-exp
+    (B, Hq, 1) fp32 (-inf, with zeros, where none is valid)."""
     _check(q, k, v, pos, window)
+    if slots is not None:
+        check_slots(slots, k.shape[2])
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, pos, window)
+        return decode_attention_ref(q, k, v, pos, window, slots)
     _check_cuda(q, k, v)
     b, hq, _, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     qf = q.float().contiguous()
     out = torch.empty((b, hq, 1, d), dtype=torch.float32, device=q.device)
     w, c = plan(k)
-    fn = FAMILY.fn("decode_attention")
+    win = 0 if window is None else int(window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODE[k.dtype], qf.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, d, s,
-                 int(pos), 0 if window is None else int(window), c, w,
-                 float(d ** -0.5), stream)
-    FAMILY.launched("decode_attention", err)
-    return out
+        if slots is None:
+            err = FAMILY.fn("decode_attention")(
+                _DTYPE_CODE[k.dtype], qf.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, hkv, hq // hkv, d, s,
+                int(pos), win, c, w, float(d ** -0.5), stream)
+        else:
+            lse = torch.empty((b, hq, 1), dtype=torch.float32,
+                              device=q.device)
+            fn = FAMILY.symbol("decode_attention", PARTIAL,
+                               [_I] + [_P] * 5 + [_I] * 11 + [_F, _P])
+            err = fn(_DTYPE_CODE[k.dtype], qf.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hkv,
+                     hq // hkv, d, s, int(slots[0]), int(slots[1]),
+                     int(pos), win, c, w, float(d ** -0.5), stream)
+    if slots is None:
+        FAMILY.launched("decode_attention", err)
+        return out
+    FAMILY.launched(PARTIAL, err)
+    return out, lse

@@ -16,8 +16,12 @@ __all__ = ["decode_attention", "decode_attention_ref"]
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: int, window: Optional[int] = None,
-                     impl: str = "flash") -> torch.Tensor:
+                     impl: str = "flash", slots: Optional[tuple] = None):
     """q (B, Hq, 1, D) at position ``pos`` against k / v (B, Hkv, S, D):
-    (B, Hq, 1, D) in q's dtype, the math in fp32 whatever the cache's."""
+    (B, Hq, 1, D) in q's dtype, the math in fp32 whatever the cache's.
+    With ``slots`` = (s0, s_all) (the cache a rank's block of slots): (out
+    fp32, lse), the kernel's partial form."""
     attend = decode_attention_ref if impl == "ref" else _decode_kernel
+    if slots is not None:
+        return attend(q, k, v, pos, window, slots)
     return attend(q, k, v, pos, window).to(q.dtype)

@@ -40,6 +40,11 @@
 //   "scalar" a pointer or row stride not 16-byte aligned, or d not a
 //            multiple of the vector width: two strided passes of scalar
 //            loads, a warp per row.
+// The C entry rmsnorm_ext runs every variant's EXT instance: each row's
+// mean square is ssx[row] / d_all, a sum over the whole row of which x
+// holds a block (a row split over a model axis: Mamba2's gated norm over
+// d_inner), in place of its own sum.  The default entry runs the !EXT
+// instances, whose code is the variants' without it.
 // Every variant writes x * inv * (1 + scale) in the reference's order of
 // operations, with inv = 1 / sqrtf(var + eps) by IEEE sqrt and division
 // (no fast math), which rounds like the reference's rsqrt; only the order
@@ -146,11 +151,12 @@ __device__ __forceinline__ float inv_rms(float ss, int d, float eps) {
 
 // "warp": lane l holds the row's 16-byte vectors l, l + 32, ... (NV of
 // them, the last ones masked when the row has fewer than 32 NV).
-template <typename T, int NV>
+template <typename T, int NV, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 rmsnorm_warp(const T* __restrict__ x, long long ldx,
              const T* __restrict__ scale, T* __restrict__ out,
-             long long ldo, int rows, int d, float eps) {
+             long long ldo, int rows, int d, float eps,
+             const float* __restrict__ ssx, int d_all) {
   constexpr int EPV = Vec<T>::EPV;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -175,7 +181,8 @@ rmsnorm_warp(const T* __restrict__ x, long long ldx,
   for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int e = 0; e < EPV; ++e) ss = fmaf(v[i][e], v[i][e], ss);
-  const float inv = inv_rms(warp_sum(ss), d, eps);
+  const float inv = EXT ? inv_rms(ssx[row], d_all, eps)
+                       : inv_rms(warp_sum(ss), d, eps);
 
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -192,11 +199,12 @@ rmsnorm_warp(const T* __restrict__ x, long long ldx,
 
 // "block": the row's 16-byte vectors c = i + T j (T = blockDim.x, j < NV)
 // in thread i, as loaded; warp partials summed in warp order.
-template <typename T, int NV>
+template <typename T, int NV, bool EXT>
 __global__ void __launch_bounds__(32 * BLOCK_WARPS)
 rmsnorm_block(const T* __restrict__ x, long long ldx,
               const T* __restrict__ scale, T* __restrict__ out,
-              long long ldo, int rows, int d, float eps) {
+              long long ldo, int rows, int d, float eps,
+              const float* __restrict__ ssx, int d_all) {
   constexpr int EPV = Vec<T>::EPV;
   __shared__ float part[BLOCK_WARPS];
   const int row = blockIdx.x;
@@ -225,7 +233,8 @@ rmsnorm_block(const T* __restrict__ x, long long ldx,
   float total = 0.0f;
   const int warps = stride >> 5;
   for (int w = 0; w < warps; ++w) total += part[w];
-  const float inv = inv_rms(total, d, eps);
+  const float inv = EXT ? inv_rms(ssx[row], d_all, eps)
+                       : inv_rms(total, d, eps);
 
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -243,11 +252,12 @@ rmsnorm_block(const T* __restrict__ x, long long ldx,
 
 // "loop" (VEC) and "scalar" (!VEC): two strided passes of one warp over its
 // row, in 16-byte vectors or in single elements.
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 rmsnorm_loop(const T* __restrict__ x, long long ldx,
              const T* __restrict__ scale, T* __restrict__ out,
-             long long ldo, int rows, int d, float eps) {
+             long long ldo, int rows, int d, float eps,
+             const float* __restrict__ ssx, int d_all) {
   constexpr int W = VEC ? Vec<T>::EPV : 1;
   constexpr int UNROLL = 4;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -275,7 +285,8 @@ rmsnorm_loop(const T* __restrict__ x, long long ldx,
 #pragma unroll
       for (int e = 0; e < W; ++e) ss = fmaf(v[u][e], v[u][e], ss);
   }
-  const float inv = inv_rms(warp_sum(ss), d, eps);
+  const float inv = EXT ? inv_rms(ssx[row], d_all, eps)
+                       : inv_rms(warp_sum(ss), d, eps);
 
   for (int c = lane; c < n; c += 32) {
     float v[W], s[W], y[W];
@@ -295,19 +306,19 @@ rmsnorm_loop(const T* __restrict__ x, long long ldx,
 
 template <typename T>
 using KernelPtr = void (*)(const T*, long long, const T*, T*, long long, int,
-                           int, float);
+                           int, float, const float*, int);
 
-template <typename T, int... NV>
+template <typename T, bool EXT, int... NV>
 KernelPtr<T> warp_instance(int nv, std::integer_sequence<int, NV...>) {
   KernelPtr<T> k = nullptr;
-  ((k = (nv == NV + 1) ? &rmsnorm_warp<T, NV + 1> : k), ...);
+  ((k = (nv == NV + 1) ? &rmsnorm_warp<T, NV + 1, EXT> : k), ...);
   return k;
 }
 
-template <typename T, int... NV>
+template <typename T, bool EXT, int... NV>
 KernelPtr<T> block_instance(int nv, std::integer_sequence<int, NV...>) {
   KernelPtr<T> k = nullptr;
-  ((k = (nv == NV + 1) ? &rmsnorm_block<T, NV + 1> : k), ...);
+  ((k = (nv == NV + 1) ? &rmsnorm_block<T, NV + 1, EXT> : k), ...);
   return k;
 }
 
@@ -315,10 +326,10 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch(int variant, int nv, const void* x, long long ldx,
            const void* scale, void* out, long long ldo, int rows, int d,
-           float eps, cudaStream_t s) {
+           float eps, const float* ssx, int d_all, cudaStream_t s) {
   constexpr int EPV = Vec<T>::EPV;
   constexpr int NV_MAX = D_MAX / (32 * EPV);
   const bool vec_ok = d % EPV == 0 && (ldx * sizeof(T)) % 16 == 0 &&
@@ -330,24 +341,26 @@ int launch(int variant, int nv, const void* x, long long ldx,
   if (variant == VARIANT_WARP) {
     // nv must be exactly what d needs, so that every vector is covered
     if (vec_ok && d <= D_MAX && nv == (nvec + 31) / 32)
-      k = warp_instance<T>(nv, std::make_integer_sequence<int, NV_MAX>());
+      k = warp_instance<T, EXT>(nv,
+                                std::make_integer_sequence<int, NV_MAX>());
   } else if (variant == VARIANT_BLOCK) {
     // a row's W warps of nv vectors a lane cover it: W = ceil(nvec / 32 nv)
     const int w = nv >= 1 ? (nvec + 32 * nv - 1) / (32 * nv) : 0;
     if (vec_ok && nv >= 1 && nv <= BLOCK_NV && w <= BLOCK_WARPS) {
-      k = block_instance<T>(nv, std::make_integer_sequence<int, BLOCK_NV>());
+      k = block_instance<T, EXT>(nv,
+                                 std::make_integer_sequence<int, BLOCK_NV>());
       blocks = rows;
       threads = 32 * w;
     }
   } else if (variant == VARIANT_LOOP) {
-    if (vec_ok && d > D_MAX) k = rmsnorm_loop<T, true>;
+    if (vec_ok && d > D_MAX) k = rmsnorm_loop<T, true, EXT>;
   } else if (variant == VARIANT_SCALAR) {
-    if (!vec_ok) k = rmsnorm_loop<T, false>;
+    if (!vec_ok) k = rmsnorm_loop<T, false, EXT>;
   }
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   k<<<blocks, threads, 0, s>>>(
       static_cast<const T*>(x), ldx, static_cast<const T*>(scale),
-      static_cast<T*>(out), ldo, rows, d, eps);
+      static_cast<T*>(out), ldo, rows, d, eps, ssx, d_all);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,10 +378,30 @@ extern "C" int rmsnorm(int dtype, int variant, int nv, const void* x,
   if (rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(variant, nv, x, ldx, scale, out, ldo, rows, d, eps,
-                         s);
+    return launch<float, false>(variant, nv, x, ldx, scale, out, ldo, rows,
+                                d, eps, nullptr, d, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(variant, nv, x, ldx, scale, out, ldo, rows,
-                                 d, eps, s);
+    return launch<__nv_bfloat16, false>(variant, nv, x, ldx, scale, out, ldo,
+                                        rows, d, eps, nullptr, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same over a row split across ranks by columns: x holds d of each
+// row's d_all columns, and ssx (rows,) fp32 each whole row's sum of
+// squares (the ranks' partial sums, summed), so the mean is ssx / d_all
+// in place of the row's own.  Everything else is rmsnorm's.
+extern "C" int rmsnorm_ext(int dtype, int variant, int nv, const void* x,
+                           long long ldx, const void* scale, void* out,
+                           long long ldo, int rows, int d, float eps,
+                           const float* ssx, int d_all, void* stream) {
+  if (rows < 1 || d < 1 || d_all < d || ssx == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(variant, nv, x, ldx, scale, out, ldo, rows, d,
+                               eps, ssx, d_all, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(variant, nv, x, ldx, scale, out, ldo,
+                                       rows, d, eps, ssx, d_all, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

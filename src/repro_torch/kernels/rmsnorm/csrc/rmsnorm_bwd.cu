@@ -66,6 +66,12 @@
 //       rows chunk_lo + ty, + 8, ... in order, and the 8 sums are added in
 //       order into the (chunks, d) scratch (x and g read again).
 //     * ds: as above.
+// The C entry rmsnorm_bwd_ext differentiates rmsnorm_ext (a row split
+// across ranks by columns, its mean square from the whole row's sum): it
+// runs every variant's EXT instance, which takes r from that sum, writes dx
+// with the statistic held and each row's gradient of the statistic
+// (ext_stats).  The default entry runs the !EXT instances, whose code is
+// the variants' without it; the blocks-an-SM query asks of those.
 // Every sum runs in a fixed order, so two calls on the same inputs give
 // bitwise-equal dx and ds.  At (4096, 1152) fp32 the "warp" variant moves
 // 56.6 MB of x, g and dx and 1.2 MB of partials (132 chunks on an H100:
@@ -219,16 +225,33 @@ __device__ __forceinline__ void sts(float* p, const float (&f)[EPV]) {
         make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
 }
 
+// The EXT instances (a row split across ranks by columns: x holds d of
+// its d_all; rmsnorm_bwd_ext): r is the whole row's, from ssx[row] /
+// d_all, and k is 0, so dx = r g (1 + s) is the gradient with the
+// statistic held; the writer stores the statistic's own gradient from this
+// block's columns, dss[row] = -r^3 t / (2 d_all) with t = sum g (1 + s) x,
+// for the caller to sum across ranks.
+__device__ __forceinline__ void ext_stats(float t, int row, float eps,
+                                          const float* ssx, float* dss,
+                                          int d_all, bool writer, float& r,
+                                          float& k) {
+  r = 1.0f / sqrtf(ssx[row] / static_cast<float>(d_all) + eps);
+  k = 0.f;
+  if (writer)
+    dss[row] = -0.5f * (r * r * r) * (t / static_cast<float>(d_all));
+}
+
 // "warp": lane l holds the row's 16-byte vectors l, l + 32, ... (NV of
 // them, the last ones masked when the row has fewer than 32 NV).  The next
 // row is loaded before this one is reduced while the two fit in registers
 // (NV * EPV <= 36: d <= 1152 fp32, d <= 1024 bf16).
-template <typename T, int NV>
+template <typename T, int NV, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 rows_warp(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
           long long ldg, const T* __restrict__ scale, T* __restrict__ dx,
           float* __restrict__ partial, int rows, int d, int chunk_rows,
-          float eps) {
+          float eps, const float* __restrict__ ssx, float* __restrict__ dss,
+          int d_all) {
   constexpr int EPV = Vec<T>::EPV;
   constexpr bool PREFETCH = NV * EPV <= 36;
   __shared__ __align__(16) float s_w[D_MAX];      // 1 + scale
@@ -271,9 +294,14 @@ rows_warp(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
         }
       }
     }
-    // K3 forward's r: 1 / sqrtf(mean + eps) by IEEE sqrt and division
-    const float r = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
-    const float k = r * r * (warp_sum(t) / static_cast<float>(d));
+    float r, k;
+    if constexpr (!EXT) {
+      // K3 forward's r: 1 / sqrtf(mean + eps) by IEEE sqrt and division
+      r = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+      k = r * r * (warp_sum(t) / static_cast<float>(d));
+    } else {
+      ext_stats(warp_sum(t), row, eps, ssx, dss, d_all, lane == 0, r, k);
+    }
     T* orow = dx + static_cast<long long>(row) * d;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -334,12 +362,13 @@ rows_warp(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
 // one is reduced, and 1 + scale kept in registers, while they fit in the
 // 128 registers a thread has at 512 threads (NV <= 4 fp32, NV <= 3 bf16;
 // past NV EPV = 16, 1 + scale is read again a row, from L1).
-template <typename T, int NV>
+template <typename T, int NV, bool EXT>
 __global__ void __launch_bounds__(32 * BLOCK_WARPS)
 rows_block(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
            long long ldg, const T* __restrict__ scale, T* __restrict__ dx,
            float* __restrict__ partial, int rows, int d, int chunk_rows,
-           float eps) {
+           float eps, const float* __restrict__ ssx, float* __restrict__ dss,
+           int d_all) {
   constexpr int EPV = Vec<T>::EPV;
   constexpr bool PREFETCH = NV * (16 + 2 * EPV) <= 96;
   constexpr bool WREG = NV * EPV <= 16;
@@ -415,9 +444,14 @@ rows_block(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
       s_all += part[row & 1][0][i];
       t_all += part[row & 1][1][i];
     }
-    // K3 forward's r: 1 / sqrtf(mean + eps) by IEEE sqrt and division
-    const float r = 1.0f / sqrtf(s_all / static_cast<float>(d) + eps);
-    const float k = r * r * (t_all / static_cast<float>(d));
+    float r, k;
+    if constexpr (!EXT) {
+      // K3 forward's r: 1 / sqrtf(mean + eps) by IEEE sqrt and division
+      r = 1.0f / sqrtf(s_all / static_cast<float>(d) + eps);
+      k = r * r * (t_all / static_cast<float>(d));
+    } else {
+      ext_stats(t_all, row, eps, ssx, dss, d_all, threadIdx.x == 0, r, k);
+    }
     T* orow = dx + static_cast<long long>(row) * d;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
@@ -467,11 +501,12 @@ __device__ __forceinline__ void load_w(const T* p, float* f) {
 
 // "loop" (VEC) and "scalar" (!VEC): two strided passes of one warp over
 // its row; r to the rinv scratch.
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 rows_loop(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
           long long ldg, const T* __restrict__ scale, T* __restrict__ dx,
-          float* __restrict__ rinv, int rows, int d, float eps) {
+          float* __restrict__ rinv, int rows, int d, float eps,
+          const float* __restrict__ ssx, float* __restrict__ dss, int d_all) {
   constexpr int W = VEC ? Vec<T>::EPV : 1;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -493,8 +528,13 @@ rows_loop(const T* __restrict__ x, long long ldx, const T* __restrict__ g,
       t = fmaf(gv[e] * (1.0f + sv[e]), xv[e], t);
     }
   }
-  const float r = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
-  const float k = r * r * (warp_sum(t) / static_cast<float>(d));
+  float r, k;
+  if constexpr (!EXT) {
+    r = 1.0f / sqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+    k = r * r * (warp_sum(t) / static_cast<float>(d));
+  } else {
+    ext_stats(warp_sum(t), row, eps, ssx, dss, d_all, lane == 0, r, k);
+  }
   if (lane == 0) rinv[row] = r;
 
   for (int c = lane; c < n; c += 32) {
@@ -567,19 +607,20 @@ dscale_kernel(const float* __restrict__ partial, T* __restrict__ dscale,
 
 template <typename T>
 using WarpPtr = void (*)(const T*, long long, const T*, long long, const T*,
-                         T*, float*, int, int, int, float);
+                         T*, float*, int, int, int, float, const float*,
+                         float*, int);
 
-template <typename T, int... NV>
+template <typename T, bool EXT, int... NV>
 WarpPtr<T> warp_instance(int nv, std::integer_sequence<int, NV...>) {
   WarpPtr<T> k = nullptr;
-  ((k = (nv == NV + 1) ? &rows_warp<T, NV + 1> : k), ...);
+  ((k = (nv == NV + 1) ? &rows_warp<T, NV + 1, EXT> : k), ...);
   return k;
 }
 
-template <typename T, int... NV>
+template <typename T, bool EXT, int... NV>
 WarpPtr<T> block_instance(int nv, std::integer_sequence<int, NV...>) {
   WarpPtr<T> k = nullptr;
-  ((k = (nv == NV + 1) ? &rows_block<T, NV + 1> : k), ...);
+  ((k = (nv == NV + 1) ? &rows_block<T, NV + 1, EXT> : k), ...);
   return k;
 }
 
@@ -595,11 +636,12 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch(int variant, int nv, const void* x, long long ldx, const void* g,
            long long ldg, const void* scale, void* dx, float* rinv,
            float* partial, void* dscale, int rows, int d, int chunks,
-           float eps, cudaStream_t s) {
+           float eps, const float* ssx, float* dss, int d_all,
+           cudaStream_t s) {
   constexpr int EPV = Vec<T>::EPV;
   constexpr int NV_MAX = D_MAX / (32 * EPV);
   const bool vec_ok = d % EPV == 0 && (ldx * sizeof(T)) % 16 == 0 &&
@@ -615,27 +657,29 @@ int launch(int variant, int nv, const void* x, long long ldx, const void* g,
     // nv must be exactly what d needs, so that every vector is covered
     WarpPtr<T> k = nullptr;
     if (vec_ok && d <= D_MAX && nv == (d / EPV + 31) / 32)
-      k = warp_instance<T>(nv, std::make_integer_sequence<int, NV_MAX>());
+      k = warp_instance<T, EXT>(nv,
+                                std::make_integer_sequence<int, NV_MAX>());
     if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     k<<<chunks, THREADS, 0, s>>>(xt, ldx, gt, ldg, st, dxt, partial, rows,
-                                 d, chunk_rows, eps);
+                                 d, chunk_rows, eps, ssx, dss, d_all);
   } else if (variant == VARIANT_BLOCK) {
     const int warps = block_warps(d / EPV, nv);
     if (!vec_ok || d <= D_MAX || warps == 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    WarpPtr<T> k = block_instance<T>(
+    WarpPtr<T> k = block_instance<T, EXT>(
         nv, std::make_integer_sequence<int, BLOCK_NV>());
     k<<<chunks, 32 * warps, 0, s>>>(xt, ldx, gt, ldg, st, dxt, partial,
-                                    rows, d, chunk_rows, eps);
+                                    rows, d, chunk_rows, eps, ssx, dss,
+                                    d_all);
   } else {
     const unsigned row_blocks = (rows + WARPS - 1) / WARPS;
     if (rinv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (variant == VARIANT_LOOP && vec_ok && d > D_MAX)
-      rows_loop<T, true><<<row_blocks, THREADS, 0, s>>>(
-          xt, ldx, gt, ldg, st, dxt, rinv, rows, d, eps);
+      rows_loop<T, true, EXT><<<row_blocks, THREADS, 0, s>>>(
+          xt, ldx, gt, ldg, st, dxt, rinv, rows, d, eps, ssx, dss, d_all);
     else if (variant == VARIANT_SCALAR && !vec_ok)
-      rows_loop<T, false><<<row_blocks, THREADS, 0, s>>>(
-          xt, ldx, gt, ldg, st, dxt, rinv, rows, d, eps);
+      rows_loop<T, false, EXT><<<row_blocks, THREADS, 0, s>>>(
+          xt, ldx, gt, ldg, st, dxt, rinv, rows, d, eps, ssx, dss, d_all);
     else
       return static_cast<int>(cudaErrorInvalidValue);
     err = cudaGetLastError();
@@ -668,11 +712,12 @@ int blocks_per_sm(int variant, int nv, int d, int* blocks) {
   WarpPtr<T> k = nullptr;
   int threads = THREADS;
   if (variant == VARIANT_WARP && nv >= 1 && nv <= NV_MAX) {
-    k = warp_instance<T>(nv, std::make_integer_sequence<int, NV_MAX>());
+    k = warp_instance<T, false>(nv, std::make_integer_sequence<int, NV_MAX>());
   } else if (variant == VARIANT_BLOCK) {
     threads = 32 * block_warps(d / Vec<T>::EPV, nv);
     if (threads > 0)
-      k = block_instance<T>(nv, std::make_integer_sequence<int, BLOCK_NV>());
+      k = block_instance<T, false>(
+          nv, std::make_integer_sequence<int, BLOCK_NV>());
   }
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
@@ -712,11 +757,38 @@ extern "C" int rmsnorm_bwd(int dtype, int variant, int nv, const void* x,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(variant, nv, x, ldx, g, ldg, scale, dx, rinv,
-                         partial, dscale, rows, d, chunks, eps, s);
+    return launch<float, false>(variant, nv, x, ldx, g, ldg, scale, dx, rinv,
+                                partial, dscale, rows, d, chunks, eps,
+                                nullptr, nullptr, d, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(variant, nv, x, ldx, g, ldg, scale, dx,
-                                 rinv, partial, dscale, rows, d, chunks, eps,
-                                 s);
+    return launch<__nv_bfloat16, false>(variant, nv, x, ldx, g, ldg, scale,
+                                        dx, rinv, partial, dscale, rows, d,
+                                        chunks, eps, nullptr, nullptr, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient of rmsnorm_ext (K3 over a row split across ranks by
+// columns; ssx (rows,) fp32 each whole row's sum of squares, d_all its
+// columns): dx with the statistic held, r g (1 + s), dscale as above, and
+// dss (rows,) fp32, the statistic's gradient from these columns,
+// -r^3 sum(g (1 + s) x) / (2 d_all).  The rest is rmsnorm_bwd's.
+extern "C" int rmsnorm_bwd_ext(int dtype, int variant, int nv, const void* x,
+                               long long ldx, const void* g, long long ldg,
+                               const void* scale, void* dx, float* rinv,
+                               float* partial, void* dscale, int rows, int d,
+                               int chunks, float eps, const float* ssx,
+                               float* dss, int d_all, void* stream) {
+  if (rows < 1 || d < 1 || chunks < 1 || chunks > 65535 || d_all < d ||
+      ssx == nullptr || dss == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(variant, nv, x, ldx, g, ldg, scale, dx, rinv,
+                               partial, dscale, rows, d, chunks, eps, ssx,
+                               dss, d_all, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(variant, nv, x, ldx, g, ldg, scale,
+                                       dx, rinv, partial, dscale, rows, d,
+                                       chunks, eps, ssx, dss, d_all, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,6 +19,14 @@ per call of its kernels; ``ref.rmsnorm_bwd_ref`` on the CPU), with
 variants keep the rows of x and g in registers, read each once and fold
 the partial dscale into the same kernel; "loop" and "scalar" make two
 strided passes and a partial pass.
+
+Both take ``ss`` and ``n`` for a row split across ranks by columns (the
+C entries ``rmsnorm_ext`` / ``rmsnorm_bwd_ext``, counted with the
+others): ``x`` holds a block of each row's ``n`` columns and ``ss``
+(rows,) fp32 each whole row's sum of squares, the ranks' partial sums
+summed, so the mean square is ss / n.  The gradient then holds the
+statistic and returns its gradient from the block's columns beside dx and
+dscale, for the caller to sum across ranks.
 """
 from __future__ import annotations
 
@@ -56,6 +64,10 @@ FAMILY = KernelFamily(
      "rmsnorm_bwd": [_I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I,
                      _I, _F, _P]})
 launches = FAMILY.launches
+_EXT_ARGS = {"rmsnorm_ext": [_I, _I, _I, _P, _L, _P, _P, _L, _I, _I, _F, _P,
+                             _I, _P],
+             "rmsnorm_bwd_ext": [_I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _F, _P, _P, _I, _P]}
 
 
 def variant(x: torch.Tensor, scale: torch.Tensor,
@@ -111,30 +123,46 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError("x needs unit stride in its last dimension")
 
 
-def _check_shapes(x: torch.Tensor, scale: torch.Tensor) -> None:
+def _check_shapes(x: torch.Tensor, scale: torch.Tensor, ss=None,
+                  n=None) -> None:
     if x.dim() != 2 or scale.shape != (x.shape[1],) or min(x.shape) < 1:
         raise ValueError(f"rmsnorm needs x (rows, d) and scale (d,), got "
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
+    if ss is None:
+        return
+    if ss.shape != (x.shape[0],) or ss.dtype != torch.float32 \
+            or ss.device != x.device or not ss.is_contiguous():
+        raise ValueError(f"ss must be a contiguous fp32 ({x.shape[0]},) on "
+                         f"{x.device}, got {tuple(ss.shape)} {ss.dtype}")
+    if n is None or n < x.shape[1]:
+        raise ValueError(f"n (the whole row's width) must be >= d = "
+                         f"{x.shape[1]}, got {n}")
 
 
-def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                 ss=None, n=None) -> torch.Tensor:
     """K3 over the rows of ``x`` (rows, d) with ``scale`` (d,), fp32 or
-    bf16 alike; any row count, any row stride, unit inner stride."""
-    _check_shapes(x, scale)
+    bf16 alike; any row count, any row stride, unit inner stride.  With
+    ``ss`` / ``n``, a block of rows split by columns (the module
+    docstring)."""
+    _check_shapes(x, scale, ss, n)
     if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
+        return rmsnorm_ref(x, scale, eps, ss, n)
     _check(x, scale)
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     kind, nv = variant(x, scale)
-    fn = FAMILY.fn("rmsnorm")
+    args = (_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv, x.data_ptr(),
+            x.stride(0), scale.data_ptr(), out.data_ptr(), d, rows, d,
+            float(eps))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv,
-                 x.data_ptr(), x.stride(0),
-                 scale.data_ptr(), out.data_ptr(), d, rows, d, float(eps),
-                 stream)
+        if ss is None:
+            err = FAMILY.fn("rmsnorm")(*args, stream)
+        else:
+            err = FAMILY.symbol("rmsnorm", "rmsnorm_ext",
+                                _EXT_ARGS["rmsnorm_ext"])(
+                *args, ss.data_ptr(), int(n), stream)
     FAMILY.launched("rmsnorm", err)
     return out
 
@@ -175,16 +203,17 @@ def _bwd_chunks(rows: int, d: int, device: torch.device, kind: str,
 
 
 def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                     eps: float = 1e-6) -> tuple:
+                     eps: float = 1e-6, ss=None, n=None) -> tuple:
     """K3b: the gradient of K3 over the rows of ``x`` (rows, d) for the
     output gradient ``g`` (rows, d).  Returns (dx, dscale), dx contiguous
-    in x's dtype, dscale in scale's."""
-    _check_shapes(x, scale)
+    in x's dtype, dscale in scale's; with ``ss`` / ``n`` (the module
+    docstring), (dx with the statistic held, dscale, dss (rows,) fp32)."""
+    _check_shapes(x, scale, ss, n)
     if g.shape != x.shape:
         raise ValueError(f"rmsnorm_bwd: g {tuple(g.shape)} is not x's "
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
-        return rmsnorm_bwd_ref(x, scale, g, eps)
+        return rmsnorm_bwd_ref(x, scale, g, eps, ss, n)
     _check(x, scale)
     if g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"g is {g.device} {g.dtype}, expected {x.device} "
@@ -199,14 +228,20 @@ def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rinv = None if kind in ("warp", "block") else torch.empty(
         (rows,), dtype=torch.float32, device=x.device)
     partial = torch.empty((chunks, d), dtype=torch.float32, device=x.device)
-    fn = FAMILY.fn("rmsnorm_bwd")
+    args = (_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv, x.data_ptr(),
+            x.stride(0), g.data_ptr(), g.stride(0), scale.data_ptr(),
+            dx.data_ptr(), None if rinv is None else rinv.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), rows, d, chunks,
+            float(eps))
+    dss = None if ss is None else torch.empty(
+        (rows,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv,
-                 x.data_ptr(), x.stride(0), g.data_ptr(), g.stride(0),
-                 scale.data_ptr(), dx.data_ptr(),
-                 None if rinv is None else rinv.data_ptr(),
-                 partial.data_ptr(), dscale.data_ptr(), rows, d, chunks,
-                 float(eps), stream)
+        if ss is None:
+            err = FAMILY.fn("rmsnorm_bwd")(*args, stream)
+        else:
+            err = FAMILY.symbol("rmsnorm_bwd", "rmsnorm_bwd_ext",
+                                _EXT_ARGS["rmsnorm_bwd_ext"])(
+                *args, ss.data_ptr(), dss.data_ptr(), int(n), stream)
     FAMILY.launched("rmsnorm_bwd", err)
-    return dx, dscale
+    return (dx, dscale) if ss is None else (dx, dscale, dss)

@@ -23,6 +23,7 @@ the grid by it, leaving the ``model`` axis in hardware order.
 from __future__ import annotations
 
 import collections
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -34,7 +35,7 @@ from ..core.selection import (clustering_ratio, measure_latency_stats,
                               select_ring_kind)
 
 __all__ = ["Mesh", "dgro_host_order", "model_dcn_latency", "make_eval_mesh",
-           "make_production_mesh"]
+           "join_from_env", "make_production_mesh", "mesh_from_flags"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -206,3 +207,42 @@ def make_production_mesh(*, multi_pod: bool = False, dgro_order: bool = False,
     mesh = Mesh(grid.reshape(shape), axes)
     mesh.dgro_report = report
     return mesh
+
+
+def join_from_env(dev) -> None:
+    """Join the process group as a ``torchrun`` rank (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``; NCCL on the cards,
+    ``LOCAL_RANK`` picking the card, gloo on the CPU), where the caller has
+    not started one and the environment names a world."""
+    import torch
+
+    if D.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    D.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                         int(os.environ["RANK"]),
+                         int(os.environ["WORLD_SIZE"]), "env://")
+
+
+def mesh_from_flags(kind: str, shape: Optional[str], dev) -> tuple:
+    """(mesh or None, data axes) of a launcher's ``--mesh`` (``kind``:
+    none, single, multi) and ``--mesh-shape`` (``shape``, "DATA,MODEL" or
+    None) flags, this process joined to the ranks' process group
+    (:func:`join_from_env`): the production mesh
+    (``make_production_mesh(dgro_order=True)``), or a single-pod mesh of
+    ``shape`` in rank order.  Raises unless the world is the mesh."""
+    if kind == "none":
+        return None, ("data",)
+    join_from_env(dev)
+    if shape:
+        if kind != "single":
+            raise ValueError("--mesh-shape gives a single-pod mesh")
+        dims = tuple(int(v) for v in shape.split(","))
+        mesh = Mesh(np.arange(int(np.prod(dims))).reshape(dims),
+                    ("data", "model"))
+    else:
+        mesh = make_production_mesh(multi_pod=kind == "multi",
+                                    dgro_order=True)
+    mesh.group("model")          # raises unless the world is the mesh
+    return mesh, ("pod", "data") if kind == "multi" else ("data",)

@@ -28,14 +28,17 @@ Ranks are started as ``torchrun`` starts them: each process reads
 joins the process group (gloo with ``--device cpu``, NCCL on the cards,
 ``LOCAL_RANK`` picking the card), unless the caller has started one.  A
 world that is not the mesh (256 or 512 ranks) raises, naming both sizes.
+``--mesh-shape DATA,MODEL`` (with ``--mesh single``) takes a single-pod
+mesh of that shape in rank order in place of the production mesh, as
+``launch.serve`` does (``launch.mesh.mesh_from_flags``).
 Every rank draws the whole initial parameters from the seed and keeps its
-blocks (``init_sharded_state``); only rank 0 prints.  The SSM / hybrid
-families over a model axis are not ported (ROADMAP Queue A item 13f).
+blocks (``init_sharded_state``); only rank 0 prints.  Every family trains
+over the mesh, the SSM and hybrid ones tensor-parallel over d_inner / the
+Mamba2 heads (``models.mamba``).
 """
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import torch
@@ -49,7 +52,7 @@ from ..membership.elastic import HostState, update_ewma
 from ..train.optimizer import AdamWConfig, warmup_cosine
 from ..train.train_step import (TrainConfig, init_sharded_state,
                                 init_state, state_layout, train_step)
-from .mesh import make_production_mesh
+from .mesh import mesh_from_flags
 from .shardings import local_batch, to_shardings
 
 __all__ = ["main"]
@@ -67,6 +70,9 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["none", "single", "multi"],
                     default="none", help="production mesh (one rank a "
                     "position, started as torchrun starts them)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="DATA,MODEL: a single-pod mesh of this shape in "
+                    "place of the production mesh")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -80,14 +86,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    if args.mesh == "none":
-        mesh, data_axes = None, ("data",)
-    else:
-        _join_from_env(dev)
-        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
-                                    dgro_order=True)
-        data_axes = ("pod", "data") if args.mesh == "multi" else ("data",)
-        mesh.group("model")          # raises unless the world is the mesh
+    mesh, data_axes = mesh_from_flags(args.mesh, args.mesh_shape, dev)
     say = print if D.rank() == 0 else _quiet
     say(f"[train] arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
         f"vocab={cfg.vocab}")
@@ -165,19 +164,6 @@ def main(argv=None):
 
 def _quiet(*_args, **_kw) -> None:
     """``print`` on ranks other than 0."""
-
-
-def _join_from_env(dev: torch.device) -> None:
-    """Join the process group as a ``torchrun`` rank (``RANK``,
-    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``), where the caller
-    has not started one and the environment names a world."""
-    if D.is_initialized() or "WORLD_SIZE" not in os.environ:
-        return
-    if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    D.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                         int(os.environ["RANK"]),
-                         int(os.environ["WORLD_SIZE"]), "env://")
 
 
 if __name__ == "__main__":

@@ -38,6 +38,19 @@ head of 256 columns at a 4-way axis) is gathered over the group first,
 and each local query head reads its own KV head.  Where the query heads do
 not divide, every rank runs all heads and keeps its columns of the output
 for ``wo``.
+
+**Decode over a model group** (:func:`decode_tp`) reads the rank's block of
+the KV cache as ``launch.shardings.cache_specs`` lays it out.  Where the
+cache is split over KV heads, a rank runs K6 on its KV heads and their
+query heads, writes its heads of the new K/V row and multiplies by its rows
+of ``wo``.  Where it is split over slots (a KV head count that does not
+divide the axis: gemma3-1b's one head), q and the new K/V row are gathered
+whole, the rank that holds slot ``pos % S`` writes the row, every rank runs
+K6's partial form (``slots``) on all query heads against its slots, and
+:func:`merge_partials` merges the ranks' results by their log-sum-exps
+before each rank keeps its heads' columns for its rows of ``wo``.  A cache
+whose split dim does not divide the axis is whole on every rank (the
+specs' fallback): every rank writes and attends over all of it.
 """
 from __future__ import annotations
 
@@ -150,12 +163,14 @@ def write_cache(caches: tuple, index: tuple, values: tuple) -> None:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             plain: bool = False) -> torch.Tensor:
+             plain: bool = False, ss=None, n=None) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim: K3 on
-    CUDA, its plain version on the CPU or with ``plain``."""
+    CUDA, its plain version on the CPU or with ``plain``.  With ``ss`` /
+    ``n``, x is a block of rows of ``n`` columns whose sums of squares are
+    ``ss`` (``rmsnorm.ops.rmsnorm``)."""
     if plain:
-        return rmsnorm_ref(x, scale, eps)
-    return rmsnorm(x, scale, eps)
+        return rmsnorm_ref(x, scale, eps, ss, n)
+    return rmsnorm(x, scale, eps, ss, n)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -283,7 +298,8 @@ def attention_apply(
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,Hkv,S,hd)
     cache_pos: Optional[int] = None,      # decode: write index
     impl: str = "flash",
-    tp: Optional[D.Group] = None,         # tensor parallel (train modes)
+    tp: Optional[D.Group] = None,         # tensor parallel
+    cache_len: Optional[int] = None,      # decode over tp: the cache's slots
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA attention for train / prefill (cache None) and decode (cache
     given).
@@ -294,17 +310,17 @@ def attention_apply(
     ``impl``: "flash" = the kernels (K4 for train / prefill attention, K6
     for decode, K3 for the q / k norms) on CUDA; "ref" = the plain versions
     throughout.  ``tp``: this rank's blocks of the weights, tensor-parallel
-    over the model group (the module docstring; train and prefill without
-    a cache only).
+    over the model group, and in decode this rank's block of the cache of
+    ``cache_len`` slots in all (the module docstring).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     plain = impl == "ref"
     if tp is not None:
         if cache is not None:
-            raise NotImplementedError(
-                "decode attention over a model axis is not ported "
-                "(ROADMAP Queue A item 13f)")
+            return decode_tp(p, x, cfg, positions=positions, window=window,
+                             cache=cache, cache_pos=cache_pos,
+                             cache_len=cache_len, plain=plain, tp=tp), cache
         return _attention_tp(p, x, cfg, positions=positions, window=window,
                              plain=plain, tp=tp), None
     b, t, _ = x.shape
@@ -439,6 +455,116 @@ def _attention_tp(p, x, cfg: ArchConfig, *, positions, window, plain: bool,
     out = _self_attention(q, k, v, positions=positions, window=window,
                           plain=plain)
     out = out.transpose(1, 2).reshape(b, t, hq * hd)
+    if not wo_split:
+        return out @ p["wo"]
+    c = p["wo"].shape[-2]                 # this rank's rows of wo
+    return D.reduce_from(out[..., r * c:(r + 1) * c] @ p["wo"], tp)
+
+
+def kv_block(cache_k: torch.Tensor, cfg: ArchConfig, cache_len: int,
+             tp: D.Group) -> tuple:
+    """How this rank's block ``cache_k`` (B, Hkv or Hkv / m, S or S / m,
+    hd) of a KV cache of ``cache_len`` slots is laid out by ``cache_specs``:
+    (heads, slots), ``heads`` True where it holds its KV heads, ``slots``
+    (s0, cache_len) where it holds slots s0 .. s0 + S / m - 1, else None
+    (its KV heads, or the whole cache)."""
+    if cache_k.shape[1] != cfg.n_kv_heads:
+        return True, None
+    s_l = cache_k.shape[2]
+    if s_l == cache_len:
+        return False, None
+    if s_l * tp.size != cache_len:
+        raise ValueError(f"a KV cache block of {s_l} slots is neither the "
+                         f"whole {cache_len} nor its 1 / {tp.size}")
+    return False, (tp.index * s_l, cache_len)
+
+
+def gather_columns(ys: list, tp: D.Group) -> list:
+    """Each of ``ys`` (..., n_i), a rank's column block of a product, whole
+    over ``tp`` (..., m n_i), in one ``all_gather`` of their
+    concatenation."""
+    widths = [y.shape[-1] for y in ys]
+    both = D.gather_from(torch.cat(ys, dim=-1), tp, dim=-1)
+    parts = both.unflatten(-1, (tp.size, sum(widths))).split(widths, dim=-1)
+    return [p.flatten(-2) for p in parts]
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   group: D.Group) -> torch.Tensor:
+    """The whole cache's attention from the ranks' partial results over
+    their slots: ``out`` (B, Hq, 1, D) normalised over a rank's slots and
+    ``lse`` (B, Hq, 1) its log-sum-exp (-inf where it had no valid slot).
+    Each rank's output weighs exp(lse - max lse); the weighted outputs and
+    the weights are summed in one all-reduce.  fp32 (B, Hq, 1, D)."""
+    top = D.pmax(lse, group)
+    w = torch.where(torch.isinf(top), 0.0, torch.exp(lse - top))
+    both = D.psum(torch.cat([out * w[..., None], w[..., None]], dim=-1),
+                  group)
+    den = both[..., -1:]
+    return torch.where(den > 0, both[..., :-1] / den, 0.0)
+
+
+def decode_tp(p, x, cfg: ArchConfig, *, positions, window, cache, cache_pos,
+              cache_len: int, plain: bool, tp: D.Group) -> torch.Tensor:
+    """One decode step of attention over the model group ``tp``: x (B, 1,
+    d) replicated; this rank's blocks of the weights (``spec_for_param``)
+    and of the cache (:func:`kv_block`).  Writes the new K/V row into the
+    rank's block in place and returns (B, 1, d), replicated."""
+    if cache_len is None:
+        raise ValueError("decode over a model group needs the cache's "
+                         "whole slot count (cache_len)")
+    b = x.shape[0]
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    r = tp.index
+    ck, cv = cache
+    heads, slots = kv_block(ck, cfg, cache_len, tp)
+    q_split = p["wq"].shape[-1] != hq * hd
+    kv_split = p["wk"].shape[-1] != hkv * hd
+    wo_split = p["wo"].shape[-2] != hq * hd
+    if heads and not (q_split and kv_split and wo_split):
+        raise ValueError("a KV cache split over heads needs wq / wk / wv / "
+                         "wo split over the same heads")
+
+    def proj(w, bias):
+        y = x @ p[w]
+        return y + p[bias] if cfg.qkv_bias else y
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    if not heads:
+        # every rank attends with every head: q and the new row whole,
+        # the split ones gathered in one collective
+        split = [y for y, sp in ((q, q_split), (k, kv_split), (v, kv_split))
+                 if sp]
+        if split:
+            whole = gather_columns(split, tp)
+            q = whole.pop(0) if q_split else q
+            if kv_split:
+                k, v = whole
+    q = q.reshape(b, 1, -1, hd)
+    k = k.reshape(b, 1, -1, hd)
+    v = v.reshape(b, 1, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, plain)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, plain)
+    q = rope(q, positions, cfg.rope_theta).transpose(1, 2)
+    k = rope(k, positions, cfg.rope_theta).transpose(1, 2)
+    v = v.transpose(1, 2)
+    slot = int(cache_pos) % cache_len
+    if slots is not None:
+        slot -= slots[0]              # written by the rank that holds it
+    if 0 <= slot < ck.shape[2]:
+        index = (slice(None), slice(None), slice(slot, slot + 1))
+        write_cache((ck, cv), index, (k, v))
+    impl = "ref" if plain else "flash"
+    if slots is None:
+        out = decode_attention(q, ck, cv, int(cache_pos), window, impl)
+    else:
+        part, lse = decode_attention(q, ck, cv, int(cache_pos), window, impl,
+                                     slots=slots)
+        out = merge_partials(part, lse, tp).to(q.dtype)
+    out = out.transpose(1, 2).reshape(b, 1, -1)
+    if heads:
+        return D.reduce_from(out @ p["wo"], tp)
     if not wo_split:
         return out @ p["wo"]
     c = p["wo"].shape[-2]                 # this rank's rows of wo

@@ -55,21 +55,24 @@ the JAX package's
 remainder layers and the final norm are not recomputed, as there.
 
 **Over a mesh** (``mesh``, a ``launch.mesh.Mesh`` with a ``model`` axis
-and ``data_axes``; the train modes of the attention families): ``params``
-are this rank's blocks by ``launch.shardings.param_specs`` and ``tokens``
-its data shard by ``batch_specs``.  Attention and MLPs are Megatron
-tensor-parallel over ``model`` (``layers``), MoE layers expert-parallel
-(``moe``); the embedding is vocab-parallel (a rank looks up the ids of its
-vocabulary range, zero rows elsewhere, summed over the model group),
-``vision_proj`` column-parallel and gathered, and the head (``lm_head``,
-or ``embed.T`` when tied) gives this rank's vocabulary columns of the
-logits, for ``train_step``'s vocab-parallel cross-entropy.  The residual
-stream is replicated over ``model``, where the reference's ``shard(x,
-"batch", "seq", "embed")`` lets its partitioner split it (Megatron-SP); the
-port's ``models.sharding.shard`` moves nothing.  A mesh of one rank on
-every axis is the one-device path, bitwise.  Prefill and decode over a
-model axis of more than one rank, and the SSM and hybrid families over
-one, raise (ROADMAP Queue A item 13f).
+and ``data_axes``; every mode and family): ``params`` are this rank's
+blocks by ``launch.shardings.param_specs``, ``tokens`` its data shard by
+``batch_specs`` and ``caches`` its blocks by ``cache_specs``
+(``init_caches(..., mesh=, rank=)``, with ``max_len`` the caches' whole
+length passed to every prefill and decode).  Attention and MLPs are
+Megatron tensor-parallel over ``model`` (``layers``; decode reads a
+cache split over KV heads or over slots), MoE layers expert-parallel
+(``moe``), Mamba1 / Mamba2 blocks tensor-parallel over d_inner / their
+heads (``mamba``); the embedding is vocab-parallel (a rank looks up the
+ids of its vocabulary range, zero rows elsewhere, summed over the model
+group), ``vision_proj`` column-parallel and gathered, and the head
+(``lm_head``, or ``embed.T`` when tied) gives this rank's vocabulary
+columns of the logits in every mode (``train_step``'s vocab-parallel
+cross-entropy; ``launch.serve.generate``'s greedy pick over the ranks).
+The residual stream is replicated over ``model``, where the reference's
+``shard(x, "batch", "seq", "embed")`` lets its partitioner split it
+(Megatron-SP); the port's ``models.sharding.shard`` moves nothing.  A mesh
+of one rank on every axis is the one-device path, bitwise.
 """
 from __future__ import annotations
 
@@ -82,14 +85,15 @@ from .. import distributed as D
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .layers import (CACHE_DTYPES, IMPLS, attention_apply,
-                     dense_init, init_attention, init_mlp, mlp_apply,
-                     rms_norm, rope, write_cache, zeros)
+                     dense_init, gather_columns, init_attention, init_mlp,
+                     kv_block, mlp_apply, rms_norm, rope, write_cache,
+                     zeros)
 from . import mamba as M
 from . import moe
 
 __all__ = ["pattern_period", "layer_kind", "init_params", "param_count",
-           "init_caches", "forward", "check_supported", "MODES",
-           "mesh_groups"]
+           "init_caches", "cache_layout", "forward", "check_supported",
+           "MODES", "mesh_groups"]
 
 Tree = Dict[str, Any]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -229,7 +233,8 @@ def _index(tree: Tree, i: int) -> Tree:
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                dtype=torch.float32, device=None) -> Tree:
+                dtype=torch.float32, device=None, *, mesh=None,
+                rank: Optional[int] = None, data_axes=("data",)) -> Tree:
     """Zeroed caches: KV (n_blocks, B, Hkv, S, hd) per pattern position
     and (B, Hkv, S, hd) per remainder layer in ``dtype`` (fp32, bf16 or
     float8_e4m3fn), S = min(window, max_len) for a local layer and max_len
@@ -237,7 +242,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     for an fp8 cache: the reference keeps fp8 to the K/V buffers) and its
     SSM state in fp32 (``mamba*_state_shape``), plus a full-length K/V
     where the shared attention block follows it.  ``device`` "meta" gives
-    the shapes alone."""
+    the shapes alone.  With ``mesh`` and ``rank``: only global rank
+    ``rank``'s block of each leaf by :func:`cache_layout`, allocated at
+    its block's shape."""
     check_supported(cfg)
     if dtype not in CACHE_DTYPES:
         raise ValueError(f"KV cache dtype {dtype}: one of {CACHE_DTYPES}")
@@ -245,6 +252,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     dev = torch.device("meta") if device == "meta" else resolve_device(device)
     per = pattern_period(cfg)
     n_blocks, n_rem = divmod(cfg.n_layers, per)
+    if mesh is not None:
+        from ..launch.shardings import local_shape, tree_map_with_path
+
+        if rank is None:
+            raise ValueError("caches over a mesh need the rank")
+        meta = init_caches(cfg, batch, max_len, dtype, "meta")
+        return tree_map_with_path(
+            lambda path, m, sp: zeros(local_shape(tuple(m.shape), sp, mesh),
+                                      m.dtype, dev),
+            meta, cache_layout(cfg, batch, max_len, mesh, data_axes, dtype))
 
     def one(kind, lead):
         cache = {}
@@ -270,6 +287,17 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                     for j in range(n_rem)}}
 
 
+def cache_layout(cfg: ArchConfig, batch: int, max_len: int, mesh,
+                 data_axes=("data",), dtype=torch.float32) -> Tree:
+    """``launch.shardings.cache_specs`` of the whole caches of
+    :func:`init_caches` on ``mesh``: what each rank's block is (and what
+    ``gather_leaf`` puts back together)."""
+    from ..launch.shardings import cache_specs
+
+    return cache_specs(init_caches(cfg, batch, max_len, dtype, "meta"), mesh,
+                       batch, tuple(data_axes))
+
+
 def _widen_conv_states(caches: Tree, dtype: torch.dtype) -> None:
     """Give every SSM conv state of ``caches`` (in place in the tree) the
     dtype its decode arithmetic promotes it to with activations of
@@ -288,12 +316,24 @@ def _widen_conv_states(caches: Tree, dtype: torch.dtype) -> None:
 # ---------------------------------------------------------------------------
 
 def _write_prefill_cache(cache_kv: Tree, k_new: torch.Tensor,
-                         v_new: torch.Tensor) -> None:
+                         v_new: torch.Tensor, slots=None) -> None:
     """Fill a KV cache in place from prefill K/V (B, Hkv, S, hd), cast as
     the reference casts; for a window-sized cache the last S_c positions
-    land at their rolling slots ``pos % S_c``."""
-    s_c = cache_kv["k"].shape[2]
+    land at their rolling slots ``pos % S_c``.  ``slots`` (s0, S_c): the
+    cache is a rank's block of slots s0 .. s0 + its length - 1, and only
+    the positions that land there are written."""
     s = k_new.shape[2]
+    if slots is not None:
+        s0, s_c = slots
+        first = max(s - s_c, 0)                  # the positions kept
+        slot = torch.arange(first, s, device=k_new.device) % s_c - s0
+        mine = (slot >= 0) & (slot < cache_kv["k"].shape[2])
+        pos = torch.arange(first, s, device=k_new.device)[mine]
+        index = (slice(None), slice(None), slot[mine])
+        write_cache((cache_kv["k"], cache_kv["v"]), index,
+                    (k_new[:, :, pos], v_new[:, :, pos]))
+        return
+    s_c = cache_kv["k"].shape[2]
     if s >= s_c:
         slots = torch.arange(s - s_c, s, device=k_new.device) % s_c
         index = (slice(None), slice(None), slots)
@@ -304,41 +344,62 @@ def _write_prefill_cache(cache_kv: Tree, k_new: torch.Tensor,
 
 
 def _prefill_kv(cfg: ArchConfig, ap: Tree, h: torch.Tensor,
-                positions: torch.Tensor, cache: Tree, plain: bool) -> None:
+                positions: torch.Tensor, cache: Tree, plain: bool,
+                tp=None, cache_len: Optional[int] = None) -> None:
     """Write K/V into the prefill cache (rope'd, in decode's layout),
-    recomputed from h as the JAX package does."""
+    recomputed from h as the JAX package does.  Over a model group ``tp``
+    the rank writes its block of the cache of ``cache_len`` slots
+    (``layers.kv_block``): its KV heads, or the whole K/V (gathered where
+    ``wk`` / ``wv`` are split) at its slots."""
     b, s, _ = h.shape
     k = h @ ap["wk"]
     v = h @ ap["wv"]
     if cfg.qkv_bias:
         k, v = k + ap["bk"], v + ap["bv"]
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    slots = None
+    if tp is not None:
+        heads, slots = kv_block(cache["k"], cfg, cache_len, tp)
+        if not heads and k.shape[-1] != cfg.n_kv_heads * cfg.hd:
+            k, v = gather_columns([k, v], tp)
+    k = k.reshape(b, s, -1, cfg.hd)
+    v = v.reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:
         k = rms_norm(k, ap["k_norm"], cfg.norm_eps, plain)
     k = rope(k, positions, cfg.rope_theta)
-    _write_prefill_cache(cache, k.transpose(1, 2), v.transpose(1, 2))
+    _write_prefill_cache(cache, k.transpose(1, 2), v.transpose(1, 2), slots)
+
+
+def _cache_len(kind, max_len: Optional[int]) -> Optional[int]:
+    """The whole slot count of a layer's KV cache: min(window, max_len)
+    for a local layer, max_len for a global one."""
+    w = kind.get("window")
+    if max_len is None or w is None:
+        return max_len
+    return min(w, max_len)
 
 
 def _attn_mlp_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
                     positions, cache, cache_pos, mode, impl, mesh=None,
-                    data_axes=("data",), tp=None) -> tuple:
+                    data_axes=("data",), tp=None, max_len=None) -> tuple:
     """One attention + MLP (or MoE) layer: (x, aux), aux the router's
     load-balancing loss, None for a dense layer (the reference adds a zero
     aux there).  ``tp`` / ``mesh``: tensor and expert parallel (the module
-    docstring)."""
+    docstring); ``max_len`` the caches' whole length."""
     window = kind["window"]
     plain = impl == "ref"
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plain)
+    cache_len = _cache_len(kind, max_len)
     if mode == "decode":
         attn_out, _ = attention_apply(
             lp["attn"], h, cfg, positions=positions, window=window,
-            cache=(cache["k"], cache["v"]), cache_pos=cache_pos, impl=impl)
+            cache=(cache["k"], cache["v"]), cache_pos=cache_pos, impl=impl,
+            tp=tp, cache_len=cache_len)
     else:
         attn_out, _ = attention_apply(lp["attn"], h, cfg, positions=positions,
                                       window=window, impl=impl, tp=tp)
         if mode == "prefill":
-            _prefill_kv(cfg, lp["attn"], h, positions, cache, plain)
+            _prefill_kv(cfg, lp["attn"], h, positions, cache, plain, tp,
+                        cache_len)
     x = x + attn_out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps, plain)
     if kind["type"] == "moe":
@@ -365,18 +426,21 @@ def _ssm_layer(cfg: ArchConfig, kind, lp: Tree, x: torch.Tensor, *,
     """One SSM layer (norm + Mamba1 / Mamba2, residual), then the shared
     attention + MLP block where the kind says so: (x, None), an SSM layer
     having no aux.  Prefill and decode write the layer's states (and the
-    shared block's K/V) into ``cache`` in place."""
+    shared block's K/V) into ``cache`` in place: over a model group the
+    states in the cache's layout (``mamba``)."""
     plain = impl == "ref"
     mamba1 = kind["type"] == "mamba1"
     h = rms_norm(x, lp["ln"], cfg.norm_eps, plain)
     state = (cache["conv"], cache["h"]) if cache is not None else None
+    tp = mesh_kw.get("tp")
     if mode == "decode":
         step = M.mamba1_step if mamba1 else M.mamba2_step
-        y, (conv, hh) = step(lp["mamba"], h[:, 0, :], cfg, state, impl=impl)
+        y, (conv, hh) = step(lp["mamba"], h[:, 0, :], cfg, state, impl=impl,
+                             tp=tp)
         y = y[:, None, :]
     else:
         apply = M.mamba1_apply if mamba1 else M.mamba2_apply
-        y, (conv, hh) = apply(lp["mamba"], h, cfg, state, impl=impl)
+        y, (conv, hh) = apply(lp["mamba"], h, cfg, state, impl=impl, tp=tp)
     if mode != "train":
         cache["conv"].copy_(conv)
         cache["h"].copy_(hh)
@@ -441,13 +505,15 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             pos: Optional[int] = None, impl: str = "flash",
             remat: bool = False,
             vision_embeds: Optional[torch.Tensor] = None,
-            mesh=None, data_axes=("data",)):
+            mesh=None, data_axes=("data",), max_len: Optional[int] = None):
     """tokens (B, S) integer (S = 1 for decode, at absolute position
     ``pos``).  ``vision_embeds`` (B, Np, d), for a vision config in the
     train and prefill modes, are projected and prepended to the tokens'
     embeddings: positions then run over Np + S, and decode continues at
     ``pos`` >= Np + S.  See the module docstring for what each mode
-    returns, and for ``mesh`` / ``data_axes``."""
+    returns, and for ``mesh`` / ``data_axes``; ``max_len`` is the caches'
+    whole length (``init_caches``), which prefill and decode over a model
+    axis need to read a rank's block of a KV cache."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode}")
@@ -456,13 +522,10 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     training = mode in TRAIN_MODES
     if mesh is not None and mesh.size == 1:
         mesh = None                     # the one-device path, bitwise
-    m = mesh.shape.get("model", 1) if mesh is not None else 1
-    if m > 1 and (not training or cfg.family in ("ssm", "hybrid")):
-        raise NotImplementedError(
-            f"{cfg.name}: {mode!r} over a {m}-way model axis is not ported "
-            f"(tensor parallelism covers the train modes of the attention "
-            f"families; ROADMAP Queue A item 13f)")
     tp, _ = mesh_groups(mesh, data_axes)
+    if tp is not None and not training and max_len is None:
+        raise ValueError(f"{mode!r} over a model axis needs max_len, the "
+                         f"caches' whole length")
     if not training and caches is None:
         raise ValueError(f"mode {mode!r} needs caches (init_caches)")
     if remat and not training:
@@ -510,7 +573,7 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
               mode="train" if training else mode, impl=impl,
               shared_params=params.get("shared_attn"))
     if mesh is not None:
-        kw.update(mesh=mesh, data_axes=data_axes, tp=tp)
+        kw.update(mesh=mesh, data_axes=data_axes, tp=tp, max_len=max_len)
 
     def block(x_, aux_, i):
         """Repetition i of the layer pattern; aux_ plus its layers' aux."""

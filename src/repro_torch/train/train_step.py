@@ -48,7 +48,7 @@ from .optimizer import (AdamWConfig, AdamWState, adamw_init, adamw_update,
 __all__ = ["TrainConfig", "TrainState", "cross_entropy",
            "chunked_cross_entropy", "loss_fn", "init_state",
            "loss_and_grads", "train_step", "state_layout",
-           "init_sharded_state"]
+           "init_sharded_params", "init_sharded_state"]
 
 Tree = Any
 
@@ -214,18 +214,16 @@ def state_layout(cfg: ArchConfig, mesh, data_axes=("data",),
     return state_specs(meta, mesh, data_axes, zero=zero)
 
 
-def init_sharded_state(cfg: ArchConfig, specs, mesh, rank: int,
-                       generator: Optional[torch.Generator] = None, *,
-                       device=None, dtype=torch.float32) -> TrainState:
-    """Global rank ``rank``'s blocks of :func:`init_state`'s state by
-    ``specs`` (:func:`state_layout`): each weight drawn whole, in
+def init_sharded_params(cfg: ArchConfig, pspecs, mesh, rank: int,
+                        generator: Optional[torch.Generator] = None, *,
+                        device=None, dtype=torch.float32):
+    """Global rank ``rank``'s blocks of ``init_params``' parameters by
+    ``pspecs`` (``param_specs``): each weight drawn whole, in
     ``init_params``' order from ``generator`` (the same bits on any mesh),
     and cut to its block before the next is drawn, so a rank holds one
-    whole leaf at a time beside its blocks; the moments zeros of their
-    blocks' shapes."""
+    whole leaf at a time beside its blocks."""
     from ..device import resolve_device
-    from ..launch.shardings import (local_shape, local_slice,
-                                    tree_map_with_path)
+    from ..launch.shardings import local_slice, tree_map_with_path
     from ..models.layers import Draws
 
     # the order of the draws, from a pass on the meta device
@@ -239,7 +237,7 @@ def init_sharded_state(cfg: ArchConfig, specs, mesh, rank: int,
         if id(m) in order:
             draw_specs[order[id(m)]] = sp
 
-    tree_map_with_path(note, meta, specs.params)
+    tree_map_with_path(note, meta, pspecs)
     if None in draw_specs:       # an init function replaced a drawn leaf
         raise ValueError(f"{cfg.name}: a drawn weight is not a leaf of "
                          f"init_params' tree (scale it in place)")
@@ -255,9 +253,25 @@ def init_sharded_state(cfg: ArchConfig, specs, mesh, rank: int,
 
     params = Mdl.init_params(cfg, Draws(generator, keep), device=dev,
                              dtype=dtype)
-    local = tree_map_with_path(
+    return tree_map_with_path(
         lambda path, p, sp: p if id(p) in kept
-        else local_slice(p, sp, mesh, rank), params, specs.params)
+        else local_slice(p, sp, mesh, rank), params, pspecs)
+
+
+def init_sharded_state(cfg: ArchConfig, specs, mesh, rank: int,
+                       generator: Optional[torch.Generator] = None, *,
+                       device=None, dtype=torch.float32) -> TrainState:
+    """Global rank ``rank``'s blocks of :func:`init_state`'s state by
+    ``specs`` (:func:`state_layout`): the parameters by
+    :func:`init_sharded_params`, the moments zeros of their blocks'
+    shapes."""
+    from ..device import resolve_device
+    from ..launch.shardings import local_shape, tree_map_with_path
+
+    local = init_sharded_params(cfg, specs.params, mesh, rank, generator,
+                                device=device, dtype=dtype)
+    meta = Mdl.init_params(cfg, device="meta", dtype=dtype)
+    dev = resolve_device(device)
 
     def zeros(spec_tree):
         return tree_map_with_path(

@@ -11,8 +11,11 @@ and off, ``cache_specs`` at two decode shapes and ``batch_specs`` give the
 same spec.  Also: the rule tables and ``_NAME_RULES`` equal the
 reference's, ``fix_spec`` equals ``shard``'s divisibility fix, every
 rank's ``local_slice`` block tiles the whole once (``gather_leaf``, its
-inverse, runs in the 4-rank files), and the forward modes a model axis
-does not cover raise, naming 13f.
+inverse, runs in the 4-rank files), and ``init_caches(mesh=, rank=)``
+allocates each leaf at its block's shape by ``cache_specs``, which keeps
+every conv state and Mamba1's state whole (the reference's name regexes
+never match ``keystr``'s quoted names), splits Mamba2's state over its
+heads and gemma3-1b's one-head K/V over slots.
 """
 import functools
 
@@ -316,33 +319,45 @@ def test_local_batch_gives_each_rank_its_part_of_every_microbatch(shape,
                                                          rank))
 
 
-# --- what a model axis does not cover raises --------------------------------
+# --- a rank's blocks of the caches ------------------------------------------
 
-def _tp_mesh():
-    return Mesh(np.arange(4).reshape(1, 4), ("data", "model"))
-
-
-@pytest.mark.parametrize("mode", ["prefill", "decode"])
-def test_prefill_and_decode_over_a_model_axis_raise_13f(mode):
-    cfg = get_arch("gemma3-1b").smoke()
-    params = TM.init_params(cfg, device="cpu")
-    caches = TM.init_caches(cfg, 1, 16, device="cpu")
-    toks = torch.zeros((1, 1 if mode == "decode" else 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="13f"):
-        TM.forward(cfg, params, toks, mode=mode, caches=caches,
-                   pos=8 if mode == "decode" else None, mesh=_tp_mesh())
+def _tp_mesh(shape=(1, 4)):
+    return Mesh(np.arange(int(np.prod(shape))).reshape(shape),
+                ("data", "model"))
 
 
-@pytest.mark.parametrize("mode", ["train", "train_hidden", "prefill"])
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-7b"])
-def test_ssm_families_over_a_model_axis_raise_13f(name, mode):
-    cfg = get_arch(name).smoke()
-    params = TM.init_params(cfg, device="cpu")
-    caches = None if mode != "prefill" else TM.init_caches(cfg, 1, 128,
-                                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="13f"):
-        TM.forward(cfg, params, torch.zeros((1, 128), dtype=torch.long),
-                   mode=mode, caches=caches, mesh=_tp_mesh())
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (16, 16)])
+@pytest.mark.parametrize("name", ["gemma3-1b", "qwen1.5-4b", "pixtral-12b",
+                                  "falcon-mamba-7b", "zamba2-7b"])
+def test_mesh_caches_are_the_blocks_of_cache_specs(name, shape):
+    """At full size on the meta device: every leaf of a rank's caches has
+    its block's shape by ``cache_layout`` (``cache_specs``)."""
+    cfg = get_arch(name)
+    mesh = _tp_mesh(shape)
+    whole = TM.init_caches(cfg, 16, 1024, device="meta")
+    specs = TM.cache_layout(cfg, 16, 1024, mesh)
+    mine = TM.init_caches(cfg, 16, 1024, device="meta", mesh=mesh, rank=3)
+    got = _tflat(S.tree_map_with_path(lambda p, t: SH.P(*t.shape), mine))
+    want = _tflat(S.tree_map_with_path(
+        lambda p, t, sp: SH.P(*S.local_shape(tuple(t.shape), sp, mesh)),
+        whole, specs))
+    assert got == want
+
+
+@pytest.mark.parametrize("name,leaf,split", [
+    ("falcon-mamba-7b", "conv", None), ("falcon-mamba-7b", "h", None),
+    ("zamba2-7b", "conv", None), ("zamba2-7b", "h", 2),
+    ("zamba2-7b", "k", 2), ("gemma3-1b", "k", 3), ("qwen1.5-4b", "v", 2)])
+def test_cache_specs_split_as_the_reference_names_them(name, leaf, split):
+    """The stacked leaf ``blocks/pos0/<leaf>`` at full width on (1, 4):
+    split over ``model`` on dim ``split`` (batch 0 and the block axis
+    before it), or whole."""
+    cfg = get_arch(name)
+    specs = TM.cache_layout(cfg, 4, 1024, _tp_mesh())
+    spec = tuple(specs["blocks"]["pos5" if name == "zamba2-7b"
+                                 else "pos0"][leaf])
+    dims = [d for d, e in enumerate(spec) if e == "model"]
+    assert dims == ([] if split is None else [split])
 
 
 def test_meta_caches_have_the_cpu_shapes():

@@ -640,7 +640,7 @@ def launcher_rank(rank, world, micro=1):
         mesh.dgro_report = report
         return mesh
 
-    train.make_production_mesh = small_mesh
+    M.make_production_mesh = small_mesh
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         losses = train.main(LAUNCH + ["--microbatches", str(micro)])
@@ -666,3 +666,17 @@ def launcher_rank(rank, world, micro=1):
                                    specs=specs)
         direct.append(float(met["loss"]))
     return buf.getvalue(), losses, direct
+
+
+def shape_launcher_rank(rank, world):
+    """``launch.train --mesh single --mesh-shape 2,2`` on this rank (no
+    patch): (printed lines, losses)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = train.main(LAUNCH + ["--mesh-shape", "2,2"])
+    return buf.getvalue(), losses

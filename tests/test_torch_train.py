@@ -579,6 +579,24 @@ def test_train_cli_trains_over_a_mesh_on_four_ranks():
         assert np.all(np.isfinite(losses))
 
 
+def test_train_cli_takes_a_mesh_shape_as_the_serve_cli_does():
+    """``--mesh single --mesh-shape 2,2`` on 4 gloo ranks, without a
+    patch (``launch.mesh.mesh_from_flags``, shared with ``launch.serve``):
+    the losses are the one-device launcher's (rel 1e-5) on every rank, and
+    only rank 0 prints."""
+    from repro_torch import distributed as D
+    from repro_torch.launch import train
+    from test_torch_tensor_parallel import LAUNCH, shape_launcher_rank
+
+    ranks = D.spawn_ranks(shape_launcher_rank, 4, timeout=180)
+    want = train.main([a for a in LAUNCH if a not in ("--mesh", "single")])
+    assert ranks[0][0].splitlines()[0].startswith("[train] arch=")
+    assert all(out == "" for out, _ in ranks[1:])
+    for _, losses in ranks:
+        assert losses == ranks[0][1]
+        assert losses == pytest.approx(want, rel=1e-5)
+
+
 def test_train_cli_over_a_mesh_takes_the_global_microbatches():
     """``--mesh single --microbatches 2`` on 4 gloo ranks (mesh patched to
     (data 2, model 2)): each rank holds its part of both microbatches of
