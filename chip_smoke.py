@@ -137,13 +137,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores is
-# 67 TFLOP/s counting an FMA as two, so 33.5e12 instructions/s; dense TF32
-# on the tensor cores 494.7 TFLOP/s; HBM3 at 3.35 TB/s.  A relaxation is
-# two instructions (add, min).
-FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 494.7e12
-BYTES_PER_S = 3.35e12
+# H100 SXM peaks, from the port's one table (NVIDIA data sheet;
+# ``repro_torch.roofline.analysis``): fp32 outside the tensor cores is 67
+# TFLOP/s counting an FMA as two, so 33.5e12 instructions/s; dense TF32 on
+# the tensor cores 494.7 TFLOP/s; HBM3 at 3.35 TB/s; exps on the special-
+# function units.  A relaxation is two instructions (add, min).
+from repro_torch.roofline.analysis import (  # noqa: E402
+    FP32_FLOP_PER_S as FLOP_PER_S, HBM_BW as BYTES_PER_S, SFU_PER_S,
+    TF32_FLOP_PER_S)
 
 
 _T0 = time.perf_counter()
@@ -168,10 +169,10 @@ def flop_bound(flops: float, nbytes: float,
         (bytes_ms, "bytes")
 
 
-def bound(relaxations: float, nbytes: float) -> tuple:
-    """``flop_bound`` for min-plus work: a relaxation is two instructions
-    (add, min), each at an FMA's rate, so four FLOP's worth."""
-    return flop_bound(4.0 * relaxations, nbytes)
+def work_bound(work, rate: float = FLOP_PER_S) -> tuple:
+    """``flop_bound`` of a kernel package's ``work(...)`` (its FLOPs and
+    bytes; a min-plus relaxation counts four FLOP)."""
+    return flop_bound(work.flops, work.bytes, rate)
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -2936,10 +2937,8 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
                 f"K1 {label}, tile {choice[0]}, {choice[1]} k chunks", out,
                 want))
             by_variant[f"{choice[0]}x{choice[1]}"] = time_ms(run, reps=20)
-        nbytes = a.element_size() * (a.numel() + b.numel()
-                                     + (2 if init is not None else 1)
-                                     * bsz * m * nn)
-        b_ms, b_by = bound(float(bsz) * m * kk * nn, nbytes)
+        b_ms, b_by = work_bound(kernel.work(bsz, m, kk, nn, init is not None,
+                                            a.dtype))
         ms = by_variant[f"{chosen[0]}x{chosen[1]}"]
         k1[label] = {"variant": list(chosen), "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -2971,7 +2970,7 @@ def phase_timing(rng, counts: dict, errs: dict) -> list:
     want = ref.fw_tile_ref(x)
     errs["fw_tile"] = max(errs["fw_tile"], check_equal(
         f"K2 T={t} timed input", kernel.fw_tile(x), want))
-    k2_b, k2_by = bound(float(t) ** 3, 4.0 * 2 * t * t)
+    k2_b, k2_by = work_bound(kernel.fw_tile_work(t))
     # every (cluster size C, pivots per barrier P) K2 is built for, timed
     # on the same tile (the path runs FW_TILE_CLUSTER x FW_TILE_PIVOTS),
     # each with its chain floor: T / P cluster barriers (their round trip,
@@ -3632,6 +3631,43 @@ def expected_lm_launches(cfg, max_new: int) -> dict:
             "decode_attention_partial": 0}
 
 
+# Predictions for the roofline lines (written from the code before the
+# chip run that prints them; PERF.md section 6)
+PREDICTED = {"train_mfu_fp32": (0.45, 0.50), "train_counted_share":
+             (0.55, 0.62), "decode_memory_share": (0.03, 0.10)}
+
+
+def meta_like(tree):
+    """``tree``'s tensors as empty ``meta`` tensors of their shapes and
+    dtypes (dicts of tensors)."""
+    import torch
+
+    return {k: meta_like(v) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+
+
+def plan_gates(what: str, plan, launched: dict, peak: int) -> float:
+    """Hold a walk of a step on the meta device (``plan``,
+    ``roofline.walk``) to the card's run of the same step: its kernel
+    calls equal ``launched`` (the card's launch counts), and the card's
+    ``max_memory_allocated`` over the step, ``peak``, lies in [0.8, 1.2]
+    x the walk's largest sum of live storages.  Returns the ratio."""
+    calls = {name: plan.kernel_calls().get(name, 0) for name in launched}
+    ratio = peak / plan.peak_live_bytes
+    log(f"  {what}: the walk on meta counts kernel calls {calls}, the card "
+        f"launched {launched}; peak measured {peak} B / walked "
+        f"{plan.peak_live_bytes} B = {ratio:.4f} (arguments "
+        f"{plan.argument_bytes} B)")
+    if calls != launched:
+        raise AssertionError(f"{what}: walked kernel calls {calls} != the "
+                             f"card's launches {launched}")
+    if not 0.8 <= ratio <= 1.2:
+        raise AssertionError(f"{what}: measured / walked peak {ratio:.4f} "
+                             f"outside [0.8, 1.2]")
+    return ratio
+
+
 def phase_serve(counts: dict, errs: dict) -> dict:
     """The LM serving path: gemma3-1b at full width, random weights from a
     torch.Generator seeded 0, 8 prompts of 1024 tokens from numpy
@@ -3698,6 +3734,38 @@ def phase_serve(counts: dict, errs: dict) -> dict:
         raise AssertionError("generate's first tokens are not the argmax "
                              "of the kernel path's prefill logits")
     errs["serve_logits"] = err
+
+    # (plan) prefill + one decode step walked on meta against the card
+    from repro_torch.roofline.analysis import roofline_from
+    from repro_torch.roofline.walk import walk
+
+    t0 = time.perf_counter()
+    meta_params = Mdl.init_params(cfg, device="meta")
+    plan = walk(generate, cfg, meta_params, prompts, 2, max_len)
+    caches = Mdl.init_caches(cfg, b, max_len, device="meta")
+    tok = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    step = walk(lambda p, c: Mdl.forward(cfg, p, tok, mode="decode",
+                                         caches=c, pos=plen),
+                meta_params, caches)
+    walk_s = time.perf_counter() - t0
+    want2 = expected_lm_launches(cfg, 2)
+    if {k: plan.kernel_calls().get(k, 0) for k in want2} != want2:
+        raise AssertionError(f"serve walk: kernel calls "
+                             f"{plan.kernel_calls()} != {want2}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    generate(cfg, params, prompts, 2, max_len)
+    torch.cuda.synchronize()
+    plan_gates("serve, prefill + one decode step", plan, lm_launches(),
+               torch.cuda.max_memory_allocated())
+    roof = roofline_from(step, dtype=torch.float32)
+    wall = t["decode_s"] / (new - 1)
+    lo, hi = PREDICTED["decode_memory_share"]
+    log(f"  decode step: walked bytes {roof.hbm_bytes:.6g} B, memory_s "
+        f"{roof.memory_s * 1e3:.4f} ms at {BYTES_PER_S:.3g} B/s against a "
+        f"wall of {wall * 1e3:.4f} ms a step: {roof.memory_s / wall:.4f} "
+        f"(predicted {lo}-{hi}); walks {walk_s:.2f} s")
     return {"cfg": cfg, "params": params, "prompts": prompts}
 
 
@@ -3790,18 +3858,33 @@ def phase_train(counts: dict, card: str) -> dict:
     torch.cuda.synchronize()
 
     # (f) the counted step
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     t0 = time.perf_counter()
     m0 = TT.train_step(cfg, tc, state, batches[0])[1]
     loss0 = float(m0["loss"])
     step0_s = time.perf_counter() - t0
     counts["train"] = lm_launches()
+    step0_peak = torch.cuda.max_memory_allocated()
     want = expected_train_launches(cfg)
     log(f"  (f) step 0: loss {loss0:.6f}, grad norm "
         f"{float(m0['grad_norm']):.6f}, {step0_s:.3f} s; launches "
         f"{counts['train']} (expected {want})")
     if counts["train"] != want:
         raise AssertionError(f"train launches {counts['train']} != {want}")
+
+    # (h) the same step walked on meta: its kernel calls against the
+    # card's launches, its peak of live storages against the card's
+    from repro_torch.roofline.analysis import (active_param_count,
+                                               model_flops, roofline_from)
+    from repro_torch.roofline.walk import walk
+
+    t0 = time.perf_counter()
+    meta_state = TT.init_state(cfg, device="meta")
+    plan = walk(TT.train_step, cfg, tc, meta_state, meta_like(batches[0]))
+    log(f"  (h) walk of the step on meta: {time.perf_counter() - t0:.2f} s")
+    plan_gates("(h) train step", plan, counts["train"], step0_peak)
 
     # (a) kernels against the plain path; (c) twice bitwise; (b) remat off
     lk, _, gk = TT.loss_and_grads(cfg, tc, state.params, batches[0])
@@ -3840,8 +3923,8 @@ def phase_train(counts: dict, card: str) -> dict:
     rel = max(float((fk[n] - fn[n]).abs().max())
               / max(float(fn[n].abs().max()), 1e-30) for n in fn)
     log(f"  (b) remat off vs on: bitwise {bitwise}, worst leaf max |dg| / "
-        f"max |g| {rel:.3g}; peak {torch.cuda.max_memory_allocated()} B "
-        f"so far")
+        f"max |g| {rel:.3g}; peak "
+        f"{max(peak_before, torch.cuda.max_memory_allocated())} B so far")
     if rel > 1e-6:
         raise AssertionError("(b) remat changes the gradients beyond 1e-6")
     del gk, gn, fk, fn
@@ -3892,6 +3975,16 @@ def phase_train(counts: dict, card: str) -> dict:
         f"allocator retries {retries} [{card}]")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"(d) loss did not fall: {losses}")
+    mf = model_flops(cfg, b * s, active_param_count(cfg, meta_state.params))
+    roof = roofline_from(plan, dtype=torch.float32)
+    at_peak = ms / 1e3 * FLOP_PER_S
+    lo, hi = PREDICTED["train_mfu_fp32"]
+    lo2, hi2 = PREDICTED["train_counted_share"]
+    log(f"  (h) model FLOPs {mf:.6g} (6 N D), counted {roof.flops:.6g} "
+        f"(GEMMs {plan.dot_flops:.6g} + kernels); at the median step "
+        f"{ms:.1f} ms and {FLOP_PER_S:.3g} FLOP/s: mfu_fp32 "
+        f"{mf / at_peak:.4f} (predicted {lo}-{hi}), counted share "
+        f"{roof.flops / at_peak:.4f} (predicted {lo2}-{hi2}) [{card}]")
     del st
     t0 = time.perf_counter()
     fresh = TT.init_state(cfg, torch.Generator(device=dev).manual_seed(1),
@@ -4373,10 +4466,6 @@ SSM = dict(archs=("falcon-mamba-7b", "zamba2-7b"), batch=8, prompt_len=1024,
            max_new=32, max_len=1056, layer_batch=2, layer_seq=256,
            check_batch=2, check_prompt=128, check_steps=128,
            peak_limit=80e9)
-# exp on the special-function units: 16 results per clock per SM (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute capability
-# 9.0) x 132 SMs x the H100 SXM's 1.98 GHz boost clock
-SFU_PER_S = 16 * 132 * 1.98e9
 
 
 # K5b's first design (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6) at falcon's
@@ -4394,13 +4483,15 @@ def scan_bwd_bound(shape: tuple, ch: int) -> dict:
     it, what this design adds: the saved states read and the dB / dC
     partials of ``ch``-channel blocks written, and the decay taken
     twice."""
+    from repro_torch.kernels.selective_scan.kernel import work
+
     b, s, d, n = shape
     elems, rows = float(b * s * d * n), float(b * s * d)
-    nbytes = 4.0 * (7 * rows + 4 * b * s * n + 2 * d * n + 2 * d
-                    + 2 * b * d * n)
+    w = work(b, s, d, n, gated=True, bwd=True)
+    nbytes = w.bytes
     design = 4.0 * (b * -(-s // 16) * d * n + 2 * b * s * -(-d // ch) * n)
-    fp32_ms = 22.0 * elems / FLOP_PER_S * 1e3
-    sfu_ms = (elems + rows) / SFU_PER_S * 1e3
+    fp32_ms = w.flops / FLOP_PER_S * 1e3
+    sfu_ms = w.exps / SFU_PER_S * 1e3
     bytes_ms = nbytes / BYTES_PER_S * 1e3
     ops_ms = max(fp32_ms, sfu_ms)
     return dict(
@@ -4963,6 +5054,51 @@ def phase_frontend(arch: str, counts: dict, errs: dict, card: str,
     return served
 
 
+def k3b_split_timing(rand, errs: dict) -> dict:
+    """K3b's split form (``rmsnorm_bwd_ext``) at (d-g2)'s rank training
+    shape: zamba2-7b's gate norm over a 4-way model axis, a rank's 1792 of
+    d_inner 7168, rows of its train step (2 x 512); ss read beside x and g,
+    its gradient dss written.  No PyTorch call takes an outside statistic:
+    no library time.  Cold: the timed calls walk copies of x, g and ss,
+    more than 64 MB of them.  ``rand(*shape, sd=)`` draws fp32 normals on
+    the card.  Returns the kernels line's entry."""
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    rows, dd = DIST_SERVE["parts"][1]["train"][0] \
+        * DIST_SERVE["parts"][1]["train"][1], 7168 // 4
+    x, g, sc = rand(rows, dd), rand(rows, dd), rand(dd, sd=0.1)
+    ss = (x.square().sum(-1) * 4.0).contiguous()
+    n_rot = max(2, -(-64_000_000 // (4 * 2 * x.numel())) + 1)
+    turn = itertools.cycle([(x, g, ss)] + [(x.clone(), g.clone(), ss.clone())
+                                           for _ in range(n_rot - 1)])
+
+    def split_bwd():
+        xx, gg, sq = next(turn)
+        return rn_kernel.rmsnorm_rows_bwd(xx, sc, gg, 1e-6, sq, 4 * dd)
+
+    ms = time_ms(split_bwd, reps=50)
+    plain = time_ms(lambda: rmsnorm_bwd_ref(x, sc, g, 1e-6, ss, 4 * dd),
+                    reps=10)
+    errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], max(
+        grad_close(f"K3b split timed input {w}", a, bb)
+        for w, a, bb in zip(("dx", "dscale", "dss"),
+                            rn_kernel.rmsnorm_rows_bwd(x, sc, g, 1e-6, ss,
+                                                       4 * dd),
+                            rmsnorm_bwd_ref(x, sc, g, 1e-6, ss, 4 * dd))))
+    b_ms, b_by = work_bound(rn_kernel.work(rows, dd, split=True, bwd=True))
+    entry = dict(
+        shape=f"({rows}, {dd}) fp32 of rows of {4 * dd}, cold ({n_rot} "
+              f"copies in turn)", ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"  K3b split form, zamba2_gate_rank_split ({rows}, {dd}) fp32 of "
+        f"rows of {4 * dd}, cold ({n_rot} copies): {ms:.4f} ms (plain "
+        f"{plain:.4f} ms warm; no library call; bound {b_ms:.5f} ms by "
+        f"{b_by}: {b_ms / ms:.1%})")
+    del x, g, ss, turn
+    return entry
+
+
 def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     """K4 and K3 at the served shapes (gemma3-1b's and, (m-e),
     moonshot's), K4 with L, K4b and K3b at the training shapes: ms per
@@ -4999,12 +5135,12 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         return torch.from_numpy(rng.normal(0, sd, shape).astype(np.float32)) \
             .to(dev)
 
-    def k4_bounds(pairs: float, dd: int, nbytes: float) -> dict:
-        """K4's bound as fp32 FMAs on the CUDA cores and, beside it, as
-        3xTF32 on the tensor cores (three TF32 products a product): 2 D
-        multiply-adds a live score pair."""
-        b_ms, b_by = flop_bound(4.0 * pairs * dd, nbytes)
-        tc_ms, tc_by = flop_bound(12.0 * pairs * dd, nbytes, TF32_FLOP_PER_S)
+    def k4_bounds(w) -> dict:
+        """K4's or K4b's bound (``fa_kernel.work``) as fp32 FMAs on the CUDA
+        cores and, beside it, as 3xTF32 on the tensor cores (three TF32
+        products a product)."""
+        b_ms, b_by = flop_bound(w.flops, w.bytes)
+        tc_ms, tc_by = flop_bound(3.0 * w.flops, w.bytes, TF32_FLOP_PER_S)
         return dict(bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
                     bound_by_3xtf32=tc_by)
 
@@ -5033,9 +5169,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f"K4 timed input, {label}", fa_ops.flash_attention(
                 q, k, v, window=window), want, 2e-5))
         lib_err = float((lib() - want).abs().max())
-        pairs = float(mask.sum()) * b * hq
-        bnd = k4_bounds(pairs, d,
-                        4.0 * (2 * q.numel() + k.numel() + v.numel()))
+        bnd = k4_bounds(fa_kernel.work(b, hq, hkv, t, t, d, window=window))
         k4[label] = dict(instance=fa_kernel.instance(d), ms=ms,
                          plain_ms=plain, library_ms=lib_ms, **bnd)
         log(f"  K4 {label} layer ({b},{hq},{t},{d}) Hkv {hkv} fp32, instance"
@@ -5062,9 +5196,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         errs["flash_attention"] = max(errs["flash_attention"], check_close(
             f"K4 timed input, {tag}", fa_ops.flash_attention(q, k, v), want,
             2e-5))
-        pairs = tt * (tt + 1) / 2 * b * heads
-        bnd = k4_bounds(pairs, dd, 4.0 * (2 * q.numel() + k.numel()
-                                          + v.numel()))
+        bnd = k4_bounds(fa_kernel.work(b, heads, kv_heads, tt, tt, dd))
         k4[key] = dict(
             shape=f"({b},{heads},{tt},{dd}) Hkv {kv_heads} fp32, causal "
                   f"(global)", instance=fa_kernel.instance(dd), ms=ms,
@@ -5094,8 +5226,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         live = torch.ones((1, 1, 1, cs), dtype=torch.bool, device=dev)
         for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
             kc, vc = (to_cache_dtype(x, dt) for x in kv)
-            nbytes = 2.0 * kc.numel() * kc.element_size() \
-                + 2.0 * 4 * q.numel()
+            k6w = da_kernel.work(pb, phq, phkv, cs, pd, last, None, dt)
+            nbytes = k6w.bytes
             n_rot = max(2, -(-64_000_000 // int(nbytes)) + 1)
             copies = [(kc, vc)] + [(kc.clone(), vc.clone())
                                    for _ in range(n_rot - 1)]
@@ -5117,7 +5249,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             err = rel_close(f"K6 timed input, S {cs} {name}",
                             da_kernel.decode_attention(q, kc, vc, last), want)
             lib_err = float((lib() - want).abs().max())
-            b_ms, b_by = flop_bound(4.0 * pb * phq * cs * pd, nbytes)
+            b_ms, b_by = work_bound(k6w)
             label = f"S{cs}_{'fp8' if kc.element_size() == 1 else name}"
             warps, cluster = da_kernel.plan(kc)
             k6[label] = dict(
@@ -5176,9 +5308,13 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
     got, _ = da_kernel.decode_attention(q, kc, vc, gpos, slots=slots)
     want, _ = decode_attention_ref(q, kc, vc, gpos, None, slots)
     err = rel_close("K6 partial timed input", got, want)
-    nbytes = 2.0 * 4 * gb * ghkv * n_live * gd + 4.0 * q.numel() * 2 \
-        + 4.0 * gb * ghq
-    b_ms, b_by = flop_bound(4.0 * gb * ghq * n_live * gd, nbytes)
+    k6w = da_kernel.work(gb, ghq, ghkv, n, gd, gpos, None, torch.float32,
+                         slots)
+    if da_kernel.live_slots(n, gpos, None, slots) != n_live:
+        raise AssertionError("K6 partial: live slots by work() differ "
+                             "from the mask's")
+    nbytes = k6w.bytes
+    b_ms, b_by = work_bound(k6w)
     warps, cluster = da_kernel.plan(kc)
     k6p = dict(shape=f"q ({gb},{ghq},1,{gd}), a rank's block ({gb},{ghkv},"
                      f"{n},{gd}) fp32 of a {gs}-slot cache, {n_live} live, "
@@ -5234,15 +5370,12 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                   for w, g, ww in zip(("y", "h_last"), got, want))
         if mode != "yardstick":
             errs["selective_scan"] = max(errs["selective_scan"], err)
-    sb, ss_, sd, sn = shape
-    elems, rows = float(sb * ss_ * sd * sn), float(sb * ss_ * sd)
     k5 = {}
-    for mode, tensors, gate_flops in (("scan", 3, 0), ("gated", 4, 5)):
-        fp32_ms = (6.0 * elems + (1 + gate_flops) * rows) / FLOP_PER_S * 1e3
-        sfu_ms = (elems + (rows if gate_flops else 0)) / SFU_PER_S * 1e3
-        bytes_ms = 4.0 * (tensors * rows + 2 * sb * ss_ * sn + sd * sn
-                          + (sd if gate_flops else 0) + 2 * sb * sd * sn) \
-            / BYTES_PER_S * 1e3
+    for mode in ("scan", "gated"):
+        k5w = ss_kernel.work(*shape, gated=mode == "gated")
+        fp32_ms = k5w.flops / FLOP_PER_S * 1e3
+        sfu_ms = k5w.exps / SFU_PER_S * 1e3
+        bytes_ms = k5w.bytes / BYTES_PER_S * 1e3
         ms = sum(times[mode]) / len(times[mode])
         b_ms, b_by = (max(fp32_ms, sfu_ms), "operations") \
             if max(fp32_ms, sfu_ms) >= bytes_ms else (bytes_ms, "bytes")
@@ -5285,8 +5418,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         errs["rmsnorm"] = max(errs["rmsnorm"], check_close(
             f"K3 timed input, {label}", rn_ops.rmsnorm(x, s, 1e-6),
             rmsnorm_ref(x, s, 1e-6), 1e-6, rel=True))
-        b_ms, b_by = flop_bound(4.0 * x.numel(),
-                                4.0 * (2 * x.numel() + dd))
+        b_ms, b_by = work_bound(rn_kernel.work(rows, dd))
         kind, nv = rn_kernel.variant(x, s)
         k3[label] = dict(shape=f"({rows}, {dd}) fp32", variant=kind, nv=nv,
                          ms=ms, plain_ms=plain, library_ms=lib_ms,
@@ -5321,8 +5453,7 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
             f"K3 timed input, {label}", rn_ops.rmsnorm(x, s, 1e-6, ss,
                                                        4 * dd),
             rmsnorm_ref(x, s, 1e-6, ss, 4 * dd), 1e-6, rel=True))
-        b_ms, b_by = flop_bound(4.0 * x.numel(),
-                                4.0 * (2 * x.numel() + dd + rows))
+        b_ms, b_by = work_bound(rn_kernel.work(rows, dd, split=True))
         kind, nv = rn_kernel.variant(x, s)
         k3[label] = dict(shape=f"({rows}, {dd}) fp32 of rows of {4 * dd}, "
                                f"cold ({n_rot} copies in turn)",
@@ -5373,9 +5504,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                     q, k, v, out, lse, do, **kw),
                                 attention_bwd_ref(q, k, v, out, lse, do,
                                                   **kw))))
-        pairs = float(mask.sum()) * bt * hq
-        k4l[label] = dict(ms=ms_l, **k4_bounds(pairs, d, 4.0 * (
-            2 * q.numel() + k.numel() + v.numel() + lse.numel())))
+        k4l[label] = dict(ms=ms_l, **k4_bounds(fa_kernel.work(
+            bt, hq, hkv, t, t, d, window=window, with_lse=True)))
         log(f"  K4 with L, {label} layer ({bt},{hq},{t},{d}) Hkv {hkv} fp32:"
             f" {ms_l:.4f} ms (bound {k4l[label]['bound_ms']:.4f} ms by "
             f"{k4l[label]['bound_by']}, 3xTF32 "
@@ -5383,13 +5513,11 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
         # S, dP, dV, dQ, dK: 5 D FMAs a live pair; q, k, v, o, dO and L
         # read once, dq, dk, dv and delta written once.  Two bounds: fp32 on
         # the CUDA cores, and the route K4b takes, 3xTF32 on the tensor cores
-        flops = 10.0 * pairs * d
-        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
-        b_ms, b_by = flop_bound(flops, nbytes)
-        tc_ms, tc_by = flop_bound(3.0 * flops, nbytes, TF32_FLOP_PER_S)
-        k4b[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by,
-                          bound_ms_3xtf32=tc_ms, bound_by_3xtf32=tc_by)
+        bb = k4_bounds(fa_kernel.work(bt, hq, hkv, t, t, d, window=window,
+                                      bwd=True))
+        b_ms, b_by, tc_ms, tc_by = (bb[k] for k in (
+            "bound_ms", "bound_by", "bound_ms_3xtf32", "bound_by_3xtf32"))
+        k4b[label] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, **bb)
         log(f"  K4b {label} layer ({bt},{hq},{t},{d}) Hkv {hkv} fp32: "
             f"{ms:.4f} ms (plain {plain:.3f} ms, SDPA backward {lib_ms:.4f}"
             f" ms, bound {b_ms:.4f} ms by {b_by} as fp32 on the CUDA cores, "
@@ -5423,12 +5551,11 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                     q, k, v, out, lse, do, **kw),
                                 attention_bwd_ref(q, k, v, out, lse, do,
                                                   **kw))))
-        pairs = t * (t + 1) / 2 * bt * heads
-        nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
-        b_ms, b_by = flop_bound(10.0 * pairs * hd, nbytes)
-        tc_ms, tc_by = flop_bound(30.0 * pairs * hd, nbytes,
-                                  TF32_FLOP_PER_S)
-        lb = k4_bounds(pairs, hd, 4.0 * (4 * q.numel() + lse.numel()))
+        bb = k4_bounds(fa_kernel.work(bt, heads, heads, t, t, hd, bwd=True))
+        b_ms, b_by, tc_ms, tc_by = (bb[k] for k in (
+            "bound_ms", "bound_by", "bound_ms_3xtf32", "bound_by_3xtf32"))
+        lb = k4_bounds(fa_kernel.work(bt, heads, heads, t, t, hd,
+                                      with_lse=True))
         shape_s = f"({bt},{heads},{t},{hd}) Hkv {heads} fp32, causal (global)"
         k4b[f"{label}_train"] = dict(
             shape=shape_s, ms=ms, plain_ms=plain, library_ms=lib_ms,
@@ -5475,15 +5602,14 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                 q, k, v, out, lse, do, **kw),
                             attention_bwd_ref(q, k, v, out, lse, do,
                                               **kw))))
-    pairs = t * (t + 1) / 2 * fb * fh
     shape_s = f"({fb},{fh},{t},{fd}) Hkv {fh} fp32, causal (global)"
     k4["moonshot_tp_rank"] = dict(
         shape=shape_s, instance=fa_kernel.instance(fd), ms=ms_f,
         plain_ms=plain_f, library_ms=lib_f, **k4_bounds(
-            pairs, fd, 4.0 * (2 * q.numel() + k.numel() + v.numel())))
-    nbytes = 4.0 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
-    b_ms, b_by = flop_bound(10.0 * pairs * fd, nbytes)
-    tc_ms, tc_by = flop_bound(30.0 * pairs * fd, nbytes, TF32_FLOP_PER_S)
+            fa_kernel.work(fb, fh, fh, t, t, fd)))
+    bb = k4_bounds(fa_kernel.work(fb, fh, fh, t, t, fd, bwd=True))
+    b_ms, b_by, tc_ms, tc_by = (bb[k] for k in (
+        "bound_ms", "bound_by", "bound_ms_3xtf32", "bound_by_3xtf32"))
     k4b["moonshot_tp_rank"] = dict(
         shape=shape_s, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
         bound_ms=b_ms, bound_by=b_by, bound_ms_3xtf32=tc_ms,
@@ -5518,14 +5644,14 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
                                 rn_kernel.rmsnorm_rows_bwd(x, sc, g),
                                 rmsnorm_bwd_ref(x, sc, g))))
         # x and g read once, dx written once, scale and dscale
-        b_ms, b_by = flop_bound(10.0 * x.numel(),
-                                4.0 * (3 * x.numel() + 2 * dd))
+        b_ms, b_by = work_bound(rn_kernel.work(rows, dd, bwd=True))
         k3b[label] = dict(shape=f"({rows}, {dd}) fp32", ms=ms,
                           plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
                           bound_by=b_by)
         log(f"  K3b {label} ({rows}, {dd}) fp32: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, autograd of F.rms_norm {lib_ms:.4f} ms, bound"
             f" {b_ms:.5f} ms by {b_by})")
+    k3b["zamba2_gate_rank_split"] = k3b_split_timing(rand, errs)
 
     # K5b at falcon-mamba-7b's training layer, gated, beside K5 with its
     # saved states (the training forward) and the serving K5; the bound
@@ -5647,7 +5773,8 @@ def phase_lm_timing(rng, counts: dict, errs: dict) -> list:
               f"({bt * t}, 1152) fp32, the residual", k3b["residual"],
               "q_norm", k3b["q_norm"], path="train")
         | {label: k3b[label] for label in (
-            "falcon_residual", "zamba2_residual", "zamba2_gate")},
+            "falcon_residual", "zamba2_residual", "zamba2_gate",
+            "zamba2_gate_rank_split")},
         entry("flash_attention_bwd",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_bwd.cu",

@@ -37,9 +37,19 @@ Library entry points never start a process group: the caller does, as
 ``torchrun`` would (:func:`init_process_group`, or :func:`spawn_ranks` for
 tests, examples and ``chip_smoke.py``).  Without a process group every
 function here acts on a group of one rank and moves nothing.
+
+**A planned world** (:func:`planned`) stands for a mesh of ranks that
+nobody starts: inside it :func:`rank` and :func:`world_size` return the
+planned values, :func:`new_group` returns a planned :class:`Group` with no
+process group, and every collective on a planned group returns a ``meta``
+tensor of the real result's shape (given a CPU or CUDA tensor it raises).
+``roofline.walk`` counts one rank's step so.  Under a walk every
+collective, real or planned, is recorded with its ring-model bytes, so a
+plan can be compared with a run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing
@@ -52,11 +62,14 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from .roofline import walk as _walk
+
 __all__ = ["TIMEOUT_S", "TRAFFIC", "Traffic", "Group", "init_process_group",
            "is_initialized", "rank", "world_size", "world", "as_group",
            "new_group", "axis_size", "axis_index", "ppermute", "all_gather",
            "psum", "pmean", "pmax", "copy_to", "reduce_from",
-           "gather_from", "spawn_ranks"]
+           "gather_from", "reduce_scatter", "gather_at_use",
+           "spawn_ranks", "planned"]
 
 TIMEOUT_S = 120.0
 _BACKENDS = ("gloo", "nccl")
@@ -103,26 +116,51 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+_PLANNED: list = []          # (world size, rank) of the planned worlds
+
+
+@contextlib.contextmanager
+def planned(mesh_size: int, rank_: int):
+    """A planned world of ``mesh_size`` ranks seen from rank ``rank_`` (the
+    module docstring).  Nothing is started; a process group, if any, is
+    left alone and unused by the groups made inside."""
+    if not 0 <= int(rank_) < int(mesh_size):
+        raise ValueError(f"rank {rank_} is not in a world of {mesh_size}")
+    _PLANNED.append((int(mesh_size), int(rank_)))
+    try:
+        yield
+    finally:
+        _PLANNED.pop()
+
+
 def rank() -> int:
-    """This process's global rank (0 without a process group)."""
+    """This process's global rank (0 without a process group; the planned
+    rank in a planned world)."""
+    if _PLANNED:
+        return _PLANNED[-1][1]
     return dist.get_rank() if is_initialized() else 0
 
 
 def world_size() -> int:
-    """The number of ranks (1 without a process group)."""
+    """The number of ranks (1 without a process group; the planned world's
+    size in a planned world)."""
+    if _PLANNED:
+        return _PLANNED[-1][0]
     return dist.get_world_size() if is_initialized() else 1
 
 
 class Group:
     """A process group and its members' global ranks in ring order.
 
-    ``pg`` is None for a group of one rank without a process group, and on
-    a rank outside the group.
+    ``pg`` is None for a group of one rank without a process group, on a
+    rank outside the group, and for a ``planned`` group (of a planned
+    world: its collectives return meta tensors).
     ``index`` is this process's position in ``ranks`` (JAX's
     ``axis_index``), -1 where it is not a member."""
 
-    def __init__(self, pg, ranks: Sequence[int]):
+    def __init__(self, pg, ranks: Sequence[int], planned: bool = False):
         self.pg = pg
+        self.planned = bool(planned)
         self.ranks = tuple(int(r) for r in ranks)
         self.size = len(self.ranks)
         me = rank()
@@ -138,11 +176,14 @@ class Group:
         return self.backend == "gloo"
 
     def __repr__(self) -> str:
-        return f"Group(ranks={self.ranks}, backend={self.backend})"
+        kind = "planned" if self.planned else f"backend={self.backend}"
+        return f"Group(ranks={self.ranks}, {kind})"
 
 
 def world() -> Group:
     """Every rank, in rank order (one rank without a process group)."""
+    if _PLANNED:
+        return Group(None, range(world_size()), planned=True)
     if not is_initialized():
         return Group(None, (0,))
     return Group(dist.group.WORLD, range(dist.get_world_size()))
@@ -164,6 +205,8 @@ def new_group(ranks: Sequence[int],
     the world calls it, with the same groups in the same order.  A rank
     outside ``ranks`` gets a group it cannot use (``pg`` None)."""
     ranks = [int(r) for r in ranks]
+    if _PLANNED:
+        return Group(None, ranks, planned=True)
     pg = dist.new_group(sorted(ranks), timeout=_timeout(timeout))
     return Group(pg if rank() in ranks else None, ranks)
 
@@ -206,6 +249,21 @@ def _wire_empty(g: Group, like: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(like, memory_format=torch.contiguous_format)
 
 
+def _planned_out(g: Group, xs, shape=None) -> list:
+    """Meta tensors standing for a planned collective's results (``shape``
+    of each, or each input's own); raises unless every input is meta."""
+    for x in xs:
+        if x.device.type != "meta":
+            raise ValueError(f"a collective on the planned group {g} takes "
+                             f"meta tensors, got one on {x.device}")
+    return [torch.empty(x.shape if shape is None else shape, dtype=x.dtype,
+                        device="meta") for x in xs]
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def ppermute(xs, group=None, shift: int = 1):
     """Send ``xs`` (a tensor or a list of tensors) to the member ``shift``
     places further along the ring and return what arrives from the member
@@ -217,6 +275,18 @@ def ppermute(xs, group=None, shift: int = 1):
     xs = [xs] if single else list(xs)
     if g.size == 1 or shift % g.size == 0:
         return xs[0] if single else xs
+    if g.planned:
+        out = _walk.collective("collective-permute",
+                               [_nbytes(x) for x in xs], g.size,
+                               lambda: _planned_out(g, xs))
+    else:
+        out = _walk.collective("collective-permute",
+                               [_nbytes(x) for x in xs], g.size,
+                               lambda: _ppermute(g, xs, shift))
+    return out[0] if single else out
+
+
+def _ppermute(g: Group, xs: list, shift: int) -> list:
     t0 = time.perf_counter()
     dst = g.ranks[(g.index + shift) % g.size]
     src = g.ranks[(g.index - shift) % g.size]
@@ -233,7 +303,7 @@ def ppermute(xs, group=None, shift: int = 1):
                                   for r in recvs)
     TRAFFIC.hops += 1
     TRAFFIC.seconds += time.perf_counter() - t0
-    return out[0] if single else out
+    return out
 
 
 _BYTE_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -248,6 +318,16 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     if x.dtype in _BYTE_DTYPES:
         # fp8 goes as its bytes (gloo has no float8 type)
         return all_gather(x.view(torch.uint8), g).view(x.dtype)
+    if g.planned:
+        run = lambda: _planned_out(g, [x], (g.size * x.shape[0],
+                                            *x.shape[1:]))[0]  # noqa: E731
+    else:
+        run = lambda: _all_gather(x, g)                        # noqa: E731
+    return _walk.collective("all-gather", [g.size * _nbytes(x)], g.size,
+                            run)
+
+
+def _all_gather(x: torch.Tensor, g: Group) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = _to_wire(g, x)
     parts = [torch.empty_like(buf) for _ in range(g.size)]
@@ -261,11 +341,58 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, g: Group, op) -> torch.Tensor:
+    if g.planned:
+        run = lambda: _planned_out(g, [x])[0]                  # noqa: E731
+    else:
+        run = lambda: _all_reduce_wire(x, g, op)               # noqa: E731
+    return _walk.collective("all-reduce", [_nbytes(x)], g.size, run)
+
+
+def _all_reduce_wire(x: torch.Tensor, g: Group, op) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = _to_wire(g, x, copy=True)
     dist.all_reduce(buf, op=op, group=g.pg)
     TRAFFIC.bytes_received += buf.numel() * buf.element_size()
     out = _from_wire(buf, x.device)
+    TRAFFIC.seconds += time.perf_counter() - t0
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of every member's ``x``, cut on ``dim`` into the members'
+    blocks in ring order: this member's block.  One
+    ``dist.reduce_scatter_tensor`` (gloo and NCCL both have it), so the
+    wire carries the reduce-scatter that a walk records."""
+    g = as_group(group)
+    if g.size == 1:
+        return x
+    dim = dim % x.dim()
+    n = x.shape[dim] // g.size
+    if n * g.size != x.shape[dim]:
+        raise ValueError(f"a dim of {x.shape[dim]} does not split over "
+                         f"{g.size} members")
+    block = (*x.shape[:dim], n, *x.shape[dim + 1:])
+    if g.planned:
+        run = lambda: _planned_out(g, [x], block)[0]           # noqa: E731
+    else:
+        run = lambda: _reduce_scatter(x, g, dim)               # noqa: E731
+    return _walk.collective("reduce-scatter", [_nbytes(x) // g.size],
+                            g.size, run)
+
+
+def _reduce_scatter(x: torch.Tensor, g: Group, dim: int) -> torch.Tensor:
+    t0 = time.perf_counter()
+    # the group's sorted numbering takes block j; lay the ring's blocks out
+    # so that the member at ring place i receives block i
+    blocks = x.movedim(dim, 0).chunk(g.size)
+    order = sorted(range(g.size),
+                   key=lambda i: dist.get_group_rank(g.pg, g.ranks[i]))
+    buf = _to_wire(g, torch.cat([blocks[i] for i in order]))
+    out = _wire_empty(g, blocks[0])
+    dist.reduce_scatter_tensor(out, buf, group=g.pg)
+    TRAFFIC.bytes_received += (g.size - 1) * out.numel() * out.element_size()
+    out = _from_wire(out, x.device).movedim(0, dim).contiguous()
     TRAFFIC.seconds += time.perf_counter() - t0
     return out
 
@@ -346,6 +473,29 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     gradient each member passes on as it is."""
     g = as_group(group)
     return x if g.size == 1 else _ReduceFrom.apply(x, g)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return all_gather(x.movedim(dim, 0), g).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return reduce_scatter(dy.contiguous(), ctx.g, ctx.dim), None, None
+
+
+def gather_at_use(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """ZeRO-3's gather of a weight at use: the members' blocks concatenated
+    on ``dim`` in ring order forward; backward, the sum of the members'
+    gradients of the whole, this member's block (a reduce-scatter).  Each
+    member holds a block of the weight and takes the gradient of its own
+    batch: the sum over the group is the whole batch's."""
+    g = as_group(group)
+    if g.size == 1:
+        return x
+    return _GatherAtUse.apply(x, g, dim % x.dim())
 
 
 def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

@@ -20,6 +20,12 @@ beside the output normalised over those slots its log-sum-exp per (b,
 query head): a rank's share, merged across ranks by
 ``models.layers.merge_partials``.  Its launches count under
 ``"decode_attention_partial"``.
+
+On ``meta`` tensors (a plan: ``roofline.walk`` on the meta device) the
+wrapper runs the card path's checks and returns empty outputs of the
+card's shapes; it computes nothing.  :func:`work` is each call's FLOPs and
+bytes, which the wrapper reports to a running walk on every device and
+``chip_smoke.py``'s bounds read.
 """
 from __future__ import annotations
 
@@ -27,14 +33,16 @@ import ctypes
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ...roofline.walk import Work, launch
 from .._build import KernelFamily
 from .ref import decode_attention_ref
 
 __all__ = ["SOURCES", "FAMILY", "D_MAX", "GROUPS", "launches",
            "decode_attention", "check_slots", "width", "tile", "cluster_size",
-           "launch_shape", "plan", "spans"]
+           "launch_shape", "plan", "spans", "live_slots", "work"]
 
 SOURCES = {"decode_attention": "decode_attention.cu"}
 D_MAX = 256
@@ -147,6 +155,36 @@ def plan(k: torch.Tensor) -> tuple:
                         _resident(dev, _DTYPE_CODE[k.dtype], d))
 
 
+def live_slots(s: int, pos: int, window: Optional[int] = None,
+               slots: Optional[tuple] = None) -> int:
+    """The valid slots of a cache of ``s`` slots at position ``pos`` (the
+    kernel reads these and zero-fills the rest): slot i holds the latest
+    position p <= pos with p = i (mod the whole cache's slots), valid where
+    p >= 0 and, with ``window``, pos - p < window.  ``slots`` = (s0,
+    s_all): the cache is slots s0 .. s0 + s - 1 of one of s_all."""
+    s0, s_all = (0, s) if slots is None else (int(x) for x in slots)
+    back = np.remainder(int(pos) - (s0 + np.arange(s, dtype=np.int64)),
+                        s_all)
+    valid = back <= int(pos)
+    if window is not None:
+        valid &= back < int(window)
+    return int(valid.sum())
+
+
+def work(b: int, hq: int, hkv: int, s: int, d: int, pos: int,
+         window: Optional[int] = None, cache_dtype=torch.float32,
+         slots: Optional[tuple] = None) -> Work:
+    """One call's work: 4 FLOP per (query head, live slot, element) of QK
+    and PV; the live slots' K / V read once in the cache's dtype, q read
+    and the output written in fp32 (and, in the partial form, the
+    log-sum-exp written)."""
+    live = float(live_slots(s, pos, window, slots))
+    size = torch.empty((), dtype=cache_dtype).element_size()
+    nq = float(b) * hq * d
+    return Work(4.0 * nq * live, 2.0 * size * b * hkv * live * d
+                + 2.0 * 4 * nq + (4.0 * b * hq if slots is not None else 0.0))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            pos: int, window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
@@ -176,7 +214,7 @@ def check_slots(slots, s: int) -> None:
 
 
 def _check_cuda(q, k, v) -> None:
-    if q.device.type != "cuda" or k.dtype not in _DTYPE_CODE:
+    if q.device.type not in ("cuda", "meta") or k.dtype not in _DTYPE_CODE:
         raise ValueError(f"decode_attention runs on CUDA with an fp32, bf16 "
                          f"or float8_e4m3fn cache, got {q.device} {k.dtype}")
     if k.device != q.device or v.device != q.device or v.dtype != k.dtype:
@@ -203,11 +241,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, pos, window)
     if slots is not None:
         check_slots(slots, k.shape[2])
+    b, hq, _, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    # q widened to a contiguous fp32 copy for the launch
+    copy = 0 if q.dtype == torch.float32 and q.is_contiguous() \
+        else 4 * b * hq * d
+    return launch(PARTIAL if slots is not None else "decode_attention",
+                  lambda: work(b, hq, hkv, s, d, pos, window, k.dtype, slots),
+                  lambda: _decode_attention(q, k, v, pos, window, slots),
+                  lambda: copy)
+
+
+def _decode_attention(q, k, v, pos, window, slots):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, window, slots)
     _check_cuda(q, k, v)
     b, hq, _, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        out = torch.empty((b, hq, 1, d), dtype=torch.float32, device="meta")
+        if slots is None:
+            return out
+        return out, torch.empty((b, hq, 1), dtype=torch.float32,
+                                device="meta")
     qf = q.float().contiguous()
     out = torch.empty((b, hq, 1, d), dtype=torch.float32, device=q.device)
     w, c = plan(k)

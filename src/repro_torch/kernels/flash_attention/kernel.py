@@ -17,19 +17,29 @@ on the CUDA cores.  K4b runs every product on the tensor cores in 3xTF32,
 as a delta pre-pass, one launch of dK / dV and dQ blocks, and, when Hq >
 Hkv, a sum of per-query-head fp32 partials that the wrapper allocates (2 x
 B Hq Tk D floats); one count per call of its kernels.
+
+On ``meta`` tensors (a plan: ``roofline.walk`` on the meta device) the
+wrappers run the card path's checks and return empty outputs of the card's
+shapes; they compute nothing.  :func:`work` is each call's FLOPs and
+bytes, which the wrappers report to a running walk on every device and
+``chip_smoke.py``'s bounds read.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ...roofline.walk import Work, launch
 from .._build import KernelFamily
 from .ref import attention_bwd_ref, attention_fwd_ref
 
 __all__ = ["SOURCES", "FAMILY", "D_MAX", "INSTANCES", "launches",
-           "instance", "flash_attention", "flash_attention_bwd"]
+           "instance", "flash_attention", "flash_attention_bwd",
+           "live_pairs", "work"]
 
 SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -60,6 +70,37 @@ def instance(d: int) -> str:
     return next(name for name in INSTANCES if d <= INSTANCE_D[name])
 
 
+@functools.lru_cache(maxsize=256)
+def live_pairs(tq: int, tk: int, causal: bool = True,
+               window=None) -> int:
+    """The (query, key) pairs the mask keeps for one head: query i at
+    position i against keys 0 .. tk - 1, causal (key <= query) and within
+    ``window`` (query - key < window)."""
+    i = np.arange(tq, dtype=np.int64)
+    hi = np.minimum(i, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = np.maximum(0, i - int(window) + 1) if window is not None \
+        else np.zeros(tq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(b: int, hq: int, hkv: int, tq: int, tk: int, d: int, *,
+         causal: bool = True, window=None, dtype=torch.float32,
+         with_lse: bool = False, bwd: bool = False) -> Work:
+    """One call's work, live score pairs only.  K4: 2 D multiply-adds a
+    live pair (QK and PV: 4 D FLOP); q, k and v read and the output (and
+    L) written once.  K4b (``bwd``): S, dP, dV, dQ and dK, 5 D
+    multiply-adds a live pair; q, k, v, o, dO and L read, dq, dk, dv and
+    delta written once."""
+    pairs = float(live_pairs(tq, tk, causal, window)) * b * hq
+    size = torch.empty((), dtype=dtype).element_size()
+    nq, nk = float(b) * hq * tq * d, float(b) * hkv * tk * d
+    rows = float(b) * hq * tq
+    if bwd:
+        return Work(10.0 * pairs * d, size * (4 * nq + 4 * nk) + 8.0 * rows)
+    return Work(4.0 * pairs * d, size * (2 * nq + 2 * nk)
+                + (4.0 * rows if with_lse else 0.0))
+
+
 def _check(q, k, v, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
@@ -77,7 +118,7 @@ def _check(q, k, v, window) -> None:
 def _check_cuda(q, **others) -> None:
     """Raise unless the kernels take q and ``others`` (same device and
     dtype, unit last stride)."""
-    if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
+    if q.device.type not in ("cuda", "meta") or q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention runs on CUDA fp32/bf16 tensors, "
                          f"got {q.device} {q.dtype}")
     for what, x in others.items():
@@ -100,6 +141,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (out, lse), lse the rows' fp32 (B, Hq, Tq) log-sum-exp (K4b's input);
     the output is the same bits either way."""
     _check(q, k, v, window)
+    return launch("flash_attention", lambda: work(
+        *q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+        causal=causal, window=window, dtype=q.dtype, with_lse=with_lse),
+        lambda: _flash_attention(q, k, v, scale, causal, window, with_lse))
+
+
+def _flash_attention(q, k, v, scale, causal, window, with_lse):
     if q.device.type == "cpu":
         out, lse = attention_fwd_ref(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -110,6 +158,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if q.device.type == "meta":
+        return (out, lse) if with_lse else out
     fn = FAMILY.fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -136,6 +186,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q "
                          f"{tuple(q.shape)}")
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    # delta, and each query head's fp32 dK / dV where Hq > Hkv
+    workspace = 4 * b * hq * tq + (8 * b * hq * tk * d if hq > hkv else 0)
+    return launch("flash_attention_bwd", lambda: work(
+        b, hq, hkv, tq, tk, d, causal=causal, window=window, dtype=q.dtype,
+        bwd=True), lambda: _flash_attention_bwd(q, k, v, o, lse, do, scale,
+                                                causal, window),
+        lambda: workspace)
+
+
+def _flash_attention_bwd(q, k, v, o, lse, do, scale, causal, window):
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, scale=scale)
@@ -149,6 +211,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, hkv, tk, d), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        return dq, dk, dv
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     # each query head's fp32 dK / dV, summed over its group in head order
     part_k, part_v = (torch.empty((b, hq, tk, d), dtype=torch.float32,

@@ -31,6 +31,7 @@ from pathlib import Path
 
 import torch
 
+from ...roofline.walk import Work
 from .._build import KernelFamily
 from .ref import fw_tile_ref, minplus_acc_ref
 
@@ -38,7 +39,7 @@ __all__ = ["SOURCES", "build", "build_log", "launches", "reset_launches",
            "minplus_acc", "variant", "MINPLUS_VARIANTS", "MINPLUS_BK", "SMS",
            "fw_tile", "fw_tile_variant",
            "cluster_barrier_cycles", "FW_TILE_MAX", "FW_TILE_CLUSTER",
-           "FW_TILE_PIVOTS", "FW_TILE_VARIANTS"]
+           "FW_TILE_PIVOTS", "FW_TILE_VARIANTS", "work", "fw_tile_work"]
 
 SOURCES = {"minplus_acc": "minplus_acc.cu", "fw_tile": "fw_tile.cu"}
 FW_TILE_MAX = 256
@@ -67,6 +68,23 @@ launches = FAMILY.launches
 build_log = FAMILY.build_log       # name -> nvcc's register / spill report
 build = FAMILY.build
 reset_launches = FAMILY.reset_launches
+
+
+def work(batch: int, m: int, k: int, n: int, init: bool = True,
+         dtype=torch.float32) -> Work:
+    """K1's work on (B, M, K) x (B, K, N): B M K N relaxations, each two
+    instructions (add, min) at an FMA's rate, so four FLOP's worth; a and b
+    read, ``init`` read where given and the output written once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    relax = float(batch) * m * k * n
+    return Work(4.0 * relax, size * (float(batch) * (m * k + k * n)
+                                     + (2 if init else 1) * batch * m * n))
+
+
+def fw_tile_work(t: int) -> Work:
+    """K2's work on a T x T fp32 tile: T^3 relaxations (four FLOP's worth
+    each), the tile read and written once."""
+    return Work(4.0 * float(t) ** 3, 4.0 * 2 * t * t)
 
 
 def _check_operand(what: str, x: torch.Tensor, dtype, device) -> None:

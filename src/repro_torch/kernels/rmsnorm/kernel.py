@@ -27,6 +27,12 @@ others): ``x`` holds a block of each row's ``n`` columns and ``ss``
 summed, so the mean square is ss / n.  The gradient then holds the
 statistic and returns its gradient from the block's columns beside dx and
 dscale, for the caller to sum across ranks.
+
+On ``meta`` tensors (a plan: ``roofline.walk`` on the meta device) the
+wrappers run the card path's checks and return empty outputs of the card's
+shapes; they compute nothing.  :func:`work` is each call's FLOPs and
+bytes, which the wrappers report to a running walk on every device and
+``chip_smoke.py``'s bounds read.
 """
 from __future__ import annotations
 
@@ -35,11 +41,12 @@ from pathlib import Path
 
 import torch
 
+from ...roofline.walk import Work, launch
 from .._build import KernelFamily
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 __all__ = ["SOURCES", "FAMILY", "D_MAX", "launches", "rmsnorm_rows",
-           "rmsnorm_rows_bwd", "variant"]
+           "rmsnorm_rows_bwd", "variant", "work"]
 
 SOURCES = {"rmsnorm": "rmsnorm.cu", "rmsnorm_bwd": "rmsnorm_bwd.cu"}
 D_MAX = 2048           # the largest d whose row a warp keeps in registers
@@ -68,6 +75,21 @@ _EXT_ARGS = {"rmsnorm_ext": [_I, _I, _I, _P, _L, _P, _P, _L, _I, _I, _F, _P,
                              _I, _P],
              "rmsnorm_bwd_ext": [_I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _P,
                                  _P, _I, _I, _I, _F, _P, _P, _I, _P]}
+
+
+def work(rows: int, d: int, dtype=torch.float32, split: bool = False,
+         bwd: bool = False) -> Work:
+    """One call's work over (rows, d) in ``dtype``.  K3: 4 FLOP an element;
+    x read, the output written, scale read (and, split, ``ss`` (rows,)
+    fp32 read).  K3b (``bwd``): 10 FLOP an element; x and g read, dx
+    written, scale read and dscale written (split: ``ss`` read and its
+    gradient (rows,) fp32 written)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n = float(rows) * d
+    if bwd:
+        return Work(10.0 * n, size * (3 * n + 2 * d) + (8.0 * rows if split
+                                                         else 0.0))
+    return Work(4.0 * n, size * (2 * n + d) + (4.0 * rows if split else 0.0))
 
 
 def variant(x: torch.Tensor, scale: torch.Tensor,
@@ -112,7 +134,7 @@ def variant(x: torch.Tensor, scale: torch.Tensor,
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     """Raise unless K3 / K3b take ``x`` (rows, d) and ``scale`` (d,) on
     CUDA."""
-    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODE:
+    if x.device.type not in ("cuda", "meta") or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"rmsnorm runs on CUDA fp32/bf16 tensors, got "
                          f"{x.device} {x.dtype}")
     if scale.device != x.device or scale.dtype != x.dtype \
@@ -146,11 +168,18 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     ``ss`` / ``n``, a block of rows split by columns (the module
     docstring)."""
     _check_shapes(x, scale, ss, n)
+    return launch("rmsnorm", lambda: work(*x.shape, x.dtype, ss is not None),
+                  lambda: _rmsnorm_rows(x, scale, eps, ss, n))
+
+
+def _rmsnorm_rows(x, scale, eps, ss, n) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps, ss, n)
     _check(x, scale)
     rows, d = x.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        return out
     kind, nv = variant(x, scale)
     args = (_DTYPE_CODE[x.dtype], VARIANTS.index(kind), nv, x.data_ptr(),
             x.stride(0), scale.data_ptr(), out.data_ptr(), d, rows, d,
@@ -212,6 +241,20 @@ def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if g.shape != x.shape:
         raise ValueError(f"rmsnorm_bwd: g {tuple(g.shape)} is not x's "
                          f"{tuple(x.shape)}")
+    return launch("rmsnorm_bwd",
+                  lambda: work(*x.shape, x.dtype, ss is not None, bwd=True),
+                  lambda: _rmsnorm_rows_bwd(x, scale, g, eps, ss, n),
+                  lambda: _bwd_workspace(*x.shape))
+
+
+def _bwd_workspace(rows: int, d: int) -> int:
+    """K3b's fp32 partial dscale rows, as a plan counts them: a chunk of
+    at least 8 rows a block, at most one block an SM of the H100's 132
+    (the card's own count is the occupancy calculator's)."""
+    return 4 * d * max(1, min(-(-rows // 8), 132))
+
+
+def _rmsnorm_rows_bwd(x, scale, g, eps, ss, n) -> tuple:
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, scale, g, eps, ss, n)
     _check(x, scale)
@@ -221,6 +264,13 @@ def rmsnorm_rows_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if g.stride(1) != 1:
         g = g.contiguous()
     rows, d = x.shape
+    if x.device.type == "meta":
+        dx = torch.empty((rows, d), dtype=x.dtype, device="meta")
+        dscale = torch.empty((d,), dtype=scale.dtype, device="meta")
+        if ss is None:
+            return dx, dscale
+        return dx, dscale, torch.empty((rows,), dtype=torch.float32,
+                                       device="meta")
     kind, nv = variant(x, scale, g)
     chunks = _bwd_chunks(rows, d, x.device, kind, _DTYPE_CODE[x.dtype], nv)
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)

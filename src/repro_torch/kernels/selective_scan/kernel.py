@@ -15,6 +15,12 @@ take the plain versions (``ref.selective_scan_ref`` /
 and launch the kernels for CUDA tensors -- or raise: there is no
 fallback.  They take contiguous fp32 tensors only, allocate the outputs
 and count launches in :data:`launches`.
+
+On ``meta`` tensors (a plan: ``roofline.walk`` on the meta device) the
+wrappers run the card path's checks and return empty outputs of the card's
+shapes; they compute nothing.  :func:`work` is each call's FLOPs, exps and
+bytes, which the wrappers report to a running walk on every device and
+``chip_smoke.py``'s bounds read.
 """
 from __future__ import annotations
 
@@ -24,12 +30,13 @@ from typing import Optional
 
 import torch
 
+from ...roofline.walk import Work, launch
 from .._build import KernelFamily
 from .ref import (selective_scan_bwd_ref, selective_scan_gated_ref,
                   selective_scan_ref)
 
 __all__ = ["SOURCES", "FAMILY", "N_MAX", "STATE_EVERY", "BWD_CH", "launches",
-           "selective_scan", "selective_scan_bwd", "bwd_occupancy"]
+           "selective_scan", "selective_scan_bwd", "bwd_occupancy", "work"]
 
 SOURCES = {"selective_scan": "selective_scan.cu",
            "selective_scan_bwd": "selective_scan_bwd.cu"}
@@ -42,6 +49,33 @@ FAMILY = KernelFamily(
     {"selective_scan": [_P] * 11 + [_I] * 4 + [_P],
      "selective_scan_bwd": [_P] * 18 + [_I] * 5 + [_P]})
 launches = FAMILY.launches
+
+
+def work(bsz: int, s: int, d: int, n: int, gated: bool = True,
+         states: bool = False, bwd: bool = False,
+         dh_last: bool = False) -> Work:
+    """One call's work at (B, S, d, N), fp32.  K5: per (b, t, c, n) one exp
+    on the special-function units and dt*A, decay*h + dx*B and the FMA of y
+    (6 FLOP, an FMA = 2), plus dt*x per (b, t, c); the gate adds one exp
+    (the sigmoid's) and 5 FLOP per (b, t, c).  Bytes: dt and x read (and
+    z), y written, B_t / C_t, A (and D), h0 and h_last (and, with
+    ``states``, the saved state of every 16-step tile).  K5b (``bwd``):
+    ~22 FLOP per (b, t, c, n) (the state stepped forward, C . h, the
+    reverse step and the five sums), the decay's exp per (b, t, c, n) and
+    the sigmoid's per (b, t, c) gated; dt, x, dout (and z) read, ddt, dx
+    (and dz) written, B_t / C_t read and dB / dC written, A read and dA
+    written (and D, dD), h0 read and dh0 written (and dh_last read)."""
+    elems, rows = float(bsz) * s * d * n, float(bsz) * s * d
+    if bwd:
+        nbytes = 4.0 * ((7 if gated else 5) * rows + 4 * bsz * s * n
+                        + 2 * d * n + (2 * d if gated else 0)
+                        + (3 if dh_last else 2) * bsz * d * n)
+        return Work(22.0 * elems, nbytes, elems + (rows if gated else 0.0))
+    nbytes = 4.0 * ((4 if gated else 3) * rows + 2 * bsz * s * n + d * n
+                    + (d if gated else 0) + 2 * bsz * d * n
+                    + (bsz * -(-s // STATE_EVERY) * d * n if states else 0))
+    return Work(6.0 * elems + (6 if gated else 1) * rows, nbytes,
+                elems + (rows if gated else 0.0))
 
 
 def _check_shapes(dt, x, bmat, cmat, a, h0, dskip, z) -> None:
@@ -74,7 +108,7 @@ def _check_cuda(dt, **others) -> None:
             raise ValueError(f"selective_scan runs on contiguous fp32 CUDA "
                              f"tensors on one device; {what} is {t.device} "
                              f"{t.dtype}, contiguous={t.is_contiguous()}")
-    if dt.device.type != "cuda":
+    if dt.device.type not in ("cuda", "meta"):
         raise ValueError(f"selective_scan: unsupported device {dt.device}")
     if others["bmat"].shape[2] > N_MAX or dt.shape[0] > 65535:
         raise ValueError(f"selective_scan supports N <= {N_MAX} and B <= "
@@ -94,6 +128,12 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     tile, (B, ceil(S / 16), d, N), what K5b takes (None on the CPU, where
     the plain backward runs forward again from h0)."""
     _check_shapes(dt, x, bmat, cmat, a, h0, dskip, z)
+    return launch("selective_scan", lambda: work(
+        *dt.shape, bmat.shape[2], z is not None, states),
+        lambda: _selective_scan(dt, x, bmat, cmat, a, h0, dskip, z, states))
+
+
+def _selective_scan(dt, x, bmat, cmat, a, h0, dskip, z, states) -> tuple:
     gated = z is not None
     if dt.device.type == "cpu":
         plain = selective_scan_gated_ref(dt, x, bmat, cmat, a, h0, dskip,
@@ -108,6 +148,8 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=dt.device)
     hs = torch.empty((bsz, -(-s // STATE_EVERY), d, n), dtype=torch.float32,
                      device=dt.device) if states else None
+    if dt.device.type == "meta":
+        return (y, h_last, hs) if states else (y, h_last)
     fn = FAMILY.fn("selective_scan")
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -134,6 +176,20 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     ``ref.selective_scan_bwd_ref``.  On CUDA one launch, then the block
     and batch partials of dB, dC, dA (and dD) summed in a fixed order."""
     _check_shapes(dt, x, bmat, cmat, a, h0, dskip, z)
+    bsz, s, d = dt.shape
+    n = bmat.shape[2]
+    gated = z is not None
+    # the block partials of dB / dC and the batch partials of dA (and dD)
+    workspace = 4 * (2 * bsz * s * -(-d // BWD_CH) * n + bsz * d * n
+                     + (bsz * d if gated else 0))
+    return launch("selective_scan_bwd", lambda: work(
+        bsz, s, d, n, gated, bwd=True, dh_last=dh_last is not None),
+        lambda: _selective_scan_bwd(dt, x, bmat, cmat, a, h0, hs, dout,
+                                    dh_last, dskip, z), lambda: workspace)
+
+
+def _selective_scan_bwd(dt, x, bmat, cmat, a, h0, hs, dout, dh_last, dskip,
+                        z) -> tuple:
     gated = z is not None
     if dt.device.type == "cpu":
         return selective_scan_bwd_ref(dt, x, bmat, cmat, a, h0, dout,
@@ -154,6 +210,13 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                          f"{tuple(dout.shape)}, dh_last {got}")
     gate = {"dskip": dskip, "z": z} if gated else {}
     _check_cuda(dt, x=x, bmat=bmat, cmat=cmat, a=a, **others, **gate)
+    if dt.device.type == "meta":
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+
+        grads = (empty(bsz, s, d), empty(bsz, s, d), empty(bsz, s, n),
+                 empty(bsz, s, n), empty(d, n), empty(bsz, d, n))
+        return (*grads, empty(d), empty(bsz, s, d)) if gated else grads
     blocks = -(-d // BWD_CH)
 
     def new(*shape):

@@ -35,7 +35,7 @@ __all__ = ["_NAME_RULES", "spec_for_param", "param_specs", "zero_spec",
            "zero3_param_specs", "state_specs", "cache_specs", "batch_specs",
            "local_batch", "NamedSharding", "to_shardings", "keystr", "tree_map_with_path",
            "local_shape", "local_slice", "gather_leaf", "shard_params",
-           "gather_params", "spec_axes"]
+           "gather_params", "spec_axes", "zero3_gather"]
 
 Tree = Any
 
@@ -374,3 +374,60 @@ def gather_params(tree: Tree, specs: Tree, mesh) -> Tree:
     the whole tree."""
     return tree_map_with_path(
         lambda path, x, s: gather_leaf(x, s, mesh), tree, specs)
+
+
+def zero3_gather(pspecs: Tree, mesh, data_axes: Sequence[str] = ("data",)):
+    """ZeRO-3's gather at use for ``models.model.forward(gather=)``, or None
+    where no leaf of ``pspecs`` (a params spec tree) splits a dim over the
+    ``data_axes``.  The hook takes a subtree of rank blocks and its path in
+    the params tree and returns the tensor-parallel blocks: each leaf split
+    over data axes gathered over them on that dim
+    (``distributed.gather_at_use``: its gradient reduce-scattered).  Under
+    ``blocks`` a leaf split over data on its leading block dim is gathered
+    whole, once, when the hook is given the stacked tree itself
+    (``layer=False``); every other leaf there a layer at a time, when it
+    is given one layer's weights indexed out of the stack (which lose the
+    block dim)."""
+    data = set(data_axes)
+
+    def data_dim(spec):
+        for d, entry in enumerate(spec):
+            axes = PartitionSpec.axes_of(entry)
+            if axes and set(axes) <= data and mesh.axis_size(axes) > 1:
+                return d, axes
+        return None
+
+    found = []
+    tree_map_with_path(lambda path, sp: found.append(data_dim(sp)), pspecs)
+    if not any(found):
+        return None
+    # the vocab-parallel head reads its vocabulary range off the blocks'
+    # shapes (``models.model.head_range``): the vocab dim is not data's
+    for name, vocab_dim in (("embed", 0), ("lm_head", 1)):
+        hit = data_dim(pspecs[name]) if name in pspecs else None
+        if hit is not None and hit[0] == vocab_dim:
+            raise NotImplementedError(
+                f"ZeRO-3 over {name}'s vocabulary dim")
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def gather(sub, path: tuple, layer: bool = True):
+        stacked = len(path) > 0 and path[0] == "blocks"
+
+        def one(p, leaf, sp):
+            hit = data_dim(sp)
+            if hit is None:
+                return leaf
+            d, axes = hit
+            if stacked:
+                if (d == 0) == layer:      # the stack's dim: gathered whole
+                    return leaf
+                d -= layer
+            return D.gather_at_use(leaf, mesh.group(axes), d)
+
+        return tree_map_with_path(one, sub, at(pspecs, path), path=path)
+
+    return gather

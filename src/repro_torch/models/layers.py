@@ -482,11 +482,12 @@ def kv_block(cache_k: torch.Tensor, cfg: ArchConfig, cache_len: int,
 def gather_columns(ys: list, tp: D.Group) -> list:
     """Each of ``ys`` (..., n_i), a rank's column block of a product, whole
     over ``tp`` (..., m n_i), in one ``all_gather`` of their
-    concatenation."""
+    concatenation.  Each comes back contiguous: a block one column wide
+    flattens to a view of stride ``sum(widths)``, which K3 refuses."""
     widths = [y.shape[-1] for y in ys]
     both = D.gather_from(torch.cat(ys, dim=-1), tp, dim=-1)
     parts = both.unflatten(-1, (tp.size, sum(widths))).split(widths, dim=-1)
-    return [p.flatten(-2) for p in parts]
+    return [p.flatten(-2).contiguous() for p in parts]
 
 
 def merge_partials(out: torch.Tensor, lse: torch.Tensor,

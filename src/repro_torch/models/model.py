@@ -78,6 +78,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -178,7 +179,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     ``jax.random``'s: parity tests carry the JAX parameters across with
     ``convert.params_from_jax``."""
     check_supported(cfg)
-    dev = torch.device("meta") if device == "meta" else resolve_device(device)
+    dev = _device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     per = pattern_period(cfg)
@@ -208,6 +209,14 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
                             dtype, dev)}
     return params
+
+
+def _device(device) -> torch.device:
+    """``device`` resolved by the device rule, or the ``meta`` device (a
+    plan's shapes) where it names it."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def _leaves(tree):
@@ -249,7 +258,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     if dtype not in CACHE_DTYPES:
         raise ValueError(f"KV cache dtype {dtype}: one of {CACHE_DTYPES}")
     state_dtype = torch.bfloat16 if dtype == torch.float8_e4m3fn else dtype
-    dev = torch.device("meta") if device == "meta" else resolve_device(device)
+    dev = _device(device)
     per = pattern_period(cfg)
     n_blocks, n_rem = divmod(cfg.n_layers, per)
     if mesh is not None:
@@ -326,10 +335,11 @@ def _write_prefill_cache(cache_kv: Tree, k_new: torch.Tensor,
     if slots is not None:
         s0, s_c = slots
         first = max(s - s_c, 0)                  # the positions kept
-        slot = torch.arange(first, s, device=k_new.device) % s_c - s0
+        slot = np.arange(first, s) % s_c - s0
         mine = (slot >= 0) & (slot < cache_kv["k"].shape[2])
-        pos = torch.arange(first, s, device=k_new.device)[mine]
-        index = (slice(None), slice(None), slot[mine])
+        pos = torch.as_tensor(np.arange(first, s)[mine], device=k_new.device)
+        index = (slice(None), slice(None),
+                 torch.as_tensor(slot[mine], device=k_new.device))
         write_cache((cache_kv["k"], cache_kv["v"]), index,
                     (k_new[:, :, pos], v_new[:, :, pos]))
         return
@@ -505,7 +515,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
             pos: Optional[int] = None, impl: str = "flash",
             remat: bool = False,
             vision_embeds: Optional[torch.Tensor] = None,
-            mesh=None, data_axes=("data",), max_len: Optional[int] = None):
+            mesh=None, data_axes=("data",), max_len: Optional[int] = None,
+            gather=None):
     """tokens (B, S) integer (S = 1 for decode, at absolute position
     ``pos``).  ``vision_embeds`` (B, Np, d), for a vision config in the
     train and prefill modes, are projected and prepended to the tokens'
@@ -513,7 +524,10 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     ``pos`` >= Np + S.  See the module docstring for what each mode
     returns, and for ``mesh`` / ``data_axes``; ``max_len`` is the caches'
     whole length (``init_caches``), which prefill and decode over a model
-    axis need to read a rank's block of a KV cache."""
+    axis need to read a rank's block of a KV cache.  ``gather``
+    (``launch.shardings.zero3_gather``): ``params`` hold ZeRO-3 blocks,
+    and each layer's weights are gathered at use (the top-level ones once,
+    at the start)."""
     check_supported(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode}")
@@ -533,6 +547,9 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
     per = pattern_period(cfg)
     kinds = [layer_kind(cfg, j) for j in range(per)]
     n_blocks, n_rem = divmod(cfg.n_layers, per)
+    if gather is not None:
+        params = {k: gather(v, (k,), layer=k != "blocks")
+                  for k, v in params.items()}
 
     vocab = vocab_range(cfg, tp, params["embed"].shape[0])
     if vocab is None:
@@ -579,6 +596,8 @@ def forward(cfg: ArchConfig, params: Tree, tokens: torch.Tensor, *,
         """Repetition i of the layer pattern; aux_ plus its layers' aux."""
         for j in range(per):
             lp = _index(params["blocks"][f"pos{j}"], i)
+            if gather is not None:
+                lp = gather(lp, ("blocks", f"pos{j}"))
             cache = None if training else \
                 _index(caches["blocks"][f"pos{j}"], i)
             x_, aj = _apply_layer(cfg, kinds[j], lp, x_, cache=cache, **kw)

@@ -157,14 +157,15 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, tc: TrainConfig, params: Tree,
             batch: Dict[str, torch.Tensor], impl: str = "flash", mesh=None,
-            data_axes=("data",)
+            data_axes=("data",), gather=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {"ce", "aux", "n_tok"}) of ``batch`` ({"tokens",
     "labels"}, (B, S) integers, and for a vision config optionally
     "vision_embeds" (B, Np, d)) under ``params``.  The patch positions
     carry no loss: their labels are padded with -1, as the reference
     pads them.  Over a ``mesh``: this rank's blocks and data shard (the
-    module docstring); the loss is the global batch's."""
+    module docstring); the loss is the global batch's.  ``gather``: ZeRO-3
+    blocks gathered at use (``models.model.forward``)."""
     labels = batch["labels"]
     vis = batch.get("vision_embeds") if cfg.frontend == "vision" else None
     if vis is not None:
@@ -173,7 +174,7 @@ def loss_fn(cfg: ArchConfig, tc: TrainConfig, params: Tree,
     tp, data = Mdl.mesh_groups(mesh, data_axes)
     vocab = Mdl.head_range(cfg, params, tp)
     kw = dict(remat=tc.remat, impl=impl, vision_embeds=vis, mesh=mesh,
-              data_axes=data_axes)
+              data_axes=data_axes, gather=gather)
     if tc.ce_chunk:
         x, head, aux = Mdl.forward(cfg, params, batch["tokens"],
                                    mode="train_hidden", **kw)
@@ -305,13 +306,15 @@ def _psum_leaves(leaves: list, group, bucket: int = 1 << 26) -> list:
     return out
 
 
-def _grads(cfg, tc, params, batch, impl, mesh, data_axes) -> tuple:
+def _grads(cfg, tc, params, batch, impl, mesh, data_axes,
+           gather=None) -> tuple:
     """(loss, metrics, grad leaves) of this rank's part, not yet summed
-    over the data axes."""
+    over the data axes (but ZeRO-3 leaves, ``gather``: summed, by their
+    gather's reduce-scatter)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, tc, tree_like(params, leaves), batch,
-                                impl, mesh, data_axes)
+                                impl, mesh, data_axes, gather)
         grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, list(grads)
@@ -343,10 +346,20 @@ def train_step(cfg: ArchConfig, tc: TrainConfig, state: TrainState,
     gradient tree before the update (the reference's hook for a compressed
     all-reduce).  Over a ``mesh``: ``state`` and ``batch`` are this rank's
     blocks (the module docstring) and ``specs`` is the state's
-    :func:`state_layout`."""
+    :func:`state_layout` (or ``launch.shardings.state_specs(zero3=True)``:
+    parameters split over the data axes too, gathered at use, their
+    gradients reduce-scattered and not summed over the data axes again)."""
+    gather, summed = None, set()
+    if mesh is not None and specs is not None:
+        from ..launch.shardings import spec_axes, zero3_gather
+
+        gather = zero3_gather(specs.params, mesh, data_axes)
+        if gather is not None:
+            summed = {i for i, sp in enumerate(tree_leaves(specs.params))
+                      if set(data_axes) & set(spec_axes(sp))}
     if tc.microbatches <= 1:
         loss, metrics, grads = _grads(cfg, tc, state.params, batch, "flash",
-                                      mesh, data_axes)
+                                      mesh, data_axes, gather)
     else:
         m = tc.microbatches
         b = batch["tokens"].shape[0]
@@ -360,14 +373,16 @@ def train_step(cfg: ArchConfig, tc: TrainConfig, state: TrainState,
             mb = {k: v[i * (b // m):(i + 1) * (b // m)]
                   for k, v in batch.items()}
             l, metrics, g = _grads(cfg, tc, state.params, mb, "flash", mesh,
-                                   data_axes)
+                                   data_axes, gather)
             acc = [a + gi for a, gi in zip(acc, g)]
             loss = loss + l
         grads = [a / m for a in acc]
         loss = loss / m
     data = Mdl.mesh_groups(mesh, data_axes)[1]
     if data is not None:
-        grads = _psum_leaves(grads, data)
+        rest = [i for i in range(len(grads)) if i not in summed]
+        for i, g in zip(rest, _psum_leaves([grads[i] for i in rest], data)):
+            grads[i] = g
     grads = tree_like(state.params, grads)
 
     if grad_transform is not None:

@@ -42,7 +42,9 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.train, repro_torch.distributed, "
             "repro_torch.launch.mesh, repro_torch.train.collectives, "
             "repro_torch.train.pod_compress, repro_torch.models.sharding, "
-            "repro_torch.launch.shardings; "
+            "repro_torch.launch.shardings, repro_torch.roofline, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.walk, "
+            "repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m == 'repro' or m.startswith('repro.')))")
     env = {"PYTHONPATH": "src", "PATH": os.environ.get("PATH", "/usr/bin")}
@@ -91,7 +93,9 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "data/pipeline.py", "checkpoint/checkpoint.py",
                 "launch/train.py", "distributed.py", "launch/mesh.py",
                 "train/collectives.py", "train/pod_compress.py",
-                "models/sharding.py", "launch/shardings.py"):
+                "models/sharding.py", "launch/shardings.py",
+                "roofline/__init__.py", "roofline/analysis.py",
+                "roofline/walk.py", "launch/dryrun.py"):
         assert mod in scanned, mod
     bad = [(str(p.relative_to(PORT)), mod) for p in files
            for mod in _imports(p)
